@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of the FedLoRA-Optimizer system (``repro``'s twin).
+
+Module paths mirror ``repro``'s (``repro_torch/models/layers.py`` ↔
+``repro/models/layers.py``); parameters are nested dicts of tensors keyed
+by the same "/"-joined leaf paths, with the stacked ``(n_superblocks, …)``
+block layout kept as is.  The package imports ``torch`` and numpy only:
+importing it needs neither a card, ``nvcc`` nor ``triton`` — the CUDA
+kernels build on first use (``kernels/_build.py``).
+
+Ported so far: the dense decoder and the multi-tenant serving path
+(``AdapterStore`` → ``ServeEngine``) through hand-written Hopper BGMV
+kernels.  Everything else raises ``NotImplementedError`` naming its
+ROADMAP item.
+"""
+from repro_torch.device import resolve_device  # noqa: F401

@@ -1,0 +1,42 @@
+"""Architecture registry of the port.
+
+Each ported architecture is one module exposing ARCH (exact published
+hyperparameters, source cited) and SMOKE (the reduced same-family
+variant used by CPU tests).  ``get_config("<id>")`` resolves either
+spelling (hyphens or underscores).  The reference registers more
+architectures; their non-dense families are not ported yet.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ArchConfig
+
+ARCH_IDS = ["deepseek-7b", "llama2-7b"]
+
+# in the reference registry, waiting for their families (ROADMAP A12)
+_NOT_PORTED = {"jamba-v0.1-52b", "seamless-m4t-large-v2", "granite-34b",
+               "qwen3-moe-30b-a3b", "gemma3-1b", "mixtral-8x22b",
+               "mamba2-2.7b", "qwen2-vl-2b", "qwen3-32b"}
+
+
+def _modname(arch_id: str) -> str:
+    return arch_id.replace("-", "_").replace(".", "_")
+
+
+def _module(arch_id: str):
+    known = {_modname(a): a for a in ARCH_IDS}
+    if _modname(arch_id) not in known:
+        if _modname(arch_id) in {_modname(a) for a in _NOT_PORTED}:
+            raise NotImplementedError(
+                f"architecture {arch_id!r} is not ported yet (ROADMAP A12)")
+        raise KeyError(f"unknown architecture {arch_id!r}")
+    return importlib.import_module(f"repro_torch.configs.{_modname(arch_id)}")
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    return _module(arch_id).ARCH
+
+
+def get_smoke_config(arch_id: str) -> ArchConfig:
+    return _module(arch_id).SMOKE

@@ -1,0 +1,44 @@
+"""Direction–Magnitude (D-M) decomposition (paper Eq. 1 / Eq. 4).
+
+For a kernel in (d_in, d_out) layout the DoRA "column" is the per-input-
+feature vector over outputs, so
+
+    mag(X) = ||X||_c           shape (..., d_in)    [norm over last axis]
+    dir(X) = X / ||X||_c       shape (..., d_in, d_out)
+    X      = dir * mag[..., None]                   (Eq. 1)
+
+Leading stacked dims (the superblock layer axis) pass straight through.
+"""
+from __future__ import annotations
+
+import torch
+
+_EPS = 1e-12
+
+
+def magnitude(x):
+    return torch.linalg.vector_norm(x.float(), dim=-1)
+
+
+def decompose(x):
+    """x (..., d_in, d_out) → (mag (..., d_in), dir (..., d_in, d_out))."""
+    m = magnitude(x)
+    d = x.float() / (m[..., None] + _EPS)
+    return m.to(x.dtype), d.to(x.dtype)
+
+
+def recompose(mag, dir_):
+    """(Eq. 1)  X = mag ⊙ dir  (broadcast over the output axis)."""
+    return (dir_.float() * mag.float()[..., None]).to(dir_.dtype)
+
+
+def recompose_lora_pair(c):
+    """Decomposed factors → (A, B), honouring the trained deltas
+    (paper Eq. 9 / Eq. 10):
+
+        A = (A_dir + dA_dir) · diag(A_mag)
+        B = diag(B_mag + dB_mag) · B_dir
+    """
+    a_dir = c["A_dir"] + c["dA_dir"] if "dA_dir" in c else c["A_dir"]
+    b_mag = c["B_mag"] + c["dB_mag"] if "dB_mag" in c else c["B_mag"]
+    return recompose(c["A_mag"], a_dir), recompose(b_mag, c["B_dir"])

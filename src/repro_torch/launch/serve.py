@@ -1,0 +1,62 @@
+"""Greedy generation: batched prefill, then a decode loop.
+
+Per-tenant adapters, two deployment modes:
+
+  * merge-per-tenant (``merge_adapters`` + one generate call per tenant)
+    — the reference path the engine is held against;
+  * mixed-batch multi-tenant via ``repro_torch.serve`` — one batch
+    spanning many tenants, adapters gathered per row from pooled storage
+    by the BGMV kernels (never merged into the backbone).
+
+The reference runs the decode steps as one jitted ``lax.scan``; PyTorch
+runs eagerly, so here they are a Python loop with no host sync inside.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.device import check_on, resolve_device
+from repro_torch.models import model as M
+from repro_torch.models.config import ArchConfig
+from repro_torch.utils import pytree as pt
+
+Params = Any
+
+
+def greedy_generate(params, prompt_batch: dict, cfg: ArchConfig,
+                    n_new: int = 16, adapter_idx=None, *, device="cuda"):
+    """Greedy prefill → decode loop; returns (B, n_new) int64 tokens.
+    ``prompt_batch["tokens"]`` (B, S) may be numpy or a tensor; it and
+    ``adapter_idx`` (B,) move to ``device``, where ``params`` must live."""
+    dev = resolve_device(device)
+    check_on(params["embed"]["embedding"], dev, "params")
+    tokens = torch.as_tensor(prompt_batch["tokens"], device=dev)
+    S = tokens.shape[1]
+    batch = {"tokens": tokens}
+    if adapter_idx is not None:
+        adapter_idx = torch.as_tensor(adapter_idx, dtype=torch.int32,
+                                      device=dev)
+        batch["adapter_idx"] = adapter_idx
+    logits, cache = M.prefill(params, batch, cfg, cache_len=S + n_new)
+    tok = M.argmax_first(logits)
+    out = [tok]
+    for i in range(n_new - 1):
+        logits, cache = M.decode_step(params, tok, cache, S + i, cfg,
+                                      adapter_idx=adapter_idx)
+        tok = M.argmax_first(logits)
+        out.append(tok)
+    return torch.stack(out, dim=1)
+
+
+def greedy_generate_reference(params, prompt_batch: dict, cfg: ArchConfig,
+                              n_new: int = 16, *, device="cuda"):
+    """The reference's per-step parity oracle.  In the port
+    ``greedy_generate`` is already a per-step loop, so this is that loop
+    without pooled-adapter routing."""
+    return greedy_generate(params, prompt_batch, cfg, n_new, device=device)
+
+
+def merge_adapters(base: Params, adapters: Params) -> Params:
+    return pt.merge_trees(base, adapters)

@@ -1,0 +1,265 @@
+"""Dense decoder (port of ``repro/models/model.py``, dense family).
+
+Layer params are stacked ``(n_superblocks, ...)`` as in the reference;
+the reference's ``lax.scan`` over superblocks is a Python loop over
+``blocks[...][i]`` views here.
+
+Entry points:
+  init_params(generator, cfg, device=)      → param tree (no adapters)
+  forward(params, batch, cfg, ...)          → (hidden, cache, aux)
+  prefill(...) / decode_step(...)           → serving path with caches
+  init_cache(cfg, batch, seq_len, device=)  → per-layer cache tree
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.config import ArchConfig, SubLayer
+from repro_torch.utils import pytree as pt
+
+Params = Any
+
+
+def _dtype(cfg):
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise NotImplementedError for what this port does not cover yet."""
+    if cfg.family != "dense" or cfg.n_enc_layers or cfg.frontend:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
+                                  f"(ROADMAP A12)")
+    if cfg.sliding_window or cfg.local_global or cfg.qk_norm or cfg.mrope:
+        raise NotImplementedError("sliding-window, local/global, qk-norm and "
+                                  "M-RoPE attention are not ported yet "
+                                  "(ROADMAP A12)")
+    if cfg.use_fused_dora:
+        raise NotImplementedError("use_fused_dora needs the fused_dora "
+                                  "kernel, not ported yet (ROADMAP B1)")
+    if cfg.backbone_quant:
+        raise NotImplementedError("backbone_quant needs the quant_matmul "
+                                  "kernel, not ported yet (ROADMAP A9/B4)")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _normal(g, shape, scale, dtype, device):
+    """N(0, scale²) drawn in f32 on the generator's device, stored in
+    ``dtype`` on ``device``."""
+    return (torch.randn(shape, generator=g, device=g.device)
+            * scale).to(dtype).to(device)
+
+
+def _init_stack(g, n, d_in, d_out, scale, dtype, device):
+    """(n, d_in, d_out) kernel stack drawn layer by layer, so no f32 copy
+    of a whole stack is ever made."""
+    w = torch.empty((n, d_in, d_out), dtype=dtype, device=device)
+    for i in range(n):
+        w[i] = _normal(g, (d_in, d_out), scale, dtype, device)
+    return w
+
+
+def _init_sublayers(g, cfg: ArchConfig, n: int, dtype, device):
+    """``n`` stacked dense attention sublayers (n_sb, ...)."""
+    D, Fd = cfg.d_model, cfg.d_ff
+    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    sc = 0.02
+    out_sc = 0.02 / math.sqrt(max(2 * cfg.n_layers, 1))
+
+    def lin(d_in, d_out, s):
+        return {"kernel": _init_stack(g, n, d_in, d_out, s, dtype, device)}
+
+    def ones():
+        return torch.ones((n, D), dtype=torch.float32, device=device)
+
+    return {
+        "input_norm": ones(),
+        "attn": {"q_proj": lin(D, H * dh, sc), "k_proj": lin(D, K * dh, sc),
+                 "v_proj": lin(D, K * dh, sc),
+                 "o_proj": lin(H * dh, D, out_sc)},
+        "ffn_norm": ones(),
+        "mlp": {"gate_proj": lin(D, Fd, sc), "up_proj": lin(D, Fd, sc),
+                "down_proj": lin(Fd, D, out_sc)},
+    }
+
+
+def init_params(generator: torch.Generator, cfg: ArchConfig, *,
+                device="cuda") -> Params:
+    """Random backbone drawn from ``generator`` (on its own device; pass a
+    CUDA generator to draw a full-size model on the card)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = _dtype(cfg)
+    n_sb, _, _ = cfg.blocks_layout()     # dense: one sublayer, no tail
+    g = generator
+    params: dict = {
+        "embed": {"embedding": _normal(g, (cfg.vocab_size, cfg.d_model),
+                                       0.02, dtype, dev)},
+        "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32,
+                                 device=dev),
+        "blocks": ({"sub0": _init_sublayers(g, cfg, n_sb, dtype, dev)}
+                   if n_sb else {}),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"kernel": _normal(
+            g, (cfg.d_model, cfg.vocab_size), 0.02, dtype, dev)}
+    return params
+
+
+# ---------------------------------------------------------------------------
+# sublayers and the block loop
+# ---------------------------------------------------------------------------
+
+def _apply_sublayer(p, x, sub: SubLayer, cfg, *, positions, cache=None,
+                    cache_index=None, lora_scale=0.0, return_cache=False,
+                    cache_len=0, adapter_idx=None, bgmv_impl=None):
+    new_cache = {}
+    h = L.rms_norm(x, p["input_norm"], cfg.norm_eps)
+    acache = cache.get("attn") if cache else None
+    y, nc = L.attention(p["attn"], h, positions, cfg, kind=sub.attn_kind,
+                        cache=acache, cache_index=cache_index,
+                        lora_scale=lora_scale, return_cache=return_cache,
+                        cache_len=cache_len, adapter_idx=adapter_idx,
+                        bgmv_impl=bgmv_impl)
+    if nc is not None:
+        new_cache["attn"] = nc
+    x = x + y
+    h = L.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    x = x + L.dense_ffn(p["mlp"], h, cfg, lora_scale, adapter_idx=adapter_idx,
+                        bgmv_impl=bgmv_impl)
+    return x, new_cache
+
+
+def _superblock(x, p_sb, cache_sb, pattern, cfg, **kw):
+    new_cache = {}
+    scale = cfg.lora_alpha / cfg.lora_rank
+    for i, sub in enumerate(pattern):
+        key = f"sub{i}"
+        c = cache_sb.get(key) if cache_sb else None
+        x, nc = _apply_sublayer(p_sb[key], x, sub, cfg, cache=c,
+                                lora_scale=scale, **kw)
+        if nc:
+            new_cache[key] = nc
+    return x, new_cache
+
+
+def _run_blocks(blocks, x, pattern, cfg, *, positions, cache=None,
+                cache_index=None, return_cache=False, cache_len=0,
+                adapter_idx=None, bgmv_impl=None):
+    """Loop over the stacked superblocks (the dense pattern has one
+    sublayer, so there is no tail; caches keep an empty ``tail`` for the
+    reference's layout).  A decode cache is updated in place and
+    returned; a prefill cache (return_cache) is stacked back to the
+    (n_sb, ...) layout."""
+    kw = dict(positions=positions, cache_index=cache_index,
+              return_cache=return_cache, cache_len=cache_len,
+              adapter_idx=adapter_idx, bgmv_impl=bgmv_impl)
+    leaves = pt.tree_leaves(blocks)
+    n_sb = leaves[0].shape[0] if leaves else 0
+    fresh = []
+    for i in range(n_sb):
+        p_sb = pt.tree_map(lambda t: t[i], blocks)
+        c_sb = (pt.tree_map(lambda t: t[i], cache["blocks"])
+                if cache is not None else None)
+        x, nc = _superblock(x, p_sb, c_sb, pattern, cfg, **kw)
+        fresh.append(nc)
+    new_cache = {"blocks": None, "tail": {}}
+    if cache is not None:
+        new_cache["blocks"] = cache["blocks"]
+    elif return_cache and fresh:
+        new_cache["blocks"] = pt.tree_map_with_path(
+            lambda path, _: torch.stack([pt.tree_get(f, path)
+                                         for f in fresh]), fresh[0])
+    return x, new_cache
+
+
+def forward(params, batch, cfg: ArchConfig, *, rng=None,
+            return_cache=False, cache_len=0, bgmv_impl=None):
+    """Prefill forward → (hidden (B,S,D), cache, aux).  ``batch`` holds
+    ``tokens`` (B, S) and optionally ``positions`` and ``adapter_idx``."""
+    check_supported(cfg)
+    if rng is not None:
+        raise NotImplementedError("adapter dropout (training) is not ported "
+                                  "yet (ROADMAP A4-A6)")
+    if "prompt_embed" in params:
+        raise NotImplementedError("prompt tuning is not ported yet "
+                                  "(ROADMAP A8)")
+    tokens = batch["tokens"]
+    x = params["embed"]["embedding"][tokens.to(torch.int64)]
+    B, S = x.shape[0], x.shape[1]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    x, cache = _run_blocks(
+        params["blocks"], x, cfg.pattern(), cfg,
+        positions=positions, return_cache=return_cache, cache_len=cache_len,
+        adapter_idx=batch.get("adapter_idx"), bgmv_impl=bgmv_impl)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, cache, torch.zeros((), device=x.device)
+
+
+def _head_kernel(params, cfg):
+    if cfg.tie_embeddings or "lm_head" not in params:
+        return params["embed"]["embedding"].T
+    return params["lm_head"]["kernel"]
+
+
+def argmax_first(logits):
+    """Greedy pick with ties broken to the FIRST index, as ``jnp.argmax``
+    does (bf16 logits over a 32k vocabulary do tie)."""
+    m = logits.max(dim=-1, keepdim=True).values
+    ids = torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where(logits == m, ids, logits.shape[-1]).min(dim=-1).values
+
+
+# ---------------------------------------------------------------------------
+# serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *, device="cuda"):
+    check_supported(cfg)
+    dev = resolve_device(device)
+    n_sb, _, pattern = cfg.blocks_layout()
+    blocks = {f"sub{i}": {"attn": L.init_attn_cache(
+        cfg, (n_sb, batch), seq_len, _dtype(cfg), dev)}
+        for i in range(len(pattern))} if n_sb else {}
+    return {"blocks": blocks, "tail": {}}
+
+
+def decode_step(params, new_token, cache, cache_index, cfg: ArchConfig, *,
+                adapter_idx=None):
+    """One-token decode.  new_token: (B,) int; cache_index: int / 0-d
+    shared position or (B,) int per-row positions (mixed batching).
+    Writes the cache in place.  Returns (logits (B,V) f32, cache)."""
+    check_supported(cfg)
+    x = params["embed"]["embedding"][new_token.to(torch.int64)[:, None]]
+    B = x.shape[0]
+    if torch.is_tensor(cache_index) and cache_index.dim() == 1:
+        positions = cache_index[:, None].to(torch.int64)
+    else:
+        positions = torch.full((B, 1), int(cache_index), dtype=torch.int64,
+                               device=x.device)
+    x, new_cache = _run_blocks(
+        params["blocks"], x, cfg.pattern(), cfg,
+        positions=positions, cache=cache, cache_index=cache_index,
+        adapter_idx=adapter_idx)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = (x[:, 0] @ _head_kernel(params, cfg).to(x.dtype)).float()
+    return logits, new_cache
+
+
+def prefill(params, batch, cfg: ArchConfig, *, cache_len=0):
+    """Process a prompt, returning (last_logits, cache).  cache_len pads
+    the caches with headroom for subsequent decode steps."""
+    hidden, cache, _ = forward(params, batch, cfg, return_cache=True,
+                               cache_len=cache_len)
+    logits = (hidden[:, -1] @ _head_kernel(params, cfg).to(hidden.dtype)
+              ).float()
+    return logits, cache

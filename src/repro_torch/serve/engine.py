@@ -1,0 +1,230 @@
+"""Multi-tenant serving engine: one mixed batch, never-merged adapters.
+
+Port of ``repro/serve/engine.py``.  The engine keeps a persistent batch
+of ``max_rows`` rows over one frozen backbone merged (dict-merge, no
+tensor copies) with the AdapterStore's pooled overlay.  Each row carries
+its own adapter slot (``adapter_idx``) and its own sequence position, so
+tenants mix freely in a single forward pass — the BGMV kernels in
+``layers.linear`` gather each row's adapter from the pool instead of
+folding it into the weights.
+
+Two steps cover the serving loop, both at fixed shapes:
+
+  prefill   full-width (R, W) forward over newly admitted rows (idle
+            rows compute throwaway work; only the admitted rows' cache
+            rows are copied into the persistent cache) → first greedy
+            token per row, from hidden[row, len-1]
+  decode    a loop of ``decode_chunk`` single-token steps with per-row
+            cache positions; retired rows freeze (their writes are
+            idempotent) until re-admission overwrites them
+
+Between chunks the host retires finished rows and lets the batcher
+admit queued requests into the free rows — continuous batching at
+chunk granularity, with one host sync per prefill and per chunk.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.device import check_on, resolve_device
+from repro_torch.models import model as M
+from repro_torch.models.config import ArchConfig
+from repro_torch.serve.adapter_store import AdapterStore
+from repro_torch.serve.batcher import ContinuousBatcher
+from repro_torch.utils import pytree as pt
+
+Params = Any
+
+
+def _merge_cache_rows(old, new, rows):
+    """Copy cache rows ``rows`` ((n,) int64) of ``new`` into ``old`` in
+    place.  Batch sits at axis 1 under the stacked ``blocks`` (leading
+    superblock axis) and axis 0 in the unstacked ``tail``."""
+    for path in pt.tree_paths(old["blocks"]):
+        o, n = pt.tree_get(old["blocks"], path), pt.tree_get(new["blocks"], path)
+        o[:, rows] = n[:, rows]
+    for path in pt.tree_paths(old["tail"]):
+        o, n = pt.tree_get(old["tail"], path), pt.tree_get(new["tail"], path)
+        o[rows] = n[rows]
+    return old
+
+
+class ServeEngine:
+    def __init__(self, base: Params, cfg: ArchConfig, store: AdapterStore, *,
+                 max_rows: int = 8, max_prompt_len: int = 32,
+                 max_len: int = 64, decode_chunk: int = 8, device="cuda"):
+        if cfg.family not in ("dense", "moe") or cfg.n_enc_layers:
+            raise ValueError(f"ServeEngine supports attention-cache "
+                             f"families, got {cfg.family!r}")
+        if cfg.sliding_window or cfg.local_global:
+            raise ValueError("sliding-window (local) attention is not "
+                             "supported by ServeEngine yet")
+        M.check_supported(cfg)
+        self.device = resolve_device(device)
+        check_on(base["embed"]["embedding"], self.device, "base params")
+        if store.device != self.device:
+            raise ValueError(f"store is on {store.device}, engine on "
+                             f"{self.device}")
+        self.base, self.cfg, self.store = base, cfg, store
+        self.max_rows = max_rows
+        self.max_len = max_len
+        self.decode_chunk = decode_chunk
+        self.batcher = ContinuousBatcher(max_rows, max_prompt_len, max_len)
+        self._tenant_of_rid: dict[int, str] = {}
+        self._params_cache: tuple[int, Params] | None = None
+        # counts and host-clock seconds of the latest run(); each timed
+        # step ends in the host sync the loop makes anyway
+        self.last_run: dict = {}
+
+    def _merged_params(self) -> Params:
+        """Backbone ∪ pool overlay, rebuilt only when the store's pools
+        changed (keyed on ``store.version``)."""
+        if (self._params_cache is None
+                or self._params_cache[0] != self.store.version):
+            self._params_cache = (self.store.version,
+                                  pt.merge_trees(self.base,
+                                                 self.store.overlay()))
+        return self._params_cache[1]
+
+    def _tensor(self, a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    def _prefill(self, params, cache, tokens, lens, slots, rows):
+        """Full-width prefill; copies the admitted ``rows`` of the fresh
+        cache into ``cache`` and returns the first greedy token per row."""
+        batch = {"tokens": self._tensor(tokens, torch.int64),
+                 "adapter_idx": self._tensor(slots, torch.int32)}
+        hidden, fresh, _ = M.forward(params, batch, self.cfg,
+                                     return_cache=True, cache_len=self.max_len)
+        ar = torch.arange(hidden.shape[0], device=self.device)
+        last = hidden[ar, self._tensor(lens, torch.int64) - 1]
+        logits = (last @ M._head_kernel(params, self.cfg).to(last.dtype)
+                  ).float()
+        _merge_cache_rows(cache, fresh, self._tensor(rows, torch.int64))
+        return M.argmax_first(logits)
+
+    def _decode_chunk(self, params, cache, tok, pos, slots, active):
+        """``decode_chunk`` greedy steps; retired rows keep their token and
+        position.  Returns (tok, pos, toks (chunk, R))."""
+        step = active.to(torch.int32)
+        toks = []
+        for _ in range(self.decode_chunk):
+            logits, cache = M.decode_step(params, tok, cache, pos, self.cfg,
+                                          adapter_idx=slots)
+            tok = torch.where(active, M.argmax_first(logits), tok)
+            pos = pos + step
+            toks.append(tok)
+        return tok, pos, torch.stack(toks)
+
+    # ------------------------------------------------------------------
+
+    def submit(self, tenant: str, tokens, n_new: int) -> int:
+        """Queue one request.  The tenant must be registered in the store
+        (or be the empty-adapter pseudo-tenant None)."""
+        if tenant is not None and tenant not in self.store:
+            raise KeyError(f"tenant {tenant!r} not registered in the store")
+        rid = self.batcher.submit(tenant or "", tokens, n_new)
+        self._tenant_of_rid[rid] = tenant
+        return rid
+
+    def run(self) -> dict[int, np.ndarray]:
+        """Drain the queue, returning {rid: generated tokens (n_new,)}.
+        Adapter slots are snapshotted per admission — register/evict
+        between ``run`` calls, not during one."""
+        cfg, R, dev = self.cfg, self.max_rows, self.device
+        null = self.store.null_slot
+        params = self._merged_params()
+        cache = M.init_cache(cfg, R, self.max_len, device=dev)
+        stats = {"prefills": 0, "decode_steps": 0, "tokens": 0,
+                 "prefill_seconds": [], "chunk_seconds": []}
+        t_run = time.perf_counter()
+
+        active = np.zeros((R,), bool)
+        pos = torch.zeros((R,), dtype=torch.int32, device=dev)
+        tok = torch.zeros((R,), dtype=torch.int64, device=dev)
+        row_slots = np.full((R,), null, np.int32)
+        remaining = np.zeros((R,), np.int64)
+        rid_of_row = np.full((R,), -1, np.int64)
+        outputs: dict[int, list[int]] = {}
+        results: dict[int, np.ndarray] = {}
+
+        def retire(row):
+            rid = int(rid_of_row[row])
+            results[rid] = np.asarray(outputs.pop(rid), np.int32)
+            self._tenant_of_rid.pop(rid, None)
+            active[row] = False
+            row_slots[row] = null
+
+        while self.batcher.pending or active.any():
+            free = [r for r in range(R) if not active[r]]
+            admitted = self.batcher.admit(free)
+            if admitted:
+                tenant = {req.rid: self._tenant_of_rid[req.rid]
+                          for _, req in admitted}
+                installed = self.store.install_batch(
+                    [t for t in tenant.values() if t is not None])
+                slot_of_rid = {rid: null if t is None else installed[t]
+                               for rid, t in tenant.items()}
+                params = self._merged_params()
+                tokens, lens, row_slots = self.batcher.pack_prompts(
+                    admitted, slot_of_rid, null, row_slots)
+                rows = [row for row, _ in admitted]
+                t0 = time.perf_counter()
+                tok0 = self._prefill(params, cache, tokens, lens, row_slots,
+                                     rows)
+                tok0_h = tok0.cpu().numpy()
+                stats["prefill_seconds"].append(time.perf_counter() - t0)
+                stats["prefills"] += 1
+                admit_mask = np.zeros((R,), bool)
+                admit_mask[rows] = True
+                tok = torch.where(self._tensor(admit_mask, torch.bool),
+                                  tok0, tok)
+                new_pos = pos.cpu().numpy().copy()
+                for row, req in admitted:
+                    active[row] = True
+                    new_pos[row] = req.tokens.size
+                    remaining[row] = req.n_new - 1
+                    rid_of_row[row] = req.rid
+                    outputs[req.rid] = [int(tok0_h[row])]
+                    if remaining[row] == 0:
+                        retire(row)
+                pos = self._tensor(new_pos, torch.int32)
+
+            if active.any():
+                # queued tenants' adapters may load while the chunk runs
+                # (flat store: no-op)
+                self.store.prefetch(self.batcher.queued_tenants(limit=2 * R))
+                t0 = time.perf_counter()
+                tok, pos, toks = self._decode_chunk(
+                    params, cache, tok, pos,
+                    self._tensor(row_slots, torch.int32),
+                    self._tensor(active, torch.bool))
+                toks_h = toks.cpu().numpy()                 # (chunk, R)
+                self.store.drain_prefetch()
+                stats["chunk_seconds"].append(time.perf_counter() - t0)
+                stats["decode_steps"] += self.decode_chunk
+                for row in range(R):
+                    if not active[row]:
+                        continue
+                    take = int(min(self.decode_chunk, remaining[row]))
+                    outputs[int(rid_of_row[row])].extend(
+                        toks_h[:take, row].tolist())
+                    remaining[row] -= take
+                    if remaining[row] == 0:
+                        retire(row)
+        stats["wall_seconds"] = time.perf_counter() - t_run
+        stats["tokens"] = int(sum(v.size for v in results.values()))
+        self.last_run = stats
+        return results
+
+    def generate(self, requests, n_new: int = 16) -> list[np.ndarray]:
+        """Convenience: ``requests`` is a list of (tenant, prompt_tokens);
+        returns generated tokens per request, in order — one mixed batch
+        across all tenants."""
+        rids = [self.submit(tenant, toks, n_new) for tenant, toks in requests]
+        results = self.run()
+        return [results[rid] for rid in rids]

@@ -1,0 +1,83 @@
+"""Nested-dict tree helpers (the subset of ``repro/utils/pytree.py`` the
+port uses).
+
+Parameters, adapters and caches are nested dicts of tensors.  Paths are
+"/"-joined key strings, e.g. ``"blocks/sub0/attn/q_proj/lora_A"`` — the
+same paths the JAX package uses, so trees carry across leaf by leaf.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Mapping
+
+Tree = Any
+
+
+def _leaves_with_path(tree: Tree, prefix: str = ""):
+    if isinstance(tree, Mapping):
+        for k in tree:          # dict order, as the reference keeps it
+            yield from _leaves_with_path(
+                tree[k], f"{prefix}/{k}" if prefix else str(k))
+    elif tree is not None:
+        yield prefix, tree
+
+
+def tree_map_with_path(fn: Callable[[str, Any], Any], tree: Tree) -> Tree:
+    """Map ``fn(path, leaf)`` over a nested dict."""
+    def go(node, prefix):
+        if isinstance(node, Mapping):
+            return {k: go(v, f"{prefix}/{k}" if prefix else str(k))
+                    for k, v in node.items()}
+        return fn(prefix, node)
+    return go(tree, "")
+
+
+def tree_map(fn: Callable[[Any], Any], tree: Tree) -> Tree:
+    return tree_map_with_path(lambda _, x: fn(x), tree)
+
+
+def tree_paths(tree: Tree) -> list[str]:
+    return [p for p, _ in _leaves_with_path(tree)]
+
+
+def tree_leaves(tree: Tree) -> list:
+    return [x for _, x in _leaves_with_path(tree)]
+
+
+def tree_get(tree: Mapping, path: str, default=None):
+    """Fetch the node at a "/"-joined path, or ``default`` on a miss."""
+    node = tree
+    for k in path.split("/"):
+        if not isinstance(node, Mapping) or k not in node:
+            return default
+        node = node[k]
+    return node
+
+
+def set_leaf(tree: dict, path: str, leaf) -> None:
+    """Set the leaf at a "/"-joined path, creating intermediate dicts."""
+    keys = path.split("/")
+    cur = tree
+    for k in keys[:-1]:
+        cur = cur.setdefault(k, {})
+    cur[keys[-1]] = leaf
+
+
+def filter_tree(tree: Mapping, predicate: Callable[[str], bool]) -> dict:
+    """Subtree of the leaves whose path satisfies ``predicate``; empty
+    dicts are pruned."""
+    out: dict = {}
+    for p, leaf in _leaves_with_path(tree):
+        if predicate(p):
+            set_leaf(out, p, leaf)
+    return out
+
+
+def merge_trees(base: Mapping, overlay: Mapping) -> dict:
+    """Deep merge: overlay leaves replace base leaves (no tensor copies)."""
+    out = dict(base)
+    for k, v in overlay.items():
+        if k in out and isinstance(out[k], Mapping) and isinstance(v, Mapping):
+            out[k] = merge_trees(out[k], v)
+        else:
+            out[k] = v
+    return out
