@@ -7,29 +7,50 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
 Phase 1  the card's name and power limit; builds every CUDA kernel from
          the checkout's sources (one nvcc per source, started together).
-Phase 2  each kernel against its plain PyTorch version on the card at
-         llama2-7b widths (d_in = d_out = 4096, r 8 and 16, 9 pool slots,
-         f32 and bf16; decode rows, prefill blocks, an odd S, repeated
-         slots, mixed ranks with rank-0 slots that must give exactly 0),
-         and its time beside the plain version's, one library call's and
-         the bound (bytes over 3.35 TB/s or operations over the peak):
-         each replayed from a CUDA graph (device time) and issued eagerly.
-Phase 3  the main path at full width: llama2-7b, 32 layers, bf16, random
-         weights from a seeded generator on the card.  AdapterStore
-         (dora_mag, 6 tenants at ranks 2/4/8 + the null tenant) →
-         ServeEngine (8 rows, prompts of 16-64 tokens, 32 new tokens, 12
-         requests), then the same with a pairs store of raw-LoRA tenants.
-         Each run starts with every launch count at 0 and must launch its
-         kernel 2 targets × 32 layers × (prefills + decode steps) times.
-         Prefill logits of one admitted batch, kernel against plain, at
-         2e-2: bf16 weights through the first CHECK_DEPTH layers, f32
-         weights through all 32.
+Phase 2  each kernel against its plain PyTorch version on the card, f32
+         and bf16, and its time beside the plain version's, one library
+         call's and the bound (bytes over 3.35 TB/s or operations over
+         the peak), each replayed from a CUDA graph (device time) and
+         issued eagerly:
+           BGMV at llama2-7b widths (d_in = d_out = 4096, r 8 and 16, 9
+             pool slots; decode rows, prefill blocks, an odd S, repeated
+             slots, mixed ranks with rank-0 slots that must give 0);
+           fused_dora at x (8, 4096) and (512, 4096), W0 4096 x 4096, r 8
+             and 16, nonzero dA_dir and dB_mag, and a ragged (37, 4096) x
+             (4096, 4160);
+           quant_matmul int8 and int4, per channel and in groups of 128,
+             at (K, N) = (4096, 4096), (4096, 11008), (11008, 4096) and
+             M = 8, 512 and a ragged 37, with zero-scale columns.
+Phase 3  the serving path at full width: llama2-7b, 32 layers, bf16,
+         random weights from a seeded generator on the card.
+         AdapterStore (dora_mag, 6 tenants at ranks 2/4/8 + the null
+         tenant) → ServeEngine (8 rows, prompts of 16-64 tokens, 32 new
+         tokens, 12 requests), then the same with a pairs store of
+         raw-LoRA tenants; each must launch its BGMV kernel 2 targets x
+         32 layers x (prefills + decode steps) times.
+Phase 4  path B1, fused-DoRA generation: greedy_generate over the backbone
+         merged with one decomposed adapter (the shared one, one tenant's
+         ΔB_M as dB_mag, a nonzero dA_dir) with use_fused_dora, 8 prompts
+         of 64 tokens, 32 new tokens: 2048 fused_dora launches, no BGMV.
+Phase 5  path B4, the quantized engine: ServeEngine with backbone_quant
+         int8 (per channel), then int4 (groups of 128), over the dora_mag
+         store and the 12 requests of phase 3, each built from a base that
+         is then dropped: quant_matmul 7 x 32 x (prefills + decode steps)
+         launches and the BGMV launches of phase 3's engine.
+Every run starts with every launch count at 0.  Each path's prefill
+logits, kernels against plain versions, relative to max |logit|: bf16
+weights through the first CHECK_DEPTH layers within 2e-2, f32 weights
+through all 32 within 1e-4; the other depths are printed.  Path B1 is
+also held against the unfused path in f32; path B4's drift from the
+unquantized model is printed only.
 
 Prints a JSON ``kernels`` line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, when there is no CUDA device, outside a checkout, or when
 any check fails.  Imports nothing of JAX.
 """
+import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -41,12 +62,17 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # relative to max |plain output|
+FUSED_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # tests/test_kernels.py's
+LOGITS_F32_TOL = 1e-4   # f32 weights, all layers, kernels vs plain
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 D, R_MAIN, L_SLOTS = 4096, 8, 9
 N_NEW, PAD_W, MAX_LEN, ROWS, CHUNK = 32, 64, 128, 8, 8
 CHECK_DEPTH = 2         # layers through which bf16 prefill logits are held
+QUANT_CHECK_DEPTH = 1   # the same on the quantized path (PERF.md)
 DEPTHS = (1, 2, 4, 8, 16, 32)   # depths at which they are read
+QUANT_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))   # (K, N)
+QUANT_MODES = (("int8", None), ("int4", 128))    # as the engines use them
 
 
 class CheckFailed(Exception):
@@ -171,6 +197,14 @@ def time_ms(torch, fn, side, reps=5, iters=200, warmup=20):
     return out
 
 
+def roofline(nbytes, ops, dtype_name):
+    """(bound_ms, bound_by): the larger of ``nbytes`` over HBM and ``ops``
+    over the card's peak for ``dtype_name``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def bound(kind, v, dtype_name):
     """(bound_ms, bound_by): the larger of the bytes the call must move
     (each input read once, each output written once; pool factors of the
@@ -187,13 +221,21 @@ def bound(kind, v, dtype_name):
     else:
         nbytes += 4 * (D * r + D + r + r * D + slots * r)
         ops += BS * (D + r)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dtype_name] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return roofline(nbytes, ops, dtype_name)
 
 
-def phase_kernels(torch):
-    worst = {}
+def timings(torch, side, fns):
+    """{key: graph ms, key_range, eager_key, eager_key_range} for each
+    named callable."""
+    row = {}
+    for key, fn in fns.items():
+        t = time_ms(torch, fn, side)
+        row[key], row[key + "_range"] = t["graph"]
+        row["eager_" + key], row["eager_" + key + "_range"] = t["eager"]
+    return row
+
+
+def phase_bgmv(torch, side, worst):
     for kind in ("bgmv", "bgmv_mag"):
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).split(".")[-1]
@@ -216,13 +258,8 @@ def phase_kernels(torch):
                             check(bool((y[zero] == 0).all()),
                                   f"{case} rank-0 rows exactly 0")
                         worst[(kind, dn)] = max(worst.get((kind, dn), 0), rel)
-    print("worst relative error by kernel and dtype: "
-          + json.dumps({f"{k} {d}": e for (k, d), e in worst.items()}))
 
     rows = {}
-    # One capture stream for all timings: cuBLAS keeps a workspace for
-    # each stream it runs on, cleared below.
-    side = torch.cuda.Stream()
     for kind in ("bgmv", "bgmv_mag"):
         rows[kind] = {}
         for label, S in (("decode", None), ("prefill", PAD_W)):
@@ -237,24 +274,229 @@ def phase_kernels(torch):
                   f"yardstick vs plain {lib_rel:.3e} <= {TOL['bfloat16']}")
             row = {"x": list(v["x"].shape), "max_abs_err": err,
                    "rel_err": rel, "tolerance": TOL["bfloat16"]}
-            for key, fn in (
-                    ("ms", lambda: call(kind, v, None, True)),
-                    ("plain_ms", lambda: call(kind, v, "torch", True)),
-                    ("library_ms", lib)):
-                t = time_ms(torch, fn, side)
-                row[key], row[key + "_range"] = t["graph"]
-                row["eager_" + key], row["eager_" + key + "_range"] = t["eager"]
+            row.update(timings(torch, side, {
+                "ms": lambda: call(kind, v, None, True),
+                "plain_ms": lambda: call(kind, v, "torch", True),
+                "library_ms": lib}))
             rows[kind][label] = dict(row, bound_ms=b_ms, bound_by=b_by)
             print(f"{kind} {label} x{tuple(v['x'].shape)} bf16 r={R_MAIN}: "
                   + json.dumps(rows[kind][label]))
+    return rows
+
+
+FUSED_ORDER = ("x", "w0", "a_dir", "a_mag", "b_dir", "b_mag", "da_dir",
+               "db_mag")
+
+
+def fused_inputs(torch, M, K, N, r, dtype, seed):
+    """x N(0, 1); W0 N(0, 0.02²); the adapter's sizes as in phase 3, with
+    dA_dir = N(0, 1) x (1/6) x RMS(A_dir) and dB_mag N(0, 1)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    a_dir = n(K, r) / K ** 0.5
+    return dict(x=n(M, K).to(dtype), w0=(n(K, N) * 0.02).to(dtype),
+                a_dir=a_dir, a_mag=torch.rand(K, generator=g, device="cuda")
+                + 0.5, b_dir=n(r, N) / r ** 0.5, b_mag=n(r),
+                da_dir=n(K, r) * a_dir.square().mean().sqrt() / 6,
+                db_mag=n(r))
+
+
+def fused_call(v, impl, scale=4.0):
+    from repro_torch.kernels import fused_dora
+    return fused_dora(*(v[k] for k in FUSED_ORDER), scale=scale, impl=impl)
+
+
+def fused_bound(v, dtype_name):
+    M, K = v["x"].shape
+    N, r = v["w0"].shape[1], v["a_dir"].shape[1]
+    es = v["x"].element_size()
+    nbytes = es * (M * K + K * N + M * N) + 4 * (2 * K * r + K + r * N + 2 * r)
+    ops = (2 * M * K * N + M * K + 2 * M * K * r + M * r + 2 * M * r * N
+           + 2 * M * N)
+    return roofline(nbytes, ops, dtype_name)
+
+
+def phase_fused_dora(torch, side, worst):
+    from repro_torch.kernels.fused_dora.fused_dora import fused_dora_cuda
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        cases = [(M, D, D, r) for r in (8, 16) for M in (ROWS, ROWS * PAD_W)]
+        for M, K, N, r in cases + [(37, D, D + 64, R_MAIN)]:
+            v = fused_inputs(torch, M, K, N, r, dtype, seed=M + r)
+            y, ref = fused_call(v, None), fused_call(v, "torch")
+            torch.cuda.synchronize()
+            rel, _ = rel_err(y, ref)
+            case = f"fused_dora {dn} r={r} x({M}, {K}) W0({K}, {N})"
+            check(y.shape == ref.shape == (M, N) and bool(
+                torch.isfinite(y.float()).all()), f"{case} shape")
+            check(rel <= FUSED_TOL[dn], f"{case} rel err {rel:.3e} <= "
+                  f"{FUSED_TOL[dn]}")
+            worst[("fused_dora", dn)] = max(worst.get(("fused_dora", dn), 0),
+                                            rel)
+    rows = {}
+    scale = 4.0
+    for label, M in (("decode", ROWS), ("prefill", ROWS * PAD_W)):
+        v = fused_inputs(torch, M, D, D, R_MAIN, torch.bfloat16, seed=7)
+        dt = v["x"].dtype
+        a_eff = (v["a_dir"] + v["da_dir"]).to(dt)
+        b_eff = v["b_mag"] + v["db_mag"]
+        b_dir = v["b_dir"].to(dt)
+        am, bm = v["a_mag"].to(dt), b_eff.to(dt)
+        x, w0 = v["x"], v["w0"]
+
+        def lib():
+            return torch.matmul(x, w0) + scale * (
+                (((x * am) @ a_eff) * bm) @ b_dir)
+        ref = fused_call(v, "torch", scale)
+        rel, err = rel_err(fused_call(v, None, scale), ref)
+        lib_rel = rel_err(lib(), ref)[0]
+        check(lib_rel <= FUSED_TOL["bfloat16"], f"fused_dora {label} library "
+              f"yardstick vs plain {lib_rel:.3e} <= {FUSED_TOL['bfloat16']}")
+        b_ms, b_by = fused_bound(v, "bfloat16")
+        row = {"x": list(x.shape), "w0": list(w0.shape), "r": R_MAIN,
+               "max_abs_err": err, "rel_err": rel,
+               "tolerance": FUSED_TOL["bfloat16"]}
+        row.update(timings(torch, side, {
+            "ms": lambda: fused_dora_cuda(x, w0, a_eff, v["a_mag"], b_dir,
+                                          b_eff, scale=scale),
+            "plain_ms": lambda: fused_call(v, "torch", scale),
+            "library_ms": lib}))
+        rows[label] = dict(row, bound_ms=b_ms, bound_by=b_by,
+                           f32_core_bound_ms=fused_bound(v, "float32")[0])
+        print(f"fused_dora {label} x{tuple(x.shape)} W0{tuple(w0.shape)} "
+              f"bf16 r={R_MAIN}: " + json.dumps(rows[label]))
+    return rows
+
+
+def quant_inputs(torch, K, N, mode, gs, seed):
+    """Codes and scales of an N(0, 0.02²) weight whose last two columns
+    are zero (zero scales)."""
+    from repro_torch.kernels import quantize_int4, quantize_int8
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((K, N), generator=g, device="cuda") * 0.02
+    w[:, -2:] = 0.0
+    quant = quantize_int8 if mode == "int8" else quantize_int4
+    return quant(w, group_size=gs)
+
+
+def quant_bound(x, q, s, dtype_name):
+    M, K = x.shape
+    N = q.shape[1]
+    nbytes = (x.element_size() * (M * K + M * N) + q.numel() * q.element_size()
+              + 4 * s.numel())
+    return roofline(nbytes, 2 * M * K * N + K * N, dtype_name)
+
+
+def phase_quant_matmul(torch, side, worst):
+    from repro_torch.kernels import dequantize, quant_matmul
+    from repro_torch.kernels.quant_matmul.quant_matmul import quant_matmul_cuda
+    for K, N in QUANT_SHAPES:
+        for mode in ("int8", "int4"):
+            for gs in (None, 128):
+                q, s = quant_inputs(torch, K, N, mode, gs, seed=K + N)
+                for dtype in (torch.float32, torch.bfloat16):
+                    dn = str(dtype).split(".")[-1]
+                    for M in (ROWS, ROWS * PAD_W, 37):
+                        g = torch.Generator(device="cuda").manual_seed(M)
+                        x = torch.randn((M, K), generator=g,
+                                        device="cuda").to(dtype)
+                        y = quant_matmul(x, q, s)
+                        ref = quant_matmul(x, q, s, impl="torch")
+                        torch.cuda.synchronize()
+                        rel, _ = rel_err(y, ref)
+                        case = (f"quant_matmul {mode} g={gs} {dn} x({M}, {K}) "
+                                f"W({K}, {N})")
+                        check(y.shape == ref.shape == (M, N) and bool(
+                            torch.isfinite(y.float()).all()) and bool(
+                            (y[:, -2:] == 0).all()),
+                            f"{case} shape, zero-scale columns exactly 0")
+                        check(rel <= TOL[dn], f"{case} rel err {rel:.3e} <= "
+                              f"{TOL[dn]}")
+                        key = ("quant_matmul", dn)
+                        worst[key] = max(worst.get(key, 0), rel)
+    rows = {}
+    for K, N in QUANT_SHAPES:
+        for mode, gs in QUANT_MODES:
+            q, s = quant_inputs(torch, K, N, mode, gs, seed=7)
+            for label, M in (("decode", ROWS), ("prefill", ROWS * PAD_W)):
+                g = torch.Generator(device="cuda").manual_seed(7)
+                x = torch.randn((M, K), generator=g,
+                                device="cuda").to(torch.bfloat16)
+
+                def lib():
+                    return torch.matmul(x, dequantize(q, s).to(x.dtype))
+                ref = quant_matmul(x, q, s, impl="torch")
+                rel, err = rel_err(quant_matmul(x, q, s), ref)
+                lib_rel = rel_err(lib(), ref)[0]
+                check(lib_rel <= TOL["bfloat16"], f"quant_matmul {label} "
+                      f"library yardstick vs plain {lib_rel:.3e}")
+                b_ms, b_by = quant_bound(x, q, s, "bfloat16")
+                row = {"x": [M, K], "w": [K, N], "mode": mode, "group": gs,
+                       "max_abs_err": err, "rel_err": rel,
+                       "tolerance": TOL["bfloat16"],
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "f32_core_bound_ms": quant_bound(x, q, s,
+                                                        "float32")[0]}
+                row.update(timings(torch, side, {
+                    "ms": lambda: quant_matmul_cuda(x, q, s),
+                    "plain_ms": lambda: quant_matmul(x, q, s, impl="torch"),
+                    "library_ms": lib}))
+                rows[f"{mode} {label} {K}x{N}"] = row
+                print(f"quant_matmul {mode} g={gs} {label} x({M}, {K}) "
+                      f"W({K}, {N}) bf16: " + json.dumps(row))
+    return rows
+
+
+def phase_kernels(torch):
+    worst = {}
+    # One capture stream for all timings: cuBLAS keeps a workspace for
+    # each stream it runs on, cleared below.
+    side = torch.cuda.Stream()
+    rows = phase_bgmv(torch, side, worst)
+    rows["fused_dora"] = phase_fused_dora(torch, side, worst)
+    rows["quant_matmul"] = phase_quant_matmul(torch, side, worst)
+    print("worst relative error by kernel and dtype: "
+          + json.dumps({f"{k} {d}": e for (k, d), e in worst.items()}))
     torch.cuda.synchronize()
     torch._C._cuda_clearCublasWorkspaces()  # so the engine's peak is its own
     return rows
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the main path at full width
+# phases 3-5: the paths at full width
 # ---------------------------------------------------------------------------
+
+def counters():
+    from repro_torch.kernels.batched_lora import bgmv
+    from repro_torch.kernels.fused_dora import fused_dora
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    return bgmv, fused_dora, quant_matmul
+
+
+def reset_launches():
+    for m in counters():
+        m.reset_launches()
+
+
+def read_launches():
+    out = {}
+    for m in counters():
+        out.update(m.LAUNCHES)
+    return out
+
+
+def check_launches(launches, expect, n_layers, passes, label, what):
+    """Every kernel launched ``expect[name]`` x ``n_layers`` x ``passes``
+    times (0 for a kernel not named)."""
+    for name in sorted(launches):
+        k = expect.get(name, 0)
+        check(launches[name] == k * n_layers * passes,
+              f"{label}: {name} launched {launches[name]} times = {k} x "
+              f"{n_layers} x ({what})")
+
 
 def requests(rng, tenants, vocab):
     """12 requests: the first 7 share one prompt (6 tenants + the null
@@ -268,43 +510,42 @@ def requests(rng, tenants, vocab):
     return reqs
 
 
-def serve(torch, params, cfg, store, reqs, *, count):
-    from repro_torch.kernels.batched_lora import bgmv as K
+def engine(params, cfg, store):
     from repro_torch.serve import ServeEngine
-    eng = ServeEngine(params, cfg, store, max_rows=ROWS, max_prompt_len=PAD_W,
-                      max_len=MAX_LEN, decode_chunk=CHUNK, device="cuda")
+    return ServeEngine(params, cfg, store, max_rows=ROWS, max_prompt_len=PAD_W,
+                       max_len=MAX_LEN, decode_chunk=CHUNK, device="cuda")
+
+
+def serve(torch, eng, reqs, label, *, expect=None):
+    """Run ``reqs`` through ``eng`` with every launch count at 0; with
+    ``expect`` ({kernel: launches per layer and forward pass}), hold the
+    counts to it."""
     torch.cuda.synchronize()
-    K.reset_launches()
+    reset_launches()
     rids = [eng.submit(t, p, N_NEW) for t, p in reqs]
     results = eng.run()
-    launches = dict(K.LAUNCHES)
+    launches = read_launches()
     st = eng.last_run
-    expected = 2 * cfg.n_layers * (st["prefills"] + st["decode_steps"])
     check(len(results) == len(reqs) and all(
         results[r].shape == (N_NEW,) for r in rids),
-        f"{store.kind}: {len(reqs)} requests returned {N_NEW} tokens each")
-    if count:
-        other = "bgmv" if count == "bgmv_mag" else "bgmv_mag"
-        check(launches[count] == expected and launches[other] == 0,
-              f"{store.kind}: {count} launched {launches[count]} times = "
-              f"2 x {cfg.n_layers} x ({st['prefills']} prefills + "
-              f"{st['decode_steps']} decode steps); {other} 0")
-    return [results[r] for r in rids], st, launches
+        f"{label}: {len(reqs)} requests returned {N_NEW} tokens each")
+    if expect is not None:
+        check_launches(launches, expect, eng.cfg.n_layers,
+                       st["prefills"] + st["decode_steps"], label,
+                       f"{st['prefills']} prefills + {st['decode_steps']} "
+                       f"decode steps")
+    outs = [results[r] for r in rids]
+    if expect is not None:
+        first = [tuple(o.tolist()) for o in outs[:7]]
+        check(len(set(first)) >= 2, f"{label}: {len(set(first))} distinct "
+              f"continuations of one prompt over 6 tenants + the null "
+              f"tenant")
+    return outs, st, launches
 
 
-def prefill_logits(torch, params, cfg, store, reqs):
-    """Prefill logits of one admitted batch (the first 8 requests, full
-    width) through the kernel and through the plain version.
-
-    Both checks use the fixed bf16 tolerance: with the bf16 weights, the
-    model cut to its first CHECK_DEPTH layers (the same weights and head);
-    with the weights cast to f32, all 32 layers.  The bf16 kernel rounds
-    the adapter path at other points than the plain version (PERF.md),
-    and a random bf16 network amplifies a rounding difference with depth
-    as it amplifies bf16 arithmetic itself, so the bf16 readings at each
-    depth in DEPTHS are printed beside plain bf16 against plain f32."""
-    from repro_torch.models import model as M
-    from repro_torch.utils import pytree as pt
+def admitted_batch(torch, store, reqs):
+    """The first ROWS requests as one admitted prefill batch, and the
+    index of each row's last prompt token."""
     tokens = np.zeros((ROWS, PAD_W), np.int32)
     lens = np.ones((ROWS,), np.int64)
     slots = np.zeros((ROWS,), np.int32)
@@ -313,47 +554,80 @@ def prefill_logits(torch, params, cfg, store, reqs):
         slots[i] = store.null_slot if t is None else store.slot_of(t)
     batch = {"tokens": torch.as_tensor(tokens, device="cuda"),
              "adapter_idx": torch.as_tensor(slots, device="cuda")}
-    ar = torch.arange(ROWS, device="cuda")
-    last = torch.as_tensor(lens - 1, device="cuda")
-    bf16 = pt.merge_trees(params, store.overlay())
-    f32 = pt.tree_map(lambda t: t.float() if t.is_floating_point() else t,
-                      bf16)
+    return batch, torch.as_tensor(lens - 1, device="cuda")
 
-    def logits(tree, depth, impl):
+
+def prefill_logits(torch, batch, last):
+    """logits(tree, cfg, depth, impl): the prefill logits at each row's
+    last prompt token of ``tree`` cut to its first ``depth`` layers (the
+    same weights and head), every kernel of the forward at ``impl``."""
+    from repro_torch.models import model as M
+    from repro_torch.utils import pytree as pt
+    ar = torch.arange(batch["tokens"].shape[0], device="cuda")
+
+    def logits(tree, cfg, depth, impl):
         cut = dict(tree, blocks=pt.tree_map(lambda t: t[:depth],
                                             tree["blocks"]))
-        h, _, _ = M.forward(cut, batch, cfg, bgmv_impl=impl)
+        h, _, _ = M.forward(cut, batch, cfg, kernel_impl=impl)
         return (h[ar, last] @ M._head_kernel(tree, cfg).to(h.dtype)).float()
+    return logits
 
+
+def to_f32(tree):
+    from repro_torch.utils import pytree as pt
+    return pt.tree_map(lambda t: t.float() if t.is_floating_point() else t,
+                       tree)
+
+
+def logits_checks(torch, label, tree, cfg, logits, extra=None,
+                  depth=CHECK_DEPTH):
+    """Prefill logits with the kernels against the plain versions
+    (``kernel_impl="torch"``), relative to max |logit|.
+
+    With the bf16 weights the model is cut to its first ``depth`` layers
+    and held at 2e-2; with the weights cast to f32 all layers are
+    held at LOGITS_F32_TOL.  The kernels round at other points than the
+    plain versions (PERF.md), and a random bf16 network amplifies a
+    rounding difference with depth as it amplifies bf16 arithmetic
+    itself, so the bf16 readings at each depth in DEPTHS are printed
+    beside plain bf16 against plain f32.  ``extra(f32_tree)`` returns
+    further f32 readings {name: (value, tolerance)}."""
+    f32 = to_f32(tree)
     by_depth = {}
     for d in DEPTHS:
-        plain = logits(bf16, d, "torch")
+        plain = logits(tree, cfg, d, "torch")
         by_depth[d] = {
-            "kernel_vs_plain_bf16": rel_err(logits(bf16, d, "cuda"), plain)[0],
-            "plain_bf16_vs_f32": rel_err(plain, logits(f32, d, "torch"))[0]}
+            "kernel_vs_plain_bf16": rel_err(logits(tree, cfg, d, None),
+                                            plain)[0],
+            "plain_bf16_vs_f32": rel_err(plain, logits(f32, cfg, d,
+                                                       "torch"))[0]}
     n = cfg.n_layers
-    f32_err = rel_err(logits(f32, n, "cuda"), logits(f32, n, "torch"))[0]
+    f32_checks = {"kernel_vs_plain_f32": (
+        rel_err(logits(f32, cfg, n, None), logits(f32, cfg, n, "torch"))[0],
+        LOGITS_F32_TOL)}
+    if extra is not None:
+        f32_checks.update(extra(f32))
     del f32
-    print("prefill logits, relative to max |logit|, by depth: "
+    print(f"{label} prefill logits, relative to max |logit|, by depth: "
           + json.dumps(by_depth))
+    out = {"by_depth": by_depth}
+    for name, (err, tol) in f32_checks.items():
+        check(err <= tol, f"{label} prefill logits, {n} layers, f32 weights, "
+              f"{name.replace('_', ' ')}: {err:.3e} <= {tol}")
+        out[name] = err
+    err = by_depth[depth]["kernel_vs_plain_bf16"]
     tol = TOL["bfloat16"]
-    check(f32_err <= tol, f"prefill logits, {n} layers, f32 weights, kernel "
-          f"vs plain: {f32_err:.3e} <= {tol}")
-    err = by_depth[CHECK_DEPTH]["kernel_vs_plain_bf16"]
-    check(err <= tol, f"prefill logits, {CHECK_DEPTH} layers, bf16 weights, "
-          f"kernel vs plain: {err:.3e} <= {tol}")
-    return {"kernel_vs_plain_f32": f32_err, "by_depth": by_depth}
+    check(err <= tol, f"{label} prefill logits, {depth} layers, bf16 "
+          f"weights, kernel vs plain: {err:.3e} <= {tol}")
+    return out
 
 
-def profile_run(torch, params, cfg, store, reqs):
+def profile_run(torch, eng, reqs, label):
     """Device busy share of one prefill + one decode chunk of the engine
     (8 rows), from torch.profiler's kernel events; the profiler's own
     host cost inflates the wall time, so the share is a lower bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serve import ServeEngine
-    eng = ServeEngine(params, cfg, store, max_rows=ROWS, max_prompt_len=PAD_W,
-                      max_len=MAX_LEN, decode_chunk=CHUNK, device="cuda")
     for t, p in reqs[:ROWS]:
         eng.submit(t, p, CHUNK + 1)
     torch.cuda.synchronize()
@@ -372,36 +646,47 @@ def profile_run(torch, params, cfg, store, reqs):
            "prefill_ms": 1e3 * st["prefill_seconds"][0],
            "decode_chunk_ms": 1e3 * st["chunk_seconds"][0],
            "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top}}
-    print("profile (1 prefill + 1 decode chunk, 8 rows): " + json.dumps(out))
+    print(f"profile {label} (1 prefill + 1 decode chunk, 8 rows): "
+          + json.dumps(out))
     return out
 
 
-def engine_report(store, st):
-    out = {"kind": store.kind, "requests": 12, "tokens": st["tokens"],
+def engine_report(label, st, n_req, peak):
+    out = {"requests": n_req, "tokens": st["tokens"], "peak_bytes": peak,
            "wall_s": st["wall_seconds"],
            "tokens_per_s": st["tokens"] / st["wall_seconds"],
            "prefills": st["prefills"], "decode_steps": st["decode_steps"],
            "prefill_ms": [1e3 * s for s in st["prefill_seconds"]],
            "decode_chunk_ms": [1e3 * s for s in st["chunk_seconds"]]}
-    print(f"engine {store.kind}: " + json.dumps(out))
+    print(f"engine {label}: " + json.dumps(out))
     return out
 
 
-def phase_main_path(torch):
-    from repro_torch.configs import get_config
-    from repro_torch.core.dora import magnitude
-    from repro_torch.core.peft import add_lora
+def draw(torch, cfg):
+    """The llama2-7b backbone from the seeded generator (the same weights
+    on every call) and the generator, on the card."""
     from repro_torch.models import model as M
-    from repro_torch.serve import AdapterStore
-    from repro_torch.utils import pytree as pt
-
-    cfg = get_config("llama2-7b")
     g = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     params = M.init_params(g, cfg, device="cuda")
     torch.cuda.synchronize()
     print(f"llama2-7b params drawn on the card in "
           f"{time.perf_counter() - t0:.2f} s")
+    return params, g
+
+
+def phase_main_path(torch):
+    """Phase 3.  Returns the report, the launch counts and what phases 4
+    and 5 reuse (the backbone, the dora_mag store, its shared adapter and
+    tenant deltas, the requests)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.dora import magnitude
+    from repro_torch.core.peft import add_lora
+    from repro_torch.serve import AdapterStore
+    from repro_torch.utils import pytree as pt
+
+    cfg = get_config("llama2-7b")
+    params, g = draw(torch, cfg)
     rng = np.random.default_rng(0)
     ranks = [2, 4, 8, 2, 4, 8]
     tenants = [f"tenant{i}" for i in range(len(ranks))]
@@ -420,31 +705,31 @@ def phase_main_path(torch):
     del raw
     mag = AdapterStore(params, cfg, n_slots=8, kind="dora_mag", shared=shared,
                        device="cuda")
+    deltas = {}
     for t, r in zip(tenants, ranks):
-        delta = pt.tree_map_with_path(
+        deltas[t] = pt.tree_map_with_path(
             lambda p, x: pt.tree_get(shared, p[:-len("dB_mag")] + "B_mag")
             * torch.as_tensor(rng.normal(size=tuple(x.shape))
                               * (np.arange(x.shape[-1]) < r),
                               dtype=torch.float32, device="cuda"),
             pt.filter_tree(shared, lambda p: p.endswith("dB_mag")))
-        mag.register(t, delta, rank=r)
+        mag.register(t, deltas[t], rank=r)
     reqs = requests(rng, tenants, cfg.vocab_size)
 
-    serve(torch, params, cfg, mag, reqs[:2], count=None)         # warm-up
+    eng = engine(params, cfg, mag)
+    serve(torch, eng, reqs[:2], "dora_mag warm-up")
     torch.cuda.reset_peak_memory_stats()
-    outs, st, launches_mag = serve(torch, params, cfg, mag, reqs,
-                                   count="bgmv_mag")
-    peak_mag = torch.cuda.max_memory_allocated()
-    first = [tuple(o.tolist()) for o in outs[:len(tenants) + 1]]
-    check(len(set(first)) >= 2, f"dora_mag: {len(set(first))} distinct "
-          f"continuations of one prompt over 6 tenants + the null tenant")
-    report = {"dora_mag": engine_report(mag, st)}
-    report["dora_mag"]["peak_bytes"] = peak_mag
+    _, st, launches_mag = serve(torch, engine(params, cfg, mag), reqs,
+                                "dora_mag", expect={"bgmv_mag": 2})
+    report = {"dora_mag": engine_report("dora_mag", st, len(reqs),
+                                        torch.cuda.max_memory_allocated())}
 
-    report["dora_mag"]["prefill_logits"] = prefill_logits(
-        torch, params, cfg, mag, reqs)
-    report["dora_mag"]["profile"] = profile_run(torch, params, cfg, mag, reqs)
-    del mag, shared
+    batch, last = admitted_batch(torch, mag, reqs)
+    report["dora_mag"]["prefill_logits"] = logits_checks(
+        torch, "dora_mag", pt.merge_trees(params, mag.overlay()), cfg,
+        prefill_logits(torch, batch, last))
+    report["dora_mag"]["profile"] = profile_run(torch, engine(params, cfg, mag),
+                                                reqs, "dora_mag")
 
     # --- pairs: raw-LoRA tenants at their own ranks (add_lora's init) ----
     pairs = AdapterStore(params, cfg, n_slots=8, kind="pairs", rank=R_MAIN,
@@ -452,16 +737,168 @@ def phase_main_path(torch):
     for t, r in zip(tenants, ranks):
         pairs.register(t, add_lora(params, cfg, g, rank=r))
     torch.cuda.reset_peak_memory_stats()
-    outs, st, launches_pairs = serve(torch, params, cfg, pairs, reqs,
-                                     count="bgmv")
-    first = [tuple(o.tolist()) for o in outs[:len(tenants) + 1]]
-    check(len(set(first)) >= 2, f"pairs: {len(set(first))} distinct "
-          f"continuations of one prompt over 6 tenants + the null tenant")
-    report["pairs"] = engine_report(pairs, st)
-    report["pairs"]["peak_bytes"] = torch.cuda.max_memory_allocated()
+    _, st, launches_pairs = serve(torch, engine(params, cfg, pairs), reqs,
+                                  "pairs", expect={"bgmv": 2})
+    report["pairs"] = engine_report("pairs", st, len(reqs),
+                                    torch.cuda.max_memory_allocated())
+    del pairs
     launches = {"bgmv_mag": launches_mag["bgmv_mag"],
                 "bgmv": launches_pairs["bgmv"]}
+    ctx = dict(cfg=cfg, params=params, mag=mag, shared=shared,
+               delta=deltas["tenant2"], reqs=reqs, batch=batch, last=last)
+    return report, launches, ctx
+
+
+def phase_fused_path(torch, ctx):
+    """Phase 4, path B1: fused-DoRA generation at full width, bf16.  The
+    adapter is the shared decomposed one with the rank-8 tenant's ΔB_M as
+    dB_mag and dA_dir = N(0, 1) x (1/6) x RMS(A_dir) (the 0.05 : 0.3 ratio
+    of tests/test_kernels.py's sweep)."""
+    from repro_torch.launch.serve import greedy_generate, merge_adapters
+    from repro_torch.models import model as M
+    from repro_torch.utils import pytree as pt
+
+    cfg, params = ctx["cfg"], ctx["params"]
+    fcfg = dataclasses.replace(cfg, use_fused_dora=True)
+    g = torch.Generator(device="cuda").manual_seed(1)
+
+    def leaf(p, x):
+        if p.endswith("/dB_mag"):
+            return pt.tree_get(ctx["delta"], p)
+        if p.endswith("/dA_dir"):
+            a = pt.tree_get(ctx["shared"], p[:-len("dA_dir")] + "A_dir")
+            return (torch.randn(a.shape, generator=g, device="cuda")
+                    * a.square().mean().sqrt() / 6)
+        return x
+    adapter = pt.tree_map_with_path(leaf, ctx["shared"])
+    merged = merge_adapters(params, adapter)
+    rng = np.random.default_rng(1)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                           size=(ROWS, PAD_W)), device="cuda")
+    greedy_generate(merged, {"tokens": prompts[:, :16]}, fcfg, 2,
+                    device="cuda")                              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    toks = greedy_generate(merged, {"tokens": prompts}, fcfg, N_NEW,
+                           device="cuda")
+    toks_h = toks.cpu().numpy()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(toks_h.shape == (ROWS, N_NEW) and toks_h.min() >= 0
+          and toks_h.max() < cfg.vocab_size,
+          f"fused: {ROWS} prompts of {PAD_W} tokens returned {N_NEW} tokens")
+    check_launches(launches, {"fused_dora": 2}, cfg.n_layers, N_NEW,
+                   "fused", f"1 prefill + {N_NEW - 1} decode steps")
+    t0 = time.perf_counter()
+    M.prefill(merged, {"tokens": prompts}, fcfg, cache_len=PAD_W + N_NEW)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    unfused = greedy_generate(merged, {"tokens": prompts}, cfg, N_NEW,
+                              device="cuda")
+    same = float((unfused.cpu().numpy() == toks_h).mean())
+    report = {"rows": ROWS, "prompt_tokens": PAD_W, "tokens": toks_h.size,
+              "wall_s": wall, "tokens_per_s": toks_h.size / wall,
+              "prefill_ms": prefill_ms,
+              "decode_step_ms": (1e3 * wall - prefill_ms) / (N_NEW - 1),
+              "peak_bytes": peak,
+              "tokens_equal_to_unfused_bf16": same}
+    print("fused generation: " + json.dumps(report))
+
+    batch = {"tokens": prompts}
+    last = torch.full((ROWS,), PAD_W - 1, device="cuda")
+    logits = prefill_logits(torch, batch, last)
+    n = cfg.n_layers
+
+    def fused_vs_unfused(f32):
+        return {"fused_vs_unfused_f32": (rel_err(
+            logits(f32, fcfg, n, None), logits(f32, cfg, n, None))[0],
+            LOGITS_F32_TOL)}
+    report["prefill_logits"] = logits_checks(torch, "fused", merged, fcfg,
+                                             logits, fused_vs_unfused)
+    return report, launches["fused_dora"]
+
+
+def quant_bytes(tree):
+    from repro_torch.utils import pytree as pt
+    return sum(t.numel() * t.element_size()
+               for p, t in pt.tree_leaves_with_path(tree)
+               if p.endswith(("/kernel_q", "/kernel_scale")))
+
+
+def phase_quant_path(torch, ctx):
+    """Phase 5, path B4: the quantized engine over the dora_mag store, at
+    full width, bf16; int8 per channel, then int4 in groups of 128.  Each
+    engine is built from a freshly drawn backbone (the same weights) that
+    is dropped before it serves, so the peak is what quantized serving
+    holds."""
+    from repro_torch.utils import pytree as pt
+    cfg, mag, reqs = ctx["cfg"], ctx["mag"], ctx["reqs"]
+    logits = prefill_logits(torch, ctx["batch"], ctx["last"])
+    n = cfg.n_layers
+    report, launches = {}, {}
+    for mode, group in QUANT_MODES:
+        label = f"dora_mag {mode}" + (f" g{group}" if group else "")
+        qcfg = dataclasses.replace(cfg, backbone_quant=mode,
+                                   backbone_quant_group=group)
+        params, _ = draw(torch, cfg)
+        bf16_bytes = sum(t.numel() * t.element_size()
+                         for p, t in pt.tree_leaves_with_path(params)
+                         if p.endswith("_proj/kernel"))
+        t0 = time.perf_counter()
+        eng = engine(params, qcfg, mag)
+        torch.cuda.synchronize()
+        quantize_s = time.perf_counter() - t0
+        tree = pt.merge_trees(eng.base, mag.overlay())
+        drift = rel_err(logits(tree, qcfg, n, None),
+                        logits(pt.merge_trees(params, mag.overlay()), cfg, n,
+                               None))[0]
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out = {"quantize_s": quantize_s, "proj_bytes": quant_bytes(eng.base),
+               "proj_bytes_bf16": bf16_bytes,
+               "drift_vs_unquantized_bf16": drift}
+        print(f"{label}: quantized projections {out['proj_bytes']} bytes "
+              f"(bf16 {bf16_bytes}); logits drift from the unquantized "
+              f"model (printed only) {drift:.3e}")
+        # the plain quant_matmul rounds every dequantized weight to bf16
+        # where the kernel keeps it in f32, and the plain path is itself
+        # 2e-2 from its f32 version at 2 layers: held at 1 (PERF.md)
+        out["prefill_logits"] = logits_checks(torch, label, tree, qcfg,
+                                              logits, depth=QUANT_CHECK_DEPTH)
+        del tree
+        serve(torch, eng, reqs[:2], f"{label} warm-up")
+        torch.cuda.reset_peak_memory_stats()
+        _, st, counts = serve(torch, eng, reqs, label,
+                              expect={"quant_matmul": 7, "bgmv_mag": 2})
+        out.update(engine_report(label, st, len(reqs),
+                                 torch.cuda.max_memory_allocated()))
+        if mode == "int8":
+            out["profile"] = profile_run(torch, eng, reqs, label)
+        report[mode] = out
+        launches[mode] = counts["quant_matmul"]
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
     return report, launches
+
+
+def kernel_entry(name, src, replaces, launches, row, shape, extra=None):
+    keys = ("ms", "plain_ms", "library_ms", "eager_ms", "eager_plain_ms",
+            "eager_library_ms")
+    out = {"name": name, "route": "cuda", "source": src,
+           "replaces": replaces, "launches": launches,
+           "max_abs_err": row["max_abs_err"], "rel_err": row["rel_err"],
+           "tolerance": row["tolerance"], "shape": shape,
+           "ms": row["ms"], "plain_ms": row["plain_ms"],
+           "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+           "library_ms": row["library_ms"], "eager_ms": row["eager_ms"],
+           "ranges_ms": {k: row[k + "_range"] for k in keys}}
+    out.update(extra or {})
+    return out
 
 
 def main():
@@ -486,6 +923,7 @@ def main():
     print(f"gpu: {gpu}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
+    t_start = time.perf_counter()
     try:
         t0 = time.perf_counter()
         libs = _build.build_all()
@@ -493,36 +931,61 @@ def main():
         for name in libs:
             print(f"--- nvcc log {name} ---\n"
                   + _build.log_path(name).read_text().strip())
+        t0 = time.perf_counter()
         rows = phase_kernels(torch)
-        report, launches = phase_main_path(torch)
+        print(f"phase 2 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        report, launches, ctx = phase_main_path(torch)
+        print(f"phase 3 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        report["fused"], launches["fused_dora"] = phase_fused_path(torch, ctx)
+        print(f"phase 4 took {time.perf_counter() - t0:.1f} s")
+        del ctx["params"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        report["quant"], quant_launches = phase_quant_path(torch, ctx)
+        print(f"phase 5 took {time.perf_counter() - t0:.1f} s")
     except CheckFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
 
-    src = "src/repro_torch/kernels/batched_lora/csrc/bgmv.cu"
-    replaces = {"bgmv": "src/repro/kernels/batched_lora/bgmv.py:134",
-                "bgmv_mag": "src/repro/kernels/batched_lora/bgmv.py:223"}
+    kdir = "src/repro_torch/kernels"
+    pallas = "src/repro/kernels"
     kernels = []
-    for name in ("bgmv_mag", "bgmv"):
+    for name, line in (("bgmv_mag", 223), ("bgmv", 134)):
         dec = rows[name]["decode"]
-        kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces[name], "launches": launches[name],
-            "max_abs_err": dec["max_abs_err"], "rel_err": dec["rel_err"],
-            "tolerance": dec["tolerance"], "shape": "x (8, 4096) bf16, r 8, "
-            "9 slots, ranked (the decode step)",
-            "ms": dec["ms"], "plain_ms": dec["plain_ms"],
-            "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-            "library_ms": dec["library_ms"],
-            "eager_ms": dec["eager_ms"],
-            "ranges_ms": {k: dec[k + "_range"] for k in
-                          ("ms", "plain_ms", "library_ms", "eager_ms",
-                           "eager_plain_ms", "eager_library_ms")},
-            "prefill": {k: rows[name]["prefill"][k] for k in
-                        ("x", "ms", "plain_ms", "library_ms", "bound_ms",
-                         "eager_ms")}})
-    print(json.dumps({"kernels": kernels}))
+        kernels.append(kernel_entry(
+            name, f"{kdir}/batched_lora/csrc/bgmv.cu",
+            f"{pallas}/batched_lora/bgmv.py:{line}", launches[name], dec,
+            "x (8, 4096) bf16, r 8, 9 slots, ranked (the decode step)",
+            {"prefill": {k: rows[name]["prefill"][k] for k in
+                         ("x", "ms", "plain_ms", "library_ms", "bound_ms",
+                          "eager_ms")}}))
+    fd = rows["fused_dora"]
+    kernels.append(kernel_entry(
+        "fused_dora", f"{kdir}/fused_dora/csrc/fused_dora.cu",
+        f"{pallas}/fused_dora/fused_dora.py:74", launches["fused_dora"],
+        fd["decode"], "x (8, 4096) bf16, W0 (4096, 4096), r 8 (the decode "
+        "step of path B1)",
+        {"prefill": {k: fd["prefill"][k] for k in
+                     ("x", "ms", "plain_ms", "library_ms", "bound_ms",
+                      "bound_by", "f32_core_bound_ms", "eager_ms")}}))
+    qm = rows["quant_matmul"]
+    kernels.append(kernel_entry(
+        "quant_matmul", f"{kdir}/quant_matmul/csrc/quant_matmul.cu",
+        f"{pallas}/quant_matmul/quant_matmul.py:60", quant_launches["int8"],
+        qm["int8 decode {}x{}".format(*QUANT_SHAPES[0])],
+        "x (8, 4096) bf16, int8 codes (4096, 4096), per channel (q/k/v/o at "
+        "decode on path B4)",
+        {"launches_int4": quant_launches["int4"],
+         "shapes": {k: {f: v[f] for f in ("ms", "plain_ms", "library_ms",
+                                           "bound_ms", "bound_by",
+                                           "f32_core_bound_ms", "eager_ms")}
+                    for k, v in qm.items()}}))
     print(json.dumps({"engine": report}))
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
     print(f"gpu: {gpu}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

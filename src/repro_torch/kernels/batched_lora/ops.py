@@ -12,23 +12,16 @@ the AdapterStore.
 """
 from __future__ import annotations
 
+from repro_torch.kernels._wrap import resolve_impl
 from repro_torch.kernels.batched_lora.bgmv import bgmv_cuda, bgmv_mag_cuda
 from repro_torch.kernels.batched_lora.ref import bgmv_mag_ref, bgmv_ref
-
-
-def _resolve(impl, x):
-    if impl is None:
-        return "torch" if x.device.type == "cpu" else "cuda"
-    if impl not in ("torch", "cuda"):
-        raise ValueError(f"unknown bgmv impl {impl!r}")
-    return impl
 
 
 def bgmv(x, a_pool, b_pool, idx, *, scale: float = 1.0, ranks=None,
          impl=None):
     """y[i] = scale · (x[i] @ a_pool[idx[i]]) @ b_pool[idx[i]]; ``ranks``
     (L,) int32 masks rank columns ≥ ranks[idx[i]] out of row i."""
-    impl = _resolve(impl, x)
+    impl = resolve_impl(impl, x, "bgmv")
     squeeze = x.dim() == 2
     if squeeze:
         x = x[:, None, :]
@@ -46,7 +39,7 @@ def bgmv_mag(x, a_dir, a_mag, b_mag, dmag_pool, b_dir, idx, *,
                     ⊙ (b_mag + dmag_pool[idx[i]])) @ b_dir;
     ``ranks`` masks the magnitude product per row (shared b_mag rows
     included, so a rank-0 slot serves the bare backbone)."""
-    impl = _resolve(impl, x)
+    impl = resolve_impl(impl, x, "bgmv")
     squeeze = x.dim() == 2
     if squeeze:
         x = x[:, None, :]

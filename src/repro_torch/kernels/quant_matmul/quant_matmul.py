@@ -1,0 +1,84 @@
+"""ctypes wrapper for the hand-written CUDA quantized matmul
+(``csrc/quant_matmul.cu``), which replaces the Pallas
+``quant_matmul_kernel`` (``repro/kernels/quant_matmul/quant_matmul.py``).
+
+``quant_matmul_cuda`` checks device, dtype, shape and contiguity and
+raises on anything the kernel does not take; allocates the output, and
+on the skinny (decode) path the (splits, M, N) f32 partials of the
+split-K pass, with ``torch.empty``; launches on the current stream
+without synchronising; raises if the launch was refused; and then adds
+one to ``LAUNCHES["quant_matmul"]``.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._wrap import I, P, SUFFIX, check, check_x, raise_on
+from repro_torch.kernels._wrap import stream
+
+LAUNCHES = {"quant_matmul": 0}
+
+_MODE = {torch.int8: "int8", torch.uint8: "int4"}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _lib():
+    lib = _build.library("quant_matmul")
+    if not getattr(lib, "_argtypes_set", False):
+        for mode in _MODE.values():
+            for s in SUFFIX.values():
+                # x, q, scale, part, y, M, K, N, G, splits, stream
+                fn = getattr(lib, f"quant_matmul_{mode}_{s}")
+                fn.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
+                fn.restype = I
+        lib.quant_matmul_splits.argtypes = [I, I, I, I]
+        lib.quant_matmul_splits.restype = I
+        lib._argtypes_set = True
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def quant_matmul_cuda(x, q, scale):
+    """x (M, K) f32|bf16, q int8 (K, N) or packed-int4 uint8 (K/2, N),
+    scale (G, N) f32 with G dividing K → (M, N) in x's dtype."""
+    check_x(x, "quant_matmul", 2)
+    M, K = x.shape
+    if q.dtype not in _MODE:
+        raise TypeError(f"q must be int8 or packed-int4 uint8, got {q.dtype}")
+    int4 = q.dtype == torch.uint8
+    N = q.shape[-1]
+    G = scale.shape[0]
+    dev = x.device
+    check(q, "q", q.dtype, (K // 2 if int4 else K, N), dev)
+    if int4 and K % 2:
+        raise ValueError(f"packed int4 needs an even d_in, x has {K}")
+    check(scale, "scale", torch.float32, (G, N), dev)
+    if G < 1 or K % G:
+        raise ValueError(f"{G} scale groups do not divide d_in {K}")
+    y = torch.empty((M, N), dtype=x.dtype, device=dev)
+    if M == 0 or N == 0:
+        return y
+    lib = _lib()
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    splits = lib.quant_matmul_splits(M, K, N, _sm_count(index))
+    part = (torch.empty((splits, M, N), dtype=torch.float32, device=dev)
+            if splits > 1 else None)
+    fn = getattr(lib, f"quant_matmul_{_MODE[q.dtype]}_{SUFFIX[x.dtype]}")
+    with torch.cuda.device(dev):
+        rc = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                None if part is None else part.data_ptr(), y.data_ptr(),
+                M, K, N, G, splits, stream(x))
+    raise_on(rc, lib, "quant_matmul", "quant_matmul")
+    LAUNCHES["quant_matmul"] += 1
+    return y

@@ -62,8 +62,8 @@ class ArchConfig:
     lora_alpha: float = 32.0
     lora_dropout: float = 0.1
     lora_targets: Sequence[str] = ("q_proj", "v_proj")
-    use_fused_dora: bool = False  # fused base+adapter kernel (not ported)
-    # --- serving-time weight-only quantization (not ported) ---
+    use_fused_dora: bool = False  # fused base+adapter kernel (forward only)
+    # --- serving-time weight-only quantization ("int8" | "int4") ---
     backbone_quant: Optional[str] = None
     backbone_quant_group: Optional[int] = None
     # --- misc ---

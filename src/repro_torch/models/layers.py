@@ -11,15 +11,22 @@ understand adapter params living alongside their kernel:
   {kernel, bgmv_A_dir, bgmv_A_mag,
    bgmv_B_mag, bgmv_B_dir, pool_dB_mag
    [, pool_ranks]}                          — pooled decomposed DoRA
+  {kernel_q, kernel_scale, ...}             — quantized frozen backbone
+                                              (int8 / packed int4), any
+                                              of the adapters above on top
 
 Kernels use (d_in, d_out) layout.  Dtypes and cast points follow the
 reference: bf16 operands with f32 accumulation where it accumulates in
 f32, so the two packages agree to a stated tolerance and the port's
 pooled path equals its merged path in float32.
 
-``bgmv_impl`` threads down to the BGMV ops: None launches the CUDA
-kernel for CUDA tensors (the plain version for CPU ones); "torch" forces
-the plain version, for explicit comparisons only.
+``linear`` routes to the port's kernels: ``fused=True`` (``cfg.
+use_fused_dora``) sends a non-pooled DoRA-decomposed projection through
+``fused_dora``, a ``kernel_q`` leaf goes through ``quant_matmul``, and
+pooled adapters through the BGMV ops.  ``kernel_impl`` threads down to
+all of them: None launches the CUDA kernel for CUDA tensors (the plain
+version for CPU ones); "torch" forces the plain versions, for explicit
+comparisons only.
 """
 from __future__ import annotations
 
@@ -86,7 +93,7 @@ def lora_delta(p: Params, x, scale: float):
 
 
 def lora_delta_batched(p: Params, x, adapter_idx, scale: float,
-                       bgmv_impl=None):
+                       kernel_impl=None):
     """Mixed-tenant adapter contribution: row i of x (B, ..., d_in) uses
     the adapter in pool slot adapter_idx[i] (BGMV — see
     kernels/batched_lora and serve/adapter_store).  An optional
@@ -95,10 +102,10 @@ def lora_delta_batched(p: Params, x, adapter_idx, scale: float,
     ranks = p.get("pool_ranks")
     if "pool_A" in p:
         return bgmv(x, p["pool_A"], p["pool_B"], adapter_idx, scale=scale,
-                    ranks=ranks, impl=bgmv_impl)
+                    ranks=ranks, impl=kernel_impl)
     return bgmv_mag(x, p["bgmv_A_dir"], p["bgmv_A_mag"], p["bgmv_B_mag"],
                     p["pool_dB_mag"], p["bgmv_B_dir"], adapter_idx,
-                    scale=scale, ranks=ranks, impl=bgmv_impl)
+                    scale=scale, ranks=ranks, impl=kernel_impl)
 
 
 def _has_pooled(p: Params) -> bool:
@@ -106,18 +113,31 @@ def _has_pooled(p: Params) -> bool:
 
 
 def linear(p: Params, x, *, lora_scale: float = 0.0, fused: bool = False,
-           adapter_idx=None, bgmv_impl=None):
-    if fused:
-        raise NotImplementedError("the fused_dora kernel path is not ported "
-                                  "yet (ROADMAP B1)")
+           adapter_idx=None, kernel_impl=None):
+    if (fused and "A_dir" in p and lora_scale
+            and (adapter_idx is None or not _has_pooled(p))
+            and "bias" not in p and "kernel" in p
+            and p["kernel"].dim() == 2):
+        # fused base + adapter product (forward only).  Pooled per-row
+        # routing outranks it: taking this branch there would serve every
+        # tenant the shared adapter.
+        from repro_torch.kernels import fused_dora
+        return fused_dora(x, p["kernel"], p["A_dir"], p["A_mag"],
+                          p["B_dir"], p["B_mag"], p.get("dA_dir"),
+                          p.get("dB_mag"), scale=lora_scale,
+                          impl=kernel_impl)
     if "kernel_q" in p:
-        raise NotImplementedError("the quantized backbone is not ported yet "
-                                  "(ROADMAP A9/B4)")
-    y = x @ p["kernel"].to(x.dtype)
+        # quantized frozen backbone: dequant-fused product; the adapter
+        # deltas below stay full precision on top
+        from repro_torch.kernels import quant_matmul
+        y = quant_matmul(x, p["kernel_q"], p["kernel_scale"],
+                         impl=kernel_impl)
+    else:
+        y = x @ p["kernel"].to(x.dtype)
     if "bias" in p:
         y = y + p["bias"].to(y.dtype)
     if adapter_idx is not None and lora_scale and _has_pooled(p):
-        y = y + lora_delta_batched(p, x, adapter_idx, lora_scale, bgmv_impl)
+        y = y + lora_delta_batched(p, x, adapter_idx, lora_scale, kernel_impl)
     elif ("lora_A" in p or "A_dir" in p) and lora_scale:
         y = y + lora_delta(p, x, lora_scale)
     return y
@@ -163,7 +183,7 @@ def _target_scale(cfg, proj: str, lora_scale: float) -> float:
 def attention(p: Params, x, positions, cfg, *, kind: str = "global",
               cache=None, cache_index=None,
               lora_scale: float = 0.0, return_cache: bool = False,
-              cache_len: int = 0, adapter_idx=None, bgmv_impl=None):
+              cache_len: int = 0, adapter_idx=None, kernel_impl=None):
     """Causal self-attention sublayer (pre-norm outside).  Returns
     (y, new_cache).
 
@@ -184,7 +204,8 @@ def attention(p: Params, x, positions, cfg, *, kind: str = "global",
     B, S, D = x.shape
     H, Kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     scale = 1.0 / math.sqrt(dh)
-    kw = dict(adapter_idx=adapter_idx, bgmv_impl=bgmv_impl)
+    kw = dict(fused=cfg.use_fused_dora, adapter_idx=adapter_idx,
+              kernel_impl=kernel_impl)
     q = linear(p["q_proj"], x, lora_scale=_target_scale(cfg, "q_proj",
                                                         lora_scale), **kw)
     k = linear(p["k_proj"], x, lora_scale=_target_scale(cfg, "k_proj",
@@ -249,11 +270,12 @@ def init_attn_cache(cfg, batch, seq_len: int, dtype, device):
 # ---------------------------------------------------------------------------
 
 def dense_ffn(p: Params, x, cfg, lora_scale: float = 0.0, adapter_idx=None,
-              bgmv_impl=None):
+              kernel_impl=None):
     if "adapter_down" in p:
         raise NotImplementedError("bottleneck adapters are not ported yet "
                                   "(ROADMAP A8)")
-    kw = dict(adapter_idx=adapter_idx, bgmv_impl=bgmv_impl)
+    kw = dict(fused=cfg.use_fused_dora, adapter_idx=adapter_idx,
+              kernel_impl=kernel_impl)
     g = linear(p["gate_proj"], x,
                lora_scale=_target_scale(cfg, "gate_proj", lora_scale), **kw)
     u = linear(p["up_proj"], x,

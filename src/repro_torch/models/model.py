@@ -38,12 +38,6 @@ def check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError("sliding-window, local/global, qk-norm and "
                                   "M-RoPE attention are not ported yet "
                                   "(ROADMAP A12)")
-    if cfg.use_fused_dora:
-        raise NotImplementedError("use_fused_dora needs the fused_dora "
-                                  "kernel, not ported yet (ROADMAP B1)")
-    if cfg.backbone_quant:
-        raise NotImplementedError("backbone_quant needs the quant_matmul "
-                                  "kernel, not ported yet (ROADMAP A9/B4)")
 
 
 # ---------------------------------------------------------------------------
@@ -119,7 +113,7 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, *,
 
 def _apply_sublayer(p, x, sub: SubLayer, cfg, *, positions, cache=None,
                     cache_index=None, lora_scale=0.0, return_cache=False,
-                    cache_len=0, adapter_idx=None, bgmv_impl=None):
+                    cache_len=0, adapter_idx=None, kernel_impl=None):
     new_cache = {}
     h = L.rms_norm(x, p["input_norm"], cfg.norm_eps)
     acache = cache.get("attn") if cache else None
@@ -127,13 +121,13 @@ def _apply_sublayer(p, x, sub: SubLayer, cfg, *, positions, cache=None,
                         cache=acache, cache_index=cache_index,
                         lora_scale=lora_scale, return_cache=return_cache,
                         cache_len=cache_len, adapter_idx=adapter_idx,
-                        bgmv_impl=bgmv_impl)
+                        kernel_impl=kernel_impl)
     if nc is not None:
         new_cache["attn"] = nc
     x = x + y
     h = L.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
     x = x + L.dense_ffn(p["mlp"], h, cfg, lora_scale, adapter_idx=adapter_idx,
-                        bgmv_impl=bgmv_impl)
+                        kernel_impl=kernel_impl)
     return x, new_cache
 
 
@@ -152,7 +146,7 @@ def _superblock(x, p_sb, cache_sb, pattern, cfg, **kw):
 
 def _run_blocks(blocks, x, pattern, cfg, *, positions, cache=None,
                 cache_index=None, return_cache=False, cache_len=0,
-                adapter_idx=None, bgmv_impl=None):
+                adapter_idx=None, kernel_impl=None):
     """Loop over the stacked superblocks (the dense pattern has one
     sublayer, so there is no tail; caches keep an empty ``tail`` for the
     reference's layout).  A decode cache is updated in place and
@@ -160,7 +154,7 @@ def _run_blocks(blocks, x, pattern, cfg, *, positions, cache=None,
     (n_sb, ...) layout."""
     kw = dict(positions=positions, cache_index=cache_index,
               return_cache=return_cache, cache_len=cache_len,
-              adapter_idx=adapter_idx, bgmv_impl=bgmv_impl)
+              adapter_idx=adapter_idx, kernel_impl=kernel_impl)
     leaves = pt.tree_leaves(blocks)
     n_sb = leaves[0].shape[0] if leaves else 0
     fresh = []
@@ -181,7 +175,7 @@ def _run_blocks(blocks, x, pattern, cfg, *, positions, cache=None,
 
 
 def forward(params, batch, cfg: ArchConfig, *, rng=None,
-            return_cache=False, cache_len=0, bgmv_impl=None):
+            return_cache=False, cache_len=0, kernel_impl=None):
     """Prefill forward → (hidden (B,S,D), cache, aux).  ``batch`` holds
     ``tokens`` (B, S) and optionally ``positions`` and ``adapter_idx``."""
     check_supported(cfg)
@@ -200,7 +194,7 @@ def forward(params, batch, cfg: ArchConfig, *, rng=None,
     x, cache = _run_blocks(
         params["blocks"], x, cfg.pattern(), cfg,
         positions=positions, return_cache=return_cache, cache_len=cache_len,
-        adapter_idx=batch.get("adapter_idx"), bgmv_impl=bgmv_impl)
+        adapter_idx=batch.get("adapter_idx"), kernel_impl=kernel_impl)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, cache, torch.zeros((), device=x.device)
 

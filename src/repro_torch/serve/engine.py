@@ -6,7 +6,9 @@ tensor copies) with the AdapterStore's pooled overlay.  Each row carries
 its own adapter slot (``adapter_idx``) and its own sequence position, so
 tenants mix freely in a single forward pass — the BGMV kernels in
 ``layers.linear`` gather each row's adapter from the pool instead of
-folding it into the weights.
+folding it into the weights.  With ``cfg.backbone_quant`` the backbone
+is quantized once, at construction (``quantize_backbone``), and every
+projection then runs the dequant-fused ``quant_matmul`` kernel.
 
 Two steps cover the serving loop, both at fixed shapes:
 
@@ -69,6 +71,13 @@ class ServeEngine:
         if store.device != self.device:
             raise ValueError(f"store is on {store.device}, engine on "
                              f"{self.device}")
+        if cfg.backbone_quant:
+            # the frozen backbone is quantized once, here, and only the
+            # quantized tree is kept; the per-tenant pool deltas stay full
+            # precision on top, so one pass serves every tenant
+            from repro_torch.kernels import quantize_backbone
+            base = quantize_backbone(base, cfg.backbone_quant,
+                                     group_size=cfg.backbone_quant_group)
         self.base, self.cfg, self.store = base, cfg, store
         self.max_rows = max_rows
         self.max_len = max_len

@@ -35,6 +35,11 @@ def tree_map(fn: Callable[[Any], Any], tree: Tree) -> Tree:
     return tree_map_with_path(lambda _, x: fn(x), tree)
 
 
+def tree_leaves_with_path(tree: Tree) -> list[tuple[str, Any]]:
+    """(path, leaf) pairs in dict order."""
+    return list(_leaves_with_path(tree))
+
+
 def tree_paths(tree: Tree) -> list[str]:
     return [p for p, _ in _leaves_with_path(tree)]
 

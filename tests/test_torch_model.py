@@ -223,11 +223,14 @@ def test_linear_branches_match_reference(branch):
 
 
 def test_linear_refuses_unported_paths():
-    p = {"kernel": torch.zeros(4, 4)}
-    with pytest.raises(NotImplementedError, match="B1"):
-        TL.linear(p, torch.zeros(1, 4), fused=True)
-    with pytest.raises(NotImplementedError, match="B4"):
-        TL.linear({"kernel_q": p["kernel"]}, torch.zeros(1, 4))
+    z = torch.zeros(4, 4)
+    dual = {"kernel": z, "lora_A": z, "lora_B": z, "local_A": z,
+            "local_B": z}
+    for fused in (False, True):
+        with pytest.raises(NotImplementedError, match="A8"):
+            TL.linear(dual, torch.zeros(1, 4), lora_scale=2.0, fused=fused)
+    with pytest.raises(NotImplementedError, match="A8"):
+        TL.dense_ffn({"adapter_down": z}, torch.zeros(1, 1, 4), T_GQA)
 
 
 def test_attention_prefill_with_cache_matches_reference(gqa):
@@ -356,7 +359,7 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(use_fused_dora=True), "B1"), (dict(backbone_quant="int8"), "B4"),
+    (dict(qk_norm=True), "A12"), (dict(local_global=2), "A12"),
     (dict(sliding_window=8), "A12"), (dict(family="moe", n_experts=2), "A12"),
 ])
 def test_unported_features_raise_not_implemented(change, item):
