@@ -20,7 +20,14 @@ Phase 2  each kernel against its plain PyTorch version on the card, f32
              (4096, 4160);
            quant_matmul int8 and int4, per channel and in groups of 128,
              at (K, N) = (4096, 4096), (4096, 11008), (11008, 4096) and
-             M = 8, 512 and a ragged 37, with zero-scale columns.
+             M = 8, 512 and a ragged 37, with zero-scale columns;
+           flash_attention, bf16, timed through its dispatcher at
+             llama2-7b prefill (1 x 4096, causal), decode (8 x 1 x 128)
+             and the gemma3-1b local layer (window 512), beside
+             scaled_dot_product_attention;
+           ssd_scan, bf16, timed at mamba2-2.7b 1 x 4096, chunk 128 (no
+             single PyTorch call computes it); each output held as phase 6
+             holds its own.
 Phase 3  the serving path at full width: llama2-7b, 32 layers, bf16,
          random weights from a seeded generator on the card.
          AdapterStore (dora_mag, 6 tenants at ranks 2/4/8 + the null
@@ -37,12 +44,29 @@ Phase 5  path B4, the quantized engine: ServeEngine with backbone_quant
          store and the 12 requests of phase 3, each built from a base that
          is then dropped: quant_matmul 7 x 32 x (prefills + decode steps)
          launches and the BGMV launches of phase 3's engine.
+Phase 6  the standalone entry points flash_attention(...) and ssd_scan(...)
+         at the full widths of the repo's configs (src/repro/configs/*.py,
+         written out below): flash_attention at llama2-7b (1 x 4096, 8 x
+         512, decode 8 x 1 x 128, a ragged 4095), qwen3-32b (1 x 4096;
+         1 x 1024 non-causal) and the gemma3-1b local layer (1 x 4096,
+         window 512), bf16, llama2-7b 1 x 4096 and gemma3-1b local also
+         in f32, plus flash_attention_bhsd_cuda with sk_valid < Sk and
+         rows that see no key; ssd_scan at mamba2-2.7b (1 x 4096
+         and 4 x 2048 at chunk 128, 1 x 4096 at the default 256, 1 x 4096
+         in f32) and jamba-v0.1's SSM layers (1 x 4096), and a three-way
+         check (kernel, ssd_ref, ssd_naive) at S 256; each kernel
+         launched once a call.
 Every run starts with every launch count at 0.  Each path's prefill
 logits, kernels against plain versions, relative to max |logit|: bf16
 weights through the first CHECK_DEPTH layers within 2e-2, f32 weights
 through all 32 within 1e-4; the other depths are printed.  Path B1 is
 also held against the unfused path in f32; path B4's drift from the
-unquantized model is printed only.
+unquantized model is printed only.  flash_attention: f32 within 2e-5,
+bf16 within 2e-2, absolute, of the plain version run in f32 on the same
+values, and bf16 also elementwise within the bound of its roundings
+(``bf16_bound_bhsd``: u |ref| + (1 + u)(u min(Σ w|v|, 8 sqrt(Σ w² v²))
++ 2e-5), u = 2^-8).  ssd_scan: f32 within rtol 1e-3, atol 1e-4 elementwise; bf16
+within 2e-2 of max |y| of the plain version on the same bf16 inputs.
 
 Prints a JSON ``kernels`` line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -224,12 +248,12 @@ def bound(kind, v, dtype_name):
     return roofline(nbytes, ops, dtype_name)
 
 
-def timings(torch, side, fns):
+def timings(torch, side, fns, **kw):
     """{key: graph ms, key_range, eager_key, eager_key_range} for each
-    named callable."""
+    named callable (``kw``: reps, iters, warmup of ``time_ms``)."""
     row = {}
     for key, fn in fns.items():
-        t = time_ms(torch, fn, side)
+        t = time_ms(torch, fn, side, **kw)
         row[key], row[key + "_range"] = t["graph"]
         row["eager_" + key], row["eager_" + key + "_range"] = t["eager"]
     return row
@@ -450,6 +474,254 @@ def phase_quant_matmul(torch, side, worst):
     return rows
 
 
+# --- flash_attention and ssd_scan (the repo's configs, written out) -------
+
+# src/repro/configs/*.py: (heads, kv heads, head dim) and the SSM widths
+LLAMA2_7B = dict(H=32, K=32, dh=128)                 # configs/llama2_7b.py
+QWEN3_32B = dict(H=64, K=8, dh=128)                  # configs/qwen3_32b.py
+GEMMA3_1B = dict(H=4, K=1, dh=256, window=512)       # configs/gemma3_1b.py
+# configs/mamba2_2_7b.py: d_inner 2 x 2560 = 5120 over heads of 64
+MAMBA2_2_7B = dict(H=80, P=64, N=128, G=1, chunk=128)
+# configs/jamba_v0_1_52b.py: its SSM layers
+JAMBA_V0_1 = dict(H=128, P=64, N=16, G=1, chunk=128)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}      # absolute
+SSD_RTOL, SSD_ATOL = 1e-3, 1e-4                      # f32, elementwise
+SSD_BF16_TOL = TOL["bfloat16"]                       # relative to max |y|
+
+
+def qkv(torch, B, Sq, Sk, H, K, dh, dtype, seed):
+    """q (B, Sq, H, dh), k and v (B, Sk, K, dh), N(0, 1), on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((B, S, h, dh), generator=g, device="cuda").to(dtype)
+            for S, h in ((Sq, H), (Sk, K), (Sk, K))]
+
+
+def head_major(t):
+    """The same (B, S, H, ...) values stored head-major underneath, so the
+    dispatchers' fold of heads into the batch is a view and a timed call
+    is the kernel alone."""
+    return t.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+def fold(t):
+    """(B, S, H, d) → (B·H, S, d), as the flash_attention dispatcher folds."""
+    return t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[3])
+
+
+def check_flash(label, y, q, k, v, **kw):
+    """Kernel output y against the plain version in f32 on the same values
+    of q, k, v, all in the (B·H, S, dh) layout with the bhsd knobs ``kw``:
+    y finite and of q's shape, within FLASH_TOL absolute, and in bf16 also
+    within ``bf16_bound_bhsd``'s elementwise bound (the rounding of the
+    softmax weights and of the output, PERF.md).  Returns the errors and
+    the plain output."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import bf16_bound_bhsd
+    dn = str(y.dtype).split(".")[-1]
+    ref, bnd = bf16_bound_bhsd(q.float(), k.float(), v.float(), **kw)
+    d = (y.float() - ref).abs()
+    err, ratio = d.max().item(), (d / bnd).max().item()
+    ok = (y.shape == q.shape and bool(torch.isfinite(y.float()).all())
+          and err <= FLASH_TOL[dn])
+    msg = f"{label}: max abs err {err:.3e} <= {FLASH_TOL[dn]}"
+    if dn == "bfloat16":
+        ok = ok and ratio <= 1.0
+        msg += f", worst |err| / rounding bound {ratio:.3f} <= 1"
+    check(ok, msg)
+    return {"max_abs_err": err, "bound_ratio": ratio,
+            "rel_err": err / ref.abs().max().item()}, ref
+
+
+def max_abs(y, ref):
+    return (y.float() - ref.float()).abs().max().item()
+
+
+def valid_pairs(Sq, Sk, causal, window, q_offset=None, sk_valid=0):
+    """(query row, key) pairs the masks keep, counted from this run's
+    shapes; a row with no valid key averages v over all Sk keys."""
+    q_offset = Sk - Sq if q_offset is None else q_offset
+    qi = np.arange(Sq, dtype=np.int64) + q_offset
+    hi = np.full(Sq, min(sk_valid or Sk, Sk), np.int64)
+    if causal:
+        hi = np.minimum(hi, qi + 1)
+    lo = np.maximum(qi - window + 1, 0) if window is not None else 0 * qi
+    n = np.maximum(hi - lo, 0)
+    return int(np.where(n > 0, n, Sk).sum())
+
+
+def flash_bound(BH, Sq, Sk, BK, dh, es, pairs, dtype_name):
+    """q, k, v read once and the output written once; QK^T and PV over the
+    valid pairs (2 dh each), scale, exp and the running sums (5 a pair)."""
+    nbytes = es * (2 * BH * Sq * dh + 2 * BK * Sk * dh)
+    ops = BH * pairs * (4 * dh + 5)
+    return roofline(nbytes, ops, dtype_name)
+
+
+def sdpa_call(torch, q, k, v, causal, window):
+    """One PyTorch call for the same function in the (B, H, S, dh) layout:
+    a yardstick only, never called by the port."""
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    Sq, Sk = q.shape[1], k.shape[1]
+    gqa = q.shape[2] != k.shape[2]
+    if window is None and (not causal or Sq == Sk or Sq == 1):
+        causal_flag = causal and Sq == Sk
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal_flag, enable_gqa=gqa)
+    qi = torch.arange(Sq, device="cuda")[:, None] + (Sk - Sq)
+    kj = torch.arange(Sk, device="cuda")[None, :]
+    mask = kj <= qi if causal else torch.ones_like(kj <= qi)
+    if window is not None:
+        mask = mask & (kj > qi - window)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=gqa)
+
+
+FLASH_TIMED = (   # label, config, B, Sq, Sk, causal
+    ("prefill", LLAMA2_7B, 1, 4096, 4096, True),
+    ("decode", LLAMA2_7B, 8, 1, 128, True),
+    ("gemma3_local", GEMMA3_1B, 1, 4096, 4096, True),
+)
+
+
+def phase_flash(torch, side, worst):
+    """Times at full width, bf16, through the dispatcher on head-major
+    inputs; the outputs held as phase 6 holds its own."""
+    from repro_torch.kernels import flash_attention
+    rows = {}
+    for label, c, B, Sq, Sk, causal in FLASH_TIMED:
+        H, K, dh, window = c["H"], c["K"], c["dh"], c.get("window")
+        q, k, v = (head_major(t) for t in qkv(torch, B, Sq, Sk, H, K, dh,
+                                               torch.bfloat16, seed=7))
+        kw = dict(causal=causal, window=window)
+        y = flash_attention(q, k, v, **kw)
+        e, plain = check_flash(
+            f"flash_attention {label} q{tuple(q.shape)} k{tuple(k.shape)} bf16",
+            fold(y), fold(q), fold(k), fold(v), scale=dh ** -0.5,
+            q_offset=Sk - Sq, **kw)
+        key = ("flash_attention", "bfloat16")
+        worst[key] = max(worst.get(key, 0), e["max_abs_err"])
+        lib = sdpa_call(torch, q, k, v, causal, window)
+        lib_err = max_abs(lib().reshape(plain.shape), plain)
+        check(lib_err <= FLASH_TOL["bfloat16"], f"flash_attention {label} "
+              f"library yardstick vs plain {lib_err:.3e}")
+        pairs = valid_pairs(Sq, Sk, causal, window)
+        b_ms, b_by = flash_bound(B * H, Sq, Sk, B * K, dh, 2, pairs, "bfloat16")
+        row = dict(e, q=list(q.shape), k=list(k.shape), causal=causal,
+                   window=window, tolerance=FLASH_TOL["bfloat16"],
+                   bound_ms=b_ms, bound_by=b_by, valid_pairs_per_head=pairs,
+                   f32_core_bound_ms=flash_bound(B * H, Sq, Sk, B * K, dh, 2,
+                                                 pairs, "float32")[0])
+        row.update(timings(torch, side, {
+            "ms": lambda: flash_attention(q, k, v, **kw),
+            "plain_ms": lambda: flash_attention(q, k, v, impl="torch", **kw),
+            "library_ms": lib}, reps=3, iters=10, warmup=3))
+        rows[label] = row
+        print(f"flash_attention {label} q{tuple(q.shape)} k{tuple(k.shape)} "
+              f"bf16: " + json.dumps(row))
+        del q, k, v, y, plain, lib
+    return rows
+
+
+def ssd_inputs(torch, b, S, c, dtype, seed):
+    """As init_params draws the mixer (src/repro/models/model.py:73-75):
+    A_log = log(linspace(1, 16, H)), dt = softplus(z - 2) with z ~ N(0, 1);
+    x, B and C ~ N(0, 1)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    H, P, N, G = c["H"], c["P"], c["N"], c["G"]
+
+    def n(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    return dict(x=n(b, S, H, P).to(dtype),
+                dt=torch.nn.functional.softplus(n(b, S, H) - 2.0),
+                A_log=torch.log(torch.linspace(1.0, 16.0, H, device="cuda")),
+                B=n(b, S, G, N).to(dtype), C=n(b, S, G, N).to(dtype))
+
+
+SSD_ORDER = ("x", "dt", "A_log", "B", "C")
+
+
+def ssd_call(v, impl=None, **kw):
+    from repro_torch.kernels import ssd_scan
+    return ssd_scan(*(v[k] for k in SSD_ORDER), impl=impl, **kw)
+
+
+def ssd_f32_errs(y, st, y_ref, st_ref):
+    """(worst |d| / (atol + rtol |ref|) over y and the state, error
+    relative to max |y|)."""
+    def ratio(a, r):
+        return ((a - r).abs() / (SSD_ATOL + SSD_RTOL * r.abs())).max().item()
+    return max(ratio(y, y_ref), ratio(st, st_ref)), rel_err(y, y_ref)[0]
+
+
+def ssd_bf16_errs(torch, v, y, st, chunk):
+    """Kernel bf16 against the plain version on the same bf16 inputs
+    (held), and, printed beside it, that plain version against itself in
+    f32 and the kernel against the plain f32 version."""
+    y_p, st_p = ssd_call(v, "torch", chunk=chunk)
+    f32 = {k: t.float() for k, t in v.items()}
+    y_f, _ = ssd_call(f32, "torch", chunk=chunk)
+    return {"kernel_vs_plain": max(rel_err(y, y_p)[0], rel_err(st, st_p)[0]),
+            "max_abs_err": rel_err(y, y_p)[1],
+            "plain_bf16_vs_f32": rel_err(y_p, y_f)[0],
+            "kernel_vs_plain_f32": rel_err(y, y_f)[0]}
+
+
+def check_ssd_bf16(torch, label, v, y, st, chunk):
+    e = ssd_bf16_errs(torch, v, y, st, chunk)
+    check(e["kernel_vs_plain"] <= SSD_BF16_TOL, f"{label}: rel err "
+          f"{e['kernel_vs_plain']:.3e} <= {SSD_BF16_TOL} (plain bf16 vs "
+          f"f32 {e['plain_bf16_vs_f32']:.3e}, kernel vs plain f32 "
+          f"{e['kernel_vs_plain_f32']:.3e})")
+    return e
+
+
+def ssd_bound(v, dtype_name, chunk):
+    """x, dt, B, C read once, y and the state written once; per head and
+    chunk the triangle of C.B^T (2N a pair) and of the decayed product
+    with x.dt (2P + 2 a pair), the state term and the state update (2NP
+    a step each)."""
+    b, S, H, P = v["x"].shape
+    G, N = v["B"].shape[2:]
+    Q = min(chunk, S)
+    es = v["x"].element_size()
+    nbytes = (es * (2 * b * S * H * P + 2 * b * S * G * N) + 4 * b * S * H
+              + 4 * H + 4 * b * H * N * P)
+    tri = Q * (Q + 1) // 2
+    ops = b * H * (S // Q) * (tri * (2 * N + 2 * P + 2) + 4 * Q * N * P
+                              + 2 * Q * P + Q * N)
+    return roofline(nbytes, ops, dtype_name)
+
+
+def phase_ssd(torch, side, worst):
+    """Times at mamba2-2.7b's full width, bf16, through the dispatcher on
+    head-major inputs; the output held as phase 6 holds its own."""
+    c = MAMBA2_2_7B
+    b, S, chunk = 1, 4096, c["chunk"]
+    v = {k: t if k == "A_log" else head_major(t)
+         for k, t in ssd_inputs(torch, b, S, c, torch.bfloat16, seed=7).items()}
+    y, st = ssd_call(v, chunk=chunk)
+    e = check_ssd_bf16(torch, f"ssd_scan mamba2-2.7b x{tuple(v['x'].shape)} "
+                       f"chunk {chunk} bf16", v, y, st, chunk)
+    key = ("ssd_scan", "bfloat16")
+    worst[key] = max(worst.get(key, 0), e["kernel_vs_plain"])
+    b_ms, b_by = ssd_bound(v, "bfloat16", chunk)
+    row = {"x": list(v["x"].shape), "N": c["N"], "chunk": chunk,
+           "max_abs_err": e["max_abs_err"], "rel_err": e["kernel_vs_plain"],
+           "tolerance": SSD_BF16_TOL, "bound_ms": b_ms, "bound_by": b_by,
+           "f32_core_bound_ms": ssd_bound(v, "float32", chunk)[0],
+           "library_ms": None, "eager_library_ms": None,
+           "library_ms_range": None, "eager_library_ms_range": None,
+           "blocks": b * c["H"]}
+    row.update(timings(torch, side, {
+        "ms": lambda: ssd_call(v, chunk=chunk),
+        "plain_ms": lambda: ssd_call(v, "torch", chunk=chunk)},
+        reps=3, iters=10, warmup=3))
+    print(f"ssd_scan mamba2-2.7b x{tuple(v['x'].shape)} chunk {chunk} bf16: "
+          + json.dumps(row))
+    return row
+
+
 def phase_kernels(torch):
     worst = {}
     # One capture stream for all timings: cuBLAS keeps a workspace for
@@ -458,6 +730,8 @@ def phase_kernels(torch):
     rows = phase_bgmv(torch, side, worst)
     rows["fused_dora"] = phase_fused_dora(torch, side, worst)
     rows["quant_matmul"] = phase_quant_matmul(torch, side, worst)
+    rows["flash_attention"] = phase_flash(torch, side, worst)
+    rows["ssd_scan"] = phase_ssd(torch, side, worst)
     print("worst relative error by kernel and dtype: "
           + json.dumps({f"{k} {d}": e for (k, d), e in worst.items()}))
     torch.cuda.synchronize()
@@ -471,9 +745,11 @@ def phase_kernels(torch):
 
 def counters():
     from repro_torch.kernels.batched_lora import bgmv
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fused_dora import fused_dora
     from repro_torch.kernels.quant_matmul import quant_matmul
-    return bgmv, fused_dora, quant_matmul
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    return bgmv, fused_dora, quant_matmul, flash_attention, ssd_scan
 
 
 def reset_launches():
@@ -886,6 +1162,133 @@ def phase_quant_path(torch, ctx):
     return report, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the standalone entry points at the configs' full widths
+# ---------------------------------------------------------------------------
+
+# name, config, B, Sq, Sk, causal, window, dtype: flash_attention(...)
+FLASH_PATH = (
+    ("llama2-7b prefill", LLAMA2_7B, 1, 4096, 4096, True, None, "bfloat16"),
+    ("llama2-7b batch", LLAMA2_7B, 8, 512, 512, True, None, "bfloat16"),
+    ("llama2-7b decode", LLAMA2_7B, 8, 1, 128, True, None, "bfloat16"),
+    ("qwen3-32b prefill", QWEN3_32B, 1, 4096, 4096, True, None, "bfloat16"),
+    ("gemma3-1b local", GEMMA3_1B, 1, 4096, 4096, True, 512, "bfloat16"),
+    ("qwen3-32b non-causal", QWEN3_32B, 1, 1024, 1024, False, None,
+     "bfloat16"),
+    ("llama2-7b ragged", LLAMA2_7B, 1, 4095, 4095, True, None, "bfloat16"),
+    ("llama2-7b prefill", LLAMA2_7B, 1, 4096, 4096, True, None, "float32"),
+    ("gemma3-1b local", GEMMA3_1B, 1, 4096, 4096, True, 512, "float32"),
+)
+# through the bhsd wrapper: llama2-7b heads, a cache of 512 whose last 128
+# slots are empty (sk_valid 384), causal, window 64: rows 447-511 see no key
+FLASH_SK_VALID = dict(B=8, S=512, sk_valid=384, window=64)
+# name, config, b, S, chunk (None: the dispatcher's default, 256), dtype
+SSD_PATH = (
+    ("mamba2-2.7b", MAMBA2_2_7B, 1, 4096, 128, "bfloat16"),
+    ("mamba2-2.7b", MAMBA2_2_7B, 4, 2048, 128, "bfloat16"),
+    ("jamba-v0.1", JAMBA_V0_1, 1, 4096, 128, "bfloat16"),
+    ("mamba2-2.7b default chunk", MAMBA2_2_7B, 1, 4096, None, "bfloat16"),
+    ("mamba2-2.7b", MAMBA2_2_7B, 1, 4096, 128, "float32"),
+    ("mamba2-2.7b three-way", MAMBA2_2_7B, 1, 256, 128, "float32"),
+)
+
+
+def phase_standalone(torch):
+    """Phase 6.  Every call goes through the entry point a user calls
+    (``flash_attention``, ``ssd_scan``; the sk_valid case through
+    ``flash_attention_bhsd_cuda``) with every launch count at 0; the
+    outputs are held against the plain versions after the counts are
+    read."""
+    from repro_torch.kernels import flash_attention, ssd_naive, ssd_ref, ssd_scan
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bhsd_cuda)
+    from repro_torch.models.layers import _causal_mask, _sdpa
+
+    flash_in = [qkv(torch, B, Sq, Sk, c["H"], c["K"], c["dh"],
+                    getattr(torch, dn), seed=i)
+                for i, (_, c, B, Sq, Sk, _, _, dn) in enumerate(FLASH_PATH)]
+    sv = FLASH_SK_VALID
+    c = LLAMA2_7B
+    bq, bk, bv = (fold(t).contiguous()
+                  for t in qkv(torch, sv["B"], sv["S"], sv["S"], c["H"], c["K"],
+                               c["dh"], torch.bfloat16, seed=99))
+    skw = dict(scale=c["dh"] ** -0.5, causal=True, window=sv["window"],
+               sk_valid=sv["sk_valid"], q_offset=0)
+    ssd_in = [ssd_inputs(torch, b, S, cfg, getattr(torch, dn), seed=i)
+              for i, (_, cfg, b, S, _, dn) in enumerate(SSD_PATH)]
+    torch.cuda.synchronize()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    flash_out = [flash_attention(q, k, v, causal=causal, window=window)
+                 for (q, k, v), (_, _, _, _, _, causal, window, _)
+                 in zip(flash_in, FLASH_PATH)]
+    sk_out = flash_attention_bhsd_cuda(bq, bk, bv, **skw)
+    ssd_out = [ssd_scan(*(v[k] for k in SSD_ORDER),
+                        **({} if chunk is None else {"chunk": chunk}))
+               for v, (_, _, _, _, chunk, _) in zip(ssd_in, SSD_PATH)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n_flash, n_ssd = len(FLASH_PATH) + 1, len(SSD_PATH)
+    check_launches(launches, {"flash_attention": n_flash, "ssd_scan": n_ssd},
+                   1, 1, "standalone", f"{n_flash} flash_attention and {n_ssd} "
+                   f"ssd_scan calls")
+
+    report = {"wall_s": wall, "flash_attention": {}, "ssd_scan": {}}
+    for (name, c, B, Sq, Sk, causal, window, dn), (q, k, v), y in zip(
+            FLASH_PATH, flash_in, flash_out):
+        shape = (f"q{tuple(q.shape)} k{tuple(k.shape)} causal={causal} "
+                 f"window={window}")
+        e, _ = check_flash(f"standalone flash_attention {name} {dn} {shape}",
+                           fold(y), fold(q), fold(k), fold(v),
+                           scale=c["dh"] ** -0.5, causal=causal, window=window,
+                           q_offset=Sk - Sq)
+        report["flash_attention"][f"{name} {dn}"] = dict(e, shape=shape)
+    q, k, v = flash_in[0]
+    mask = _causal_mask(q.shape[1], k.shape[1], q.device)[None, None]
+    sdpa_err = max_abs(flash_out[0], _sdpa(q, k, v, mask, q.shape[-1] ** -0.5))
+    report["flash_attention"]["llama2-7b prefill bfloat16"]["vs_layers_sdpa"] = \
+        sdpa_err
+    print(f"standalone flash_attention llama2-7b prefill against the port's "
+          f"models/layers._sdpa (causal mask, bf16, printed only): max abs "
+          f"{sdpa_err:.3e}")
+    rows_empty = sv["S"] - (sv["sk_valid"] + sv["window"] - 1)
+    e, _ = check_flash(
+        f"standalone flash_attention_bhsd q{tuple(bq.shape)} sk_valid "
+        f"{sv['sk_valid']} window {sv['window']} ({rows_empty} rows see no "
+        f"key) bfloat16", sk_out, bq, bk, bv, **skw)
+    report["flash_attention"]["sk_valid"] = dict(e, q=list(bq.shape))
+    del flash_in, flash_out
+
+    for (name, c, b, S, chunk, dn), v, (y, st) in zip(SSD_PATH, ssd_in, ssd_out):
+        ch = 256 if chunk is None else chunk
+        label = f"standalone ssd_scan {name} {dn} x{tuple(v['x'].shape)} chunk {ch}"
+        check(y.shape == v["x"].shape and bool(torch.isfinite(y.float()).all()
+                                               and torch.isfinite(st).all()),
+              f"{label} shape, finite")
+        if dn == "bfloat16":
+            e = check_ssd_bf16(torch, label, v, y, st, ch)
+        else:
+            y_r, st_r = ssd_ref(*(v[k] for k in SSD_ORDER), ch)
+            ratio, rel = ssd_f32_errs(y, st, y_r, st_r)
+            e = {"vs_ssd_ref_bound_ratio": ratio, "vs_ssd_ref_rel": rel}
+            check(ratio <= 1.0, f"{label}: kernel vs ssd_ref within rtol "
+                  f"{SSD_RTOL} atol {SSD_ATOL} (worst |err| / bound {ratio:.3f}; "
+                  f"{rel:.3e} of max |y|)")
+            if S <= 256:
+                y_n, st_n = ssd_naive(*(v[k] for k in SSD_ORDER))
+                for who, (ya, sa) in (("kernel", (y, st)), ("ssd_ref", (y_r, st_r))):
+                    ratio, rel = ssd_f32_errs(ya, sa, y_n, st_n)
+                    e[f"{who}_vs_naive_bound_ratio"] = ratio
+                    check(ratio <= 1.0, f"{label}: {who} vs ssd_naive within "
+                          f"rtol {SSD_RTOL} atol {SSD_ATOL} (worst |err| / bound "
+                          f"{ratio:.3f}; {rel:.3e} of max |y|)")
+        report["ssd_scan"][f"{name} {dn} b={b} S={S}"] = dict(e, chunk=ch)
+    print("standalone: " + json.dumps(report))
+    return report, {k: launches[k] for k in ("flash_attention", "ssd_scan")}
+
+
 def kernel_entry(name, src, replaces, launches, row, shape, extra=None):
     keys = ("ms", "plain_ms", "library_ms", "eager_ms", "eager_plain_ms",
             "eager_library_ms")
@@ -946,6 +1349,12 @@ def main():
         t0 = time.perf_counter()
         report["quant"], quant_launches = phase_quant_path(torch, ctx)
         print(f"phase 5 took {time.perf_counter() - t0:.1f} s")
+        del ctx
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        standalone, launches_6 = phase_standalone(torch)
+        print(f"phase 6 took {time.perf_counter() - t0:.1f} s")
     except CheckFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -983,6 +1392,26 @@ def main():
                                            "bound_ms", "bound_by",
                                            "f32_core_bound_ms", "eager_ms")}
                     for k, v in qm.items()}}))
+    fa = rows["flash_attention"]
+    kernels.append(kernel_entry(
+        "flash_attention", f"{kdir}/flash_attention/csrc/flash_attention.cu",
+        f"{pallas}/flash_attention/flash_attention.py:87",
+        launches_6["flash_attention"], fa["prefill"],
+        "llama2-7b prefill: q, k, v (1, 4096, 32, 128) bf16, causal (phase 6 "
+        "runs it with the other configs' shapes)",
+        {"other_shapes": {k: {f: r[f] for f in (
+            "q", "k", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "f32_core_bound_ms", "eager_ms", "max_abs_err", "bound_ratio")}
+            for k, r in fa.items() if k != "prefill"},
+         "f32_core_bound_ms": fa["prefill"]["f32_core_bound_ms"],
+         "bound_ratio": fa["prefill"]["bound_ratio"]}))
+    sd = rows["ssd_scan"]
+    kernels.append(kernel_entry(
+        "ssd_scan", f"{kdir}/ssd_scan/csrc/ssd_scan.cu",
+        f"{pallas}/ssd_scan/ssd_scan.py:85", launches_6["ssd_scan"], sd,
+        "mamba2-2.7b: x (1, 4096, 80, 64) bf16, B and C (1, 4096, 1, 128), "
+        "chunk 128; library_ms null: no single PyTorch call computes the scan",
+        {"f32_core_bound_ms": sd["f32_core_bound_ms"], "blocks": sd["blocks"]}))
     print(json.dumps({"engine": report}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -29,7 +29,9 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "kernels"
 # library name → source, relative to this package
 SOURCES = {"bgmv": "batched_lora/csrc/bgmv.cu",
            "fused_dora": "fused_dora/csrc/fused_dora.cu",
-           "quant_matmul": "quant_matmul/csrc/quant_matmul.cu"}
+           "quant_matmul": "quant_matmul/csrc/quant_matmul.cu",
+           "flash_attention": "flash_attention/csrc/flash_attention.cu",
+           "ssd_scan": "ssd_scan/csrc/ssd_scan.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
