@@ -6,7 +6,10 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 Phase 1  the card's name and power limit; builds every CUDA kernel from
-         the checkout's sources (one nvcc per source, started together).
+         the checkout's sources (one nvcc per source, started together);
+         holds the flash library's bf16 kernels to the tensor cores (HMMA
+         instructions in ``cuobjdump -sass``) and to 0 spilled bytes
+         (``-Xptxas -v``).
 Phase 2  each kernel against its plain PyTorch version on the card, f32
          and bf16, and its time beside the plain version's, one library
          call's and the bound (bytes over 3.35 TB/s or operations over
@@ -22,9 +25,12 @@ Phase 2  each kernel against its plain PyTorch version on the card, f32
              at (K, N) = (4096, 4096), (4096, 11008), (11008, 4096) and
              M = 8, 512 and a ragged 37, with zero-scale columns;
            flash_attention, bf16, timed through its dispatcher at
-             llama2-7b prefill (1 x 4096, causal), decode (8 x 1 x 128)
-             and the gemma3-1b local layer (window 512), beside
-             scaled_dot_product_attention;
+             llama2-7b prefill (1 x 4096, causal), decode (8 x 1 x 128),
+             the gemma3-1b local layer (window 512), qwen3-32b prefill
+             (1 x 4096, 64 heads over 8 kv heads), and one query row over
+             4096 keys at qwen3-32b and a gemma3-1b global layer, beside
+             scaled_dot_product_attention, the CUDA-core kernel's earlier
+             time and the achieved TFLOP/s;
            ssd_scan, bf16, timed at mamba2-2.7b 1 x 4096, chunk 128 (no
              single PyTorch call computes it); each output held as phase 6
              holds its own.
@@ -76,6 +82,7 @@ any check fails.  Imports nothing of JAX.
 import dataclasses
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -549,12 +556,16 @@ def valid_pairs(Sq, Sk, causal, window, q_offset=None, sk_valid=0):
     return int(np.where(n > 0, n, Sk).sum())
 
 
+def flash_ops(BH, dh, pairs):
+    """QK^T and PV over the valid pairs (2 dh each), scale, exp and the
+    running sums (5 a pair)."""
+    return BH * pairs * (4 * dh + 5)
+
+
 def flash_bound(BH, Sq, Sk, BK, dh, es, pairs, dtype_name):
-    """q, k, v read once and the output written once; QK^T and PV over the
-    valid pairs (2 dh each), scale, exp and the running sums (5 a pair)."""
+    """q, k, v read once and the output written once; ``flash_ops``."""
     nbytes = es * (2 * BH * Sq * dh + 2 * BK * Sk * dh)
-    ops = BH * pairs * (4 * dh + 5)
-    return roofline(nbytes, ops, dtype_name)
+    return roofline(nbytes, flash_ops(BH, dh, pairs), dtype_name)
 
 
 def sdpa_call(torch, q, k, v, causal, window):
@@ -581,7 +592,85 @@ FLASH_TIMED = (   # label, config, B, Sq, Sk, causal
     ("prefill", LLAMA2_7B, 1, 4096, 4096, True),
     ("decode", LLAMA2_7B, 8, 1, 128, True),
     ("gemma3_local", GEMMA3_1B, 1, 4096, 4096, True),
+    ("qwen3_prefill", QWEN3_32B, 1, 4096, 4096, True),
+    # one query row over a long cache: BK x ceil(rep / 16) blocks of the
+    # decode variant, 8 for qwen3-32b and 1 for a gemma3-1b global layer
+    ("qwen3_decode", QWEN3_32B, 1, 1, 4096, True),
+    ("gemma3_global_decode", dict(GEMMA3_1B, window=None), 1, 1, 4096, True),
 )
+# bf16 ms of the first, CUDA-core flash_attention at these shapes (PERF.md,
+# the kernel table's row 5: NVIDIA H100 80GB HBM3, 700.00 W), printed beside
+# the tensor-core kernel's
+FLASH_EARLIER_MS = {"prefill": 9.692, "decode": 0.07117, "gemma3_local": 0.6629}
+
+
+def ptxas_usage(log: str) -> dict[str, dict[str, int]]:
+    """Per kernel (mangled name), from an ``-Xptxas -v`` log: registers,
+    stack frame and spill store / load bytes."""
+    out: dict[str, dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )"
+                      r"(\w+)", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+        elif name is None:
+            continue
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                            r"stores, (\d+) bytes spill loads", line):
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        elif m := re.search(r"Used (\d+) registers", line):
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def count_opcode(sass: str, opcode: str) -> dict[str, int]:
+    """``cuobjdump -sass`` text → {function: instructions starting with
+    ``opcode``}."""
+    out: dict[str, int] = {}
+    fn = None
+    pat = re.compile(r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?" + re.escape(opcode)
+                     + r"\b")
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, 0)
+        elif fn is not None and pat.search(line):
+            out[fn] += 1
+    return out
+
+
+def check_flash_build():
+    """The built flash library's bf16 kernels run on the tensor cores (a
+    count of HMMA instructions from ``cuobjdump -sass`` above 0 in each)
+    and spill nothing (``-Xptxas -v``).  Returns what was read."""
+    from repro_torch.kernels import _build
+    usage = ptxas_usage(_build.log_path("flash_attention").read_text())
+    tool = Path(_build.find_nvcc()).with_name("cuobjdump")
+    lib = _build.build_all(["flash_attention"])["flash_attention"]
+    hmma = count_opcode(subprocess.run(
+        [str(tool), "-sass", str(lib)], capture_output=True, text=True,
+        check=True, timeout=300).stdout, "HMMA")
+    out = {}
+    for fn, u in sorted(usage.items()):
+        short = (re.search(r"flash_[a-z_]+?_kernel", fn).group(0)
+                 + "<" + ",".join(re.findall(r"Li(\d+)E", fn)) + ">")
+        bf16 = "flash_mma" in fn
+        out[short] = dict(u, hmma=hmma.get(fn))
+        print(f"flash_attention kernel {short}: {u['registers']} registers, "
+              f"{u['spill_stores']} / {u['spill_loads']} bytes spilled, "
+              f"{hmma.get(fn)} HMMA")
+        if bf16:
+            check(hmma.get(fn, 0) > 0, f"bf16 flash kernel {short} runs on the "
+                  f"tensor cores: {hmma.get(fn)} HMMA instructions")
+            check(u["spill_stores"] == 0 and u["spill_loads"] == 0,
+                  f"bf16 flash kernel {short} spills nothing")
+    check(sum("flash_mma" in fn for fn in usage) == 6,
+          "6 bf16 flash kernels (mma and mma_decode at dh 64, 128, 256)")
+    return out
 
 
 def phase_flash(torch, side, worst):
@@ -616,9 +705,17 @@ def phase_flash(torch, side, worst):
             "ms": lambda: flash_attention(q, k, v, **kw),
             "plain_ms": lambda: flash_attention(q, k, v, impl="torch", **kw),
             "library_ms": lib}, reps=3, iters=10, warmup=3))
+        row.update(tflops=flash_ops(B * H, dh, pairs) / row["ms"] / 1e9,
+                   bound_share=b_ms / row["ms"])
         rows[label] = row
         print(f"flash_attention {label} q{tuple(q.shape)} k{tuple(k.shape)} "
               f"bf16: " + json.dumps(row))
+        earlier = ("" if label not in FLASH_EARLIER_MS else
+                   f", CUDA-core kernel before {FLASH_EARLIER_MS[label]} ms")
+        print(f"flash_attention {label}: {row['ms']:.5f} ms{earlier}; "
+              f"{row['tflops']:.1f} TFLOP/s, {row['bound_share']:.3f} of the "
+              f"bf16 bound ({b_ms:.5f} ms, {b_by}); SDPA "
+              f"{row['library_ms']:.5f} ms ({row['ms'] / row['library_ms']:.2f}x)")
         del q, k, v, y, plain, lib
     return rows
 
@@ -1334,6 +1431,7 @@ def main():
         for name in libs:
             print(f"--- nvcc log {name} ---\n"
                   + _build.log_path(name).read_text().strip())
+        flash_build = check_flash_build()
         t0 = time.perf_counter()
         rows = phase_kernels(torch)
         print(f"phase 2 took {time.perf_counter() - t0:.1f} s")
@@ -1401,10 +1499,12 @@ def main():
         "runs it with the other configs' shapes)",
         {"other_shapes": {k: {f: r[f] for f in (
             "q", "k", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "f32_core_bound_ms", "eager_ms", "max_abs_err", "bound_ratio")}
+            "f32_core_bound_ms", "eager_ms", "max_abs_err", "bound_ratio",
+            "tflops")}
             for k, r in fa.items() if k != "prefill"},
          "f32_core_bound_ms": fa["prefill"]["f32_core_bound_ms"],
-         "bound_ratio": fa["prefill"]["bound_ratio"]}))
+         "bound_ratio": fa["prefill"]["bound_ratio"],
+         "tflops": fa["prefill"]["tflops"], "build": flash_build}))
     sd = rows["ssd_scan"]
     kernels.append(kernel_entry(
         "ssd_scan", f"{kdir}/ssd_scan/csrc/ssd_scan.cu",

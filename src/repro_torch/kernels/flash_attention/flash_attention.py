@@ -2,6 +2,10 @@
 (``csrc/flash_attention.cu``), which replaces the Pallas
 ``flash_attention_bhsd`` (``repro/kernels/flash_attention/flash_attention.py``).
 
+The source's launcher picks the kernel's variant, by dtype and Sq: f32
+takes the CUDA-core kernel, bf16 the tensor-core kernels (a decode
+variant for Sq ≤ 16).
+
 ``flash_attention_bhsd_cuda`` checks device, dtype, shape and contiguity
 and raises on anything the kernel does not take; allocates the output
 with ``torch.empty``; launches on the current stream without

@@ -17,6 +17,9 @@ mode, which rounds the softmax weights and its output to bf16, within
 by ``sk_valid`` and the window) must give the plain average of v over all
 Sk keys, as the −1e30 mask does, and never NaN.
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -191,3 +194,75 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_counts_nothing():
     with pytest.raises(ValueError, match="unknown flash_attention impl"):
         flash_attention(q, kv, kv, impl="pallas")
     assert K.LAUNCHES == {"flash_attention": 0}
+
+
+# --- the shapes the GPU tests give the tensor-core kernels ---------------
+
+EDGES = [   # tests/test_torch_flash_attention_gpu.py's bf16 edge cases
+    dict(B=1, Sq=200, Sk=330, H=4, K=2, dh=128, causal=True, window=None),
+    dict(B=1, Sq=1000, Sk=1000, H=2, K=1, dh=256, causal=True, window=100),
+    dict(B=1, Sq=1, Sk=4095, H=8, K=1, dh=128, causal=True, window=None),
+    dict(B=2, Sq=16, Sk=300, H=8, K=2, dh=128, causal=True, window=None),
+    dict(B=2, Sq=17, Sk=300, H=8, K=2, dh=128, causal=True, window=None),
+    dict(B=1, Sq=77, Sk=333, H=4, K=1, dh=100, causal=True, window=None),
+    dict(B=3, Sq=5, Sk=129, H=6, K=3, dh=64, causal=True, window=40),
+    dict(B=1, Sq=1, Sk=4096, H=4, K=1, dh=256, causal=True, window=520),
+    dict(B=1, Sq=16, Sk=2048, H=8, K=1, dh=64, causal=True, window=None),
+]
+EDGE_IDS = ["diagonal-off-64", "dh256-window", "rep8-decode-4095",
+            "decode-sq16", "prefill-sq17", "dh100-odd-sk", "decode-window",
+            "decode-split-empty-blocks", "decode-groups-split"]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("c", EDGES, ids=EDGE_IDS)
+def test_plain_matches_jax_oracle_at_the_gpu_edge_shapes(c, dt):
+    # the GPU tests hold the kernel against this plain version
+    arrs = _qkv(c, seed=c["Sk"] + c["dh"])
+    kw = dict(causal=c["causal"], window=c["window"])
+    y = _port(arrs, dt, **kw)
+    assert y.shape == (c["B"], c["Sq"], c["H"], c["dh"])
+    assert np.isfinite(y).all()
+    want = _jax(j_ref, arrs, dt, **kw)
+    assert np.abs(y - want).max() < TOL[dt]
+    if dt == "bf16":                          # within one bf16 ulp
+        assert (np.abs(y - want) <= 2.0 ** -7 * np.abs(want) + 2e-5).all()
+
+
+# --- chip_smoke.py's readers of the flash build (no card needed) ----------
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_ptxas_report_is_read_per_kernel():
+    log = """ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'
+ptxas info    : Function properties for _Z3fooPf
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z3barPf' for 'sm_90a'
+ptxas info    : Function properties for _Z3barPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 204 registers, used 1 barriers, 384 bytes cmem[0]
+"""
+    assert _chip_smoke().ptxas_usage(log) == {
+        "_Z3fooPf": dict(stack=8, spill_stores=4, spill_loads=4, registers=168),
+        "_Z3barPf": dict(stack=0, spill_stores=0, spill_loads=0, registers=204)}
+
+
+def test_sass_opcodes_are_counted_per_function():
+    sass = """
+\tcode for sm_90a
+\t\tFunction : _Z3fooPf
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0020*/               @P0 HMMA.16816.F32.BF16 R4, R8, R14, R4 ;
+        /*0030*/                   FMUL R2, R3, R4 ;  // HMMA in a comment
+\t\tFunction : _Z3barPf
+        /*0000*/                   FFMA R2, R3, R4, R5 ;
+"""
+    assert _chip_smoke().count_opcode(sass, "HMMA") == {"_Z3fooPf": 2, "_Z3barPf": 0}

@@ -120,6 +120,78 @@ def test_bhsd_kernel_matches_plain_with_sk_valid(cuda, dtype, BH, BK, Sq, Sk,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Sk,H,Kh,dh,causal,window", [
+    (1, 200, 330, 4, 2, 128, True, None),   # diagonal at key 130, not 64k
+    (1, 1000, 1000, 2, 1, 256, True, 100),  # dh 256, window, Sk 1000
+    (1, 1, 4095, 8, 1, 128, True, None),    # rep 8, one row, 4095 keys
+    (2, 16, 300, 8, 2, 128, True, None),    # Sq 16: mma_decode
+    (2, 17, 300, 8, 2, 128, True, None),    # Sq 17: mma
+    (1, 77, 333, 4, 1, 100, True, None),    # dh 100 (plain loads), odd Sk
+    (3, 5, 129, 6, 3, 64, True, 40),        # decode rows of 2 heads, window
+    (1, 1, 4096, 4, 1, 256, True, 520),     # keys over 8 blocks, 3 with none
+    (1, 16, 2048, 8, 1, 64, True, None),    # 8 row groups, keys split too
+], ids=["diagonal-off-64", "dh256-window", "rep8-decode-4095",
+        "decode-sq16", "prefill-sq17", "dh100-odd-sk", "decode-window",
+        "decode-split-empty-blocks", "decode-groups-split"])
+def test_bf16_tensor_core_paths_within_the_rounding_bound(cuda, B, Sq, Sk, H,
+                                                         Kh, dh, causal,
+                                                         window):
+    q, k, v = _qkv(B, Sq, Sk, H, Kh, dh, torch.bfloat16, cuda, seed=Sk + dh)
+    y = flash_attention(q, k, v, causal=causal, window=window)
+    plain = attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                          window=window)
+    torch.cuda.synchronize()
+    assert y.shape == q.shape and y.dtype == torch.bfloat16
+    assert bool(torch.isfinite(y.float()).all())
+    assert _err(y, plain) <= TOL[torch.bfloat16]
+    assert _within_rounding_bound(_fold(y), _fold(q), _fold(k), _fold(v),
+                                  scale=dh ** -0.5, causal=causal,
+                                  window=window, q_offset=Sk - Sq)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("BH,BK,Sq,q_offset", [
+    (4, 2, 150, 0),      # mma: rows ≥ 119 see no key
+    (8, 2, 1, 150),      # mma_decode: the one row sees no key
+], ids=["mma", "mma_decode"])
+def test_bf16_rows_without_a_valid_key_under_sk_valid_average_v(cuda, BH, BK,
+                                                                Sq, q_offset):
+    g = torch.Generator(device=cuda).manual_seed(Sq)
+    Sk, dh = 200, 128
+    q = torch.randn((BH, Sq, dh), generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn((BK, Sk, dh), generator=g, device=cuda).bfloat16()
+            for _ in "kv")
+    kw = dict(scale=dh ** -0.5, causal=True, window=20, sk_valid=100,
+              q_offset=q_offset)
+    y = K.flash_attention_bhsd_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    empty = torch.arange(Sq, device=cuda) + q_offset >= 100 + 20 - 1
+    assert bool(empty.any())
+    mean_v = v.float().mean(dim=1).repeat_interleave(BH // BK, dim=0)
+    got = y.float()[:, empty]
+    assert _err(got, mean_v[:, None].expand_as(got)) <= TOL[torch.bfloat16]
+    assert _within_rounding_bound(y, q, k, v, **kw)
+
+
+@pytest.mark.gpu
+def test_bf16_and_f32_calls_each_count_one_launch_and_agree(cuda):
+    q, k, v = _qkv(1, 96, 160, 8, 2, 128, torch.bfloat16, cuda, seed=4)
+    K.reset_launches()
+    y16 = flash_attention(q, k, v, causal=True)
+    assert K.LAUNCHES == {"flash_attention": 1}
+    y32 = flash_attention(q.float(), k.float(), v.float(), causal=True)
+    assert K.LAUNCHES == {"flash_attention": 2}
+    torch.cuda.synchronize()
+    kw = dict(scale=128 ** -0.5, causal=True, q_offset=160 - 96)
+    ref, bound = bf16_bound_bhsd(*(_fold(t).float() for t in (q, k, v)),
+                                 f32_err=2 * TOL[torch.float32], **kw)
+    assert _err(y32, ref.reshape(1, 8, 96, 128).transpose(1, 2)) \
+        <= TOL[torch.float32]
+    d = (_fold(y16).float() - _fold(y32)).abs()
+    assert bool((d <= bound).all())
+
+
+@pytest.mark.gpu
 def test_rows_without_a_valid_key_average_v_over_all_keys(cuda):
     q, k, v = _qkv(1, 12, 5, 2, 1, 64, torch.float32, cuda, seed=1)
     y = flash_attention(q, k, v, causal=True)       # rows 0-6 see no key
