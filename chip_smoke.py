@@ -7,9 +7,9 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
 Phase 1  the card's name and power limit; builds every CUDA kernel from
          the checkout's sources (one nvcc per source, started together);
-         holds the flash library's bf16 kernels to the tensor cores (HMMA
-         instructions in ``cuobjdump -sass``) and to 0 spilled bytes
-         (``-Xptxas -v``).
+         holds the bf16 kernels of the flash_attention and fused_dora
+         libraries to the tensor cores (HMMA instructions in ``cuobjdump
+         -sass``) and to 0 spilled bytes (``-Xptxas -v``).
 Phase 2  each kernel against its plain PyTorch version on the card, f32
          and bf16, and its time beside the plain version's, one library
          call's and the bound (bytes over 3.35 TB/s or operations over
@@ -20,7 +20,9 @@ Phase 2  each kernel against its plain PyTorch version on the card, f32
              slots, mixed ranks with rank-0 slots that must give 0);
            fused_dora at x (8, 4096) and (512, 4096), W0 4096 x 4096, r 8
              and 16, nonzero dA_dir and dB_mag, and a ragged (37, 4096) x
-             (4096, 4160);
+             (4096, 4160), timed in bf16 at r 8 beside the CUDA-core
+             kernel's earlier time, the achieved TFLOP/s (prefill) and
+             the rate W0 streams at (decode);
            quant_matmul int8 and int4, per channel and in groups of 128,
              at (K, N) = (4096, 4096), (4096, 11008), (11008, 4096) and
              M = 8, 512 and a ragged 37, with zero-scale columns;
@@ -67,7 +69,11 @@ logits, kernels against plain versions, relative to max |logit|: bf16
 weights through the first CHECK_DEPTH layers within 2e-2, f32 weights
 through all 32 within 1e-4; the other depths are printed.  Path B1 is
 also held against the unfused path in f32; path B4's drift from the
-unquantized model is printed only.  flash_attention: f32 within 2e-5,
+unquantized model is printed only.  fused_dora: within FUSED_TOL of the
+plain version relative to its max |y|, and bf16 also elementwise within
+the bound of its cast points (``ref.bf16_bound``: f32 sums in any order,
+one bf16 ulp at T(h ⊙ b_eff_mag) and at the output), which a K tile
+left out would break.  flash_attention: f32 within 2e-5,
 bf16 within 2e-2, absolute, of the plain version run in f32 on the same
 values, and bf16 also elementwise within the bound of its roundings
 (``bf16_bound_bhsd``: u |ref| + (1 + u)(u min(Σ w|v|, 8 sqrt(Σ w² v²))
@@ -350,6 +356,37 @@ def fused_bound(v, dtype_name):
     return roofline(nbytes, ops, dtype_name)
 
 
+# bf16 ms of the CUDA-core fused_dora (PERF.md, the kernel table's row 3:
+# NVIDIA H100 80GB HBM3, 700.00 W), printed beside the tensor-core kernel's
+FUSED_EARLIER_MS = {"decode": 0.1244, "prefill": 1.240}
+
+
+def fused_bound_ratio(v, y, scale):
+    """max |y − ref| / bound over the elements, for a bf16 output: ref and
+    bound from ``ref.bf16_bound``, the cast points' exact value and the
+    bound of f32 sums in any order and the two bf16 roundings."""
+    from repro_torch.kernels.fused_dora.ref import bf16_bound
+    ref, bnd = bf16_bound(*(v[k] for k in FUSED_ORDER), scale)
+    return ((y.float() - ref).abs() / bnd).max().item()
+
+
+def check_fused(case, v, y, ref, dn, worst, scale=4.0):
+    """y against the plain output within FUSED_TOL and, in bf16, within
+    the rounding bound; returns (rel err, max abs err, bound ratio)."""
+    rel, err = rel_err(y, ref)
+    check(y.shape == ref.shape and bool(y.float().isfinite().all()), f"{case} shape")
+    check(rel <= FUSED_TOL[dn], f"{case} rel err {rel:.3e} <= {FUSED_TOL[dn]}")
+    worst[("fused_dora", dn)] = max(worst.get(("fused_dora", dn), 0), rel)
+    ratio = None
+    if dn == "bfloat16":
+        ratio = fused_bound_ratio(v, y, scale)
+        check(ratio <= 1.0, f"{case} within the bf16 rounding bound: max "
+              f"|err| / bound {ratio:.3f}")
+        worst[("fused_dora", "bound_ratio")] = max(
+            worst.get(("fused_dora", "bound_ratio"), 0), ratio)
+    return rel, err, ratio
+
+
 def phase_fused_dora(torch, side, worst):
     from repro_torch.kernels.fused_dora.fused_dora import fused_dora_cuda
     for dtype in (torch.float32, torch.bfloat16):
@@ -359,14 +396,8 @@ def phase_fused_dora(torch, side, worst):
             v = fused_inputs(torch, M, K, N, r, dtype, seed=M + r)
             y, ref = fused_call(v, None), fused_call(v, "torch")
             torch.cuda.synchronize()
-            rel, _ = rel_err(y, ref)
-            case = f"fused_dora {dn} r={r} x({M}, {K}) W0({K}, {N})"
-            check(y.shape == ref.shape == (M, N) and bool(
-                torch.isfinite(y.float()).all()), f"{case} shape")
-            check(rel <= FUSED_TOL[dn], f"{case} rel err {rel:.3e} <= "
-                  f"{FUSED_TOL[dn]}")
-            worst[("fused_dora", dn)] = max(worst.get(("fused_dora", dn), 0),
-                                            rel)
+            check_fused(f"fused_dora {dn} r={r} x({M}, {K}) W0({K}, {N})",
+                        v, y, ref, dn, worst)
     rows = {}
     scale = 4.0
     for label, M in (("decode", ROWS), ("prefill", ROWS * PAD_W)):
@@ -382,23 +413,38 @@ def phase_fused_dora(torch, side, worst):
             return torch.matmul(x, w0) + scale * (
                 (((x * am) @ a_eff) * bm) @ b_dir)
         ref = fused_call(v, "torch", scale)
-        rel, err = rel_err(fused_call(v, None, scale), ref)
+        rel, err, ratio = check_fused(f"fused_dora {label} bf16", v,
+                                      fused_call(v, None, scale), ref,
+                                      "bfloat16", worst, scale)
         lib_rel = rel_err(lib(), ref)[0]
         check(lib_rel <= FUSED_TOL["bfloat16"], f"fused_dora {label} library "
               f"yardstick vs plain {lib_rel:.3e} <= {FUSED_TOL['bfloat16']}")
         b_ms, b_by = fused_bound(v, "bfloat16")
         row = {"x": list(x.shape), "w0": list(w0.shape), "r": R_MAIN,
-               "max_abs_err": err, "rel_err": rel,
+               "max_abs_err": err, "rel_err": rel, "bound_ratio": ratio,
                "tolerance": FUSED_TOL["bfloat16"]}
         row.update(timings(torch, side, {
             "ms": lambda: fused_dora_cuda(x, w0, a_eff, v["a_mag"], b_dir,
                                           b_eff, scale=scale),
             "plain_ms": lambda: fused_call(v, "torch", scale),
             "library_ms": lib}))
-        rows[label] = dict(row, bound_ms=b_ms, bound_by=b_by,
-                           f32_core_bound_ms=fused_bound(v, "float32")[0])
+        ops = 2 * M * D * D
+        row.update(bound_ms=b_ms, bound_by=b_by,
+                   f32_core_bound_ms=fused_bound(v, "float32")[0],
+                   tflops=ops / row["ms"] / 1e9,
+                   w0_gbps=w0.numel() * w0.element_size() / row["ms"] / 1e6,
+                   bound_share=b_ms / row["ms"])
+        rows[label] = row
         print(f"fused_dora {label} x{tuple(x.shape)} W0{tuple(w0.shape)} "
-              f"bf16 r={R_MAIN}: " + json.dumps(rows[label]))
+              f"bf16 r={R_MAIN}: " + json.dumps(row))
+        print(f"fused_dora {label}: {row['ms']:.5f} ms, CUDA-core kernel "
+              f"before {FUSED_EARLIER_MS[label]} ms; {row['tflops']:.1f} "
+              f"TFLOP/s of x W0, W0 at {row['w0_gbps']:.0f} GB/s; "
+              f"{row['bound_share']:.3f} of the bf16 bound ({b_ms:.5f} ms, "
+              f"{b_by}); library {row['library_ms']:.5f} ms "
+              f"({row['ms'] / row['library_ms']:.2f}x); |err| / bound "
+              f"{ratio:.3f}")
+    print(f"FUSED_EARLIER_MS = {json.dumps(FUSED_EARLIER_MS)}")
     return rows
 
 
@@ -643,33 +689,36 @@ def count_opcode(sass: str, opcode: str) -> dict[str, int]:
     return out
 
 
-def check_flash_build():
-    """The built flash library's bf16 kernels run on the tensor cores (a
-    count of HMMA instructions from ``cuobjdump -sass`` above 0 in each)
-    and spill nothing (``-Xptxas -v``).  Returns what was read."""
+def check_build(name, short, tensor_core, n_tensor_core, what):
+    """The built library ``name``'s kernels whose mangled names hold
+    ``tensor_core`` run on the tensor cores (a count of HMMA instructions
+    from ``cuobjdump -sass`` above 0 in each) and spill nothing
+    (``-Xptxas -v``), and there are ``n_tensor_core`` of them (``what``).
+    ``short`` is the regular expression that finds each kernel's name in
+    its mangled one.  Returns what was read, by short name and template
+    arguments."""
     from repro_torch.kernels import _build
-    usage = ptxas_usage(_build.log_path("flash_attention").read_text())
+    usage = ptxas_usage(_build.log_path(name).read_text())
     tool = Path(_build.find_nvcc()).with_name("cuobjdump")
-    lib = _build.build_all(["flash_attention"])["flash_attention"]
+    lib = _build.build_all([name])[name]
     hmma = count_opcode(subprocess.run(
         [str(tool), "-sass", str(lib)], capture_output=True, text=True,
         check=True, timeout=300).stdout, "HMMA")
     out = {}
     for fn, u in sorted(usage.items()):
-        short = (re.search(r"flash_[a-z_]+?_kernel", fn).group(0)
-                 + "<" + ",".join(re.findall(r"Li(\d+)E", fn)) + ">")
-        bf16 = "flash_mma" in fn
-        out[short] = dict(u, hmma=hmma.get(fn))
-        print(f"flash_attention kernel {short}: {u['registers']} registers, "
+        key = (re.search(short, fn).group(0)
+               + "<" + ",".join(re.findall(r"Li(\d+)E", fn)) + ">")
+        out[key] = dict(u, hmma=hmma.get(fn))
+        print(f"{name} kernel {key}: {u['registers']} registers, "
               f"{u['spill_stores']} / {u['spill_loads']} bytes spilled, "
               f"{hmma.get(fn)} HMMA")
-        if bf16:
-            check(hmma.get(fn, 0) > 0, f"bf16 flash kernel {short} runs on the "
+        if tensor_core in fn:
+            check(hmma.get(fn, 0) > 0, f"{name} kernel {key} runs on the "
                   f"tensor cores: {hmma.get(fn)} HMMA instructions")
             check(u["spill_stores"] == 0 and u["spill_loads"] == 0,
-                  f"bf16 flash kernel {short} spills nothing")
-    check(sum("flash_mma" in fn for fn in usage) == 6,
-          "6 bf16 flash kernels (mma and mma_decode at dh 64, 128, 256)")
+                  f"{name} kernel {key} spills nothing")
+    check(sum(tensor_core in fn for fn in usage) == n_tensor_core,
+          f"{n_tensor_core} {name} tensor-core kernels ({what})")
     return out
 
 
@@ -995,30 +1044,38 @@ def logits_checks(torch, label, tree, cfg, logits, extra=None,
     return out
 
 
+def profiled(fn):
+    """Run ``fn`` under torch.profiler; returns {kernel name: device ms}
+    from its CUDA kernel events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+    return by_name
+
+
 def profile_run(torch, eng, reqs, label):
     """Device busy share of one prefill + one decode chunk of the engine
     (8 rows), from torch.profiler's kernel events; the profiler's own
     host cost inflates the wall time, so the share is a lower bound."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for t, p in reqs[:ROWS]:
         eng.submit(t, p, CHUNK + 1)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        eng.run()
+    by_name = profiled(eng.run)
     st = eng.last_run
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    busy_ms = sum(by_name.values()) / 1e3
+    busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     out = {"wall_ms": 1e3 * st["wall_seconds"], "device_busy_ms": busy_ms,
            "busy_share": busy_ms / (1e3 * st["wall_seconds"]),
            "prefill_ms": 1e3 * st["prefill_seconds"][0],
            "decode_chunk_ms": 1e3 * st["chunk_seconds"][0],
-           "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top}}
+           "top_kernels_ms": {k[:80]: v for k, v in top}}
     print(f"profile {label} (1 prefill + 1 decode chunk, 8 rows): "
           + json.dumps(out))
     return out
@@ -1165,16 +1222,23 @@ def phase_fused_path(torch, ctx):
           f"fused: {ROWS} prompts of {PAD_W} tokens returned {N_NEW} tokens")
     check_launches(launches, {"fused_dora": 2}, cfg.n_layers, N_NEW,
                    "fused", f"1 prefill + {N_NEW - 1} decode steps")
+    def prefill():
+        M.prefill(merged, {"tokens": prompts}, fcfg, cache_len=PAD_W + N_NEW)
+        torch.cuda.synchronize()
     t0 = time.perf_counter()
-    M.prefill(merged, {"tokens": prompts}, fcfg, cache_len=PAD_W + N_NEW)
-    torch.cuda.synchronize()
+    prefill()
     prefill_ms = 1e3 * (time.perf_counter() - t0)
+    # what of that the device is busy for, fused_dora's share of it
+    by_name = profiled(prefill)
     unfused = greedy_generate(merged, {"tokens": prompts}, cfg, N_NEW,
                               device="cuda")
     same = float((unfused.cpu().numpy() == toks_h).mean())
     report = {"rows": ROWS, "prompt_tokens": PAD_W, "tokens": toks_h.size,
               "wall_s": wall, "tokens_per_s": toks_h.size / wall,
               "prefill_ms": prefill_ms,
+              "prefill_device_busy_ms": sum(by_name.values()),
+              "prefill_fused_dora_device_ms": sum(
+                  v for k, v in by_name.items() if "fused_dora" in k),
               "decode_step_ms": (1e3 * wall - prefill_ms) / (N_NEW - 1),
               "peak_bytes": peak,
               "tokens_equal_to_unfused_bf16": same}
@@ -1431,7 +1495,12 @@ def main():
         for name in libs:
             print(f"--- nvcc log {name} ---\n"
                   + _build.log_path(name).read_text().strip())
-        flash_build = check_flash_build()
+        flash_build = check_build(
+            "flash_attention", r"flash_[a-z_]+?_kernel", "flash_mma", 6,
+            "bf16 mma and mma_decode at dh 64, 128, 256")
+        fused_build = check_build(
+            "fused_dora", r"(?<=\d)fused_dora_[a-z_]+(?=I)", "fused_dora_mma", 8,
+            "bf16 mma and mma_decode at r buckets 8, 16, 32, 64")
         t0 = time.perf_counter()
         rows = phase_kernels(torch)
         print(f"phase 2 took {time.perf_counter() - t0:.1f} s")
@@ -1477,7 +1546,10 @@ def main():
         "step of path B1)",
         {"prefill": {k: fd["prefill"][k] for k in
                      ("x", "ms", "plain_ms", "library_ms", "bound_ms",
-                      "bound_by", "f32_core_bound_ms", "eager_ms")}}))
+                      "bound_by", "f32_core_bound_ms", "eager_ms",
+                      "bound_ratio", "tflops")},
+         "bound_ratio": fd["decode"]["bound_ratio"],
+         "w0_gbps": fd["decode"]["w0_gbps"], "build": fused_build}))
     qm = rows["quant_matmul"]
     kernels.append(kernel_entry(
         "quant_matmul", f"{kdir}/quant_matmul/csrc/quant_matmul.cu",

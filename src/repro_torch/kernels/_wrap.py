@@ -10,6 +10,7 @@ stream without synchronising, and raises if the launch was refused.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -47,6 +48,17 @@ def check_x(x, op: str, dim: int) -> None:
     if x.dim() != dim or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous {dim}-D tensor, got shape "
                          f"{tuple(x.shape)}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(dev) -> int:
+    """The number of SMs of CUDA device ``dev``."""
+    return _sm_count(dev.index if dev.index is not None
+                     else torch.cuda.current_device())
 
 
 def stream(x) -> int:

@@ -3,18 +3,22 @@
 (``repro/kernels/fused_dora/fused_dora.py``).
 
 ``fused_dora_cuda`` checks device, dtype, shape and contiguity and raises
-on anything the kernel does not take; allocates its output with
-``torch.empty``; launches on the current stream without synchronising;
-raises if the launch was refused; and then adds one to
-``LAUNCHES["fused_dora"]``.
+on anything the kernel does not take; allocates its output, and for the
+bf16 decode variant (M <= 16) the f32 workspace of its split-K pass, with
+``torch.empty`` (so a call can be captured in a CUDA graph); launches on
+the current stream without synchronising (one or, for the split pass,
+two CUDA kernels); raises if the launch was refused; and then adds one
+to ``LAUNCHES["fused_dora"]``.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._wrap import F, I, P, SUFFIX, check, check_x, raise_on
-from repro_torch.kernels._wrap import stream
+from repro_torch.kernels._wrap import sm_count, stream
 
 LAUNCHES = {"fused_dora": 0}
 
@@ -30,12 +34,22 @@ def _lib():
     lib = _build.library("fused_dora")
     if not getattr(lib, "_argtypes_set", False):
         for s in SUFFIX.values():
-            # x, w0, a_eff, a_mag, b_dir, b_eff_mag, y, M, K, N, r, scale, stream
+            # x, w0, a_eff, a_mag, b_dir, b_eff_mag, y, part, M, K, N, r,
+            # scale, splits, stream
             fn = getattr(lib, f"fused_dora_{s}")
-            fn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, F, P]
+            fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, F, I, P]
             fn.restype = I
+        lib.fused_dora_splits.argtypes = [I, I, I, I, I]
+        lib.fused_dora_splits.restype = I
         lib._argtypes_set = True
     return lib
+
+
+@functools.lru_cache(maxsize=256)
+def _splits(M: int, K: int, N: int, bf16: bool, sms: int) -> int:
+    """K splits of the bf16 decode variant, 0 when the call takes no
+    workspace (``fused_dora_splits`` in the source)."""
+    return _lib().fused_dora_splits(M, K, N, int(bf16), sms)
 
 
 def fused_dora_cuda(x, w0, a_eff, a_mag, b_dir, b_eff_mag, *,
@@ -58,11 +72,16 @@ def fused_dora_cuda(x, w0, a_eff, a_mag, b_dir, b_eff_mag, *,
     if M == 0 or N == 0:
         return y
     lib = _lib()
+    splits = _splits(M, K, N, dt == torch.bfloat16, sm_count(dev))
+    # (splits, M, N) base partials, then (splits, M, MAX_RANK) of h
+    part = (torch.empty(splits * M * (N + MAX_RANK), dtype=torch.float32,
+                        device=dev) if splits else None)
     fn = getattr(lib, f"fused_dora_{SUFFIX[dt]}")
     with torch.cuda.device(dev):
         rc = fn(x.data_ptr(), w0.data_ptr(), a_eff.data_ptr(),
                 a_mag.data_ptr(), b_dir.data_ptr(), b_eff_mag.data_ptr(),
-                y.data_ptr(), M, K, N, r, float(scale), stream(x))
+                y.data_ptr(), None if part is None else part.data_ptr(),
+                M, K, N, r, float(scale), splits, stream(x))
     raise_on(rc, lib, "fused_dora", "fused_dora")
     LAUNCHES["fused_dora"] += 1
     return y

@@ -11,13 +11,11 @@ one to ``LAUNCHES["quant_matmul"]``.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._wrap import I, P, SUFFIX, check, check_x, raise_on
-from repro_torch.kernels._wrap import stream
+from repro_torch.kernels._wrap import sm_count, stream
 
 LAUNCHES = {"quant_matmul": 0}
 
@@ -44,11 +42,6 @@ def _lib():
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def quant_matmul_cuda(x, q, scale):
     """x (M, K) f32|bf16, q int8 (K, N) or packed-int4 uint8 (K/2, N),
     scale (G, N) f32 with G dividing K → (M, N) in x's dtype."""
@@ -70,8 +63,7 @@ def quant_matmul_cuda(x, q, scale):
     if M == 0 or N == 0:
         return y
     lib = _lib()
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    splits = lib.quant_matmul_splits(M, K, N, _sm_count(index))
+    splits = lib.quant_matmul_splits(M, K, N, sm_count(dev))
     part = (torch.empty((splits, M, N), dtype=torch.float32, device=dev)
             if splits > 1 else None)
     fn = getattr(lib, f"quant_matmul_{_MODE[q.dtype]}_{SUFFIX[x.dtype]}")

@@ -11,6 +11,13 @@ smoke model with ``use_fused_dora``: ``forward`` hidden states and
 tests/test_torch_model.py holds the unfused model), hidden states
 against the port's own unfused path at 1e-5, and ``greedy_generate``'s
 tokens exactly.
+
+In bf16: the port's cast-point plain version (``fused_dora_cast_ref``,
+what the CUDA kernels compute up to the order of their f32 sums) and the
+JAX Pallas body in interpret mode each lie elementwise within
+``bf16_bound`` of the exact value at those cast points; the same
+computation with one K tile of 32 left out lies outside it, at this
+file's small size and at the width of the chip smoke's decode call.
 """
 import dataclasses
 
@@ -32,6 +39,7 @@ from repro.utils import pytree as jpt
 from repro_torch.checkpoint.bridge import params_from_numpy
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import fused_dora
+from repro_torch.kernels.fused_dora.ref import bf16_bound, fused_dora_cast_ref
 from repro_torch.launch import serve as t_serve
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
@@ -83,6 +91,77 @@ def test_plain_defaults_missing_deltas_to_zero():
     assert got.shape == (2, 3, 16) and torch.equal(got, zero)
     want = j_fused(*(jnp.asarray(v[k]) for k in ORDER[:6]), scale=2.0)
     close(got, want, 1e-5)
+
+
+def _bf16_factors(rng, M, K, N, r):
+    """f32 numpy factors with x and W0 holding bf16 values."""
+    v = _factors(rng, K, N, r, lead=(M,))
+    for k in ("x", "w0"):
+        v[k] = torch.from_numpy(v[k]).bfloat16().float().numpy()
+    return v
+
+
+def _port_bf16(v):
+    return [torch.from_numpy(v[k]).bfloat16() if k in ("x", "w0")
+            else torch.from_numpy(v[k]) for k in ORDER]
+
+
+def _pallas_bf16(v):
+    return np.asarray(j_fused(*(
+        jnp.asarray(v[k], jnp.bfloat16) if k in ("x", "w0")
+        else jnp.asarray(v[k]) for k in ORDER), scale=2.0).astype(jnp.float32))
+
+
+def _worst(y, ref, bound):
+    return (np.abs(np.asarray(y, np.float32) - ref.numpy())
+            / bound.numpy()).max()
+
+
+@pytest.mark.parametrize("M,K,N,r", [(64, 256, 128, 8), (37, 200, 96, 4)])
+def test_cast_point_plain_and_pallas_within_the_bf16_bound(M, K, N, r):
+    v = _bf16_factors(np.random.default_rng(11), M, K, N, r)
+    t = _port_bf16(v)
+    ref, bound = bf16_bound(*t, 2.0)
+    got = fused_dora_cast_ref(*t, 2.0)
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    want = _pallas_bf16(v)
+    assert _worst(got.float(), ref, bound) <= 1.0
+    assert _worst(want, ref, bound) <= 1.0
+    # both round at the same points: they differ by rounding flips only
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               rtol=2 ** -7, atol=bound.numpy().max())
+
+
+@pytest.mark.parametrize("tile", [0, 3, 7])
+def test_bf16_bound_sees_a_dropped_k_tile(tile):
+    """The Pallas body with K tile ``tile`` of 32 (of 8) left out of the
+    base product lies outside the bound of the whole computation."""
+    M, K, N, r = 64, 256, 128, 8
+    v = _bf16_factors(np.random.default_rng(11), M, K, N, r)
+    ref, bound = bf16_bound(*_port_bf16(v), 2.0)
+    v["w0"] = v["w0"].copy()
+    v["w0"][32 * tile:32 * tile + 32] = 0
+    assert _worst(_pallas_bf16(v), ref, bound) > 1.0
+
+
+def test_bf16_bound_sees_a_dropped_k_tile_at_decode_width():
+    """At chip_smoke.py's decode call (x (8, 4096), W0 (4096, 4096), r 8,
+    its distributions): one K tile of 32 of 128 left out of the base
+    product breaks the bound, the cast-point plain version does not."""
+    rng = np.random.default_rng(7)
+    M, K, N, r = 8, 4096, 4096, 8
+    f = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+    a_dir = f(K, r) / K ** 0.5
+    t = [torch.from_numpy(a) for a in (
+        f(M, K), f(K, N) * 0.02, a_dir,
+        rng.uniform(0.5, 1.5, size=K).astype(np.float32), f(r, N) / r ** 0.5,
+        f(r), f(K, r) * np.sqrt((a_dir ** 2).mean()) / 6, f(r))]
+    t[0], t[1] = t[0].bfloat16(), t[1].bfloat16()
+    ref, bound = bf16_bound(*t, 4.0)
+    assert _worst(fused_dora_cast_ref(*t, 4.0).float(), ref, bound) <= 1.0
+    t[1] = t[1].clone()
+    t[1][64 * 32:65 * 32] = 0
+    assert _worst(fused_dora_cast_ref(*t, 4.0).float(), ref, bound) > 1.0
 
 
 def _decomposed(rng, d=64, o=128, r=8):

@@ -10,7 +10,13 @@ back.
 Tolerances, relative to the plain output's max magnitude: f32 ≤ 1e-4
 and bf16 ≤ 2e-2, the bounds of tests/test_kernels.py's fused_dora sweep
 (the kernel rounds x ⊙ A_mag, A_eff and h to bf16 at the Pallas body's
-cast points, the plain version computes everything in f32).
+cast points, the plain version computes everything in f32).  Every bf16
+output is also held elementwise within ``ref.bf16_bound``, the bound of
+those cast points with f32 sums in any order, which a K tile left out
+would break.  The bf16 cases cover both tensor-core variants: the split-K
+decode (M ≤ 16, at full width too) and the prefill mainloop (M > 16),
+ragged and unaligned shapes, and a CUDA-graph replay that must equal the
+eager call bit for bit.
 """
 import numpy as np
 import pytest
@@ -18,6 +24,7 @@ import torch
 
 from repro_torch.kernels.fused_dora import fused_dora as K
 from repro_torch.kernels.fused_dora.ops import fused_dora
+from repro_torch.kernels.fused_dora.ref import bf16_bound
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 ORDER = ("x", "w0", "a_dir", "a_mag", "b_dir", "b_mag", "da_dir", "db_mag")
@@ -57,6 +64,13 @@ def _rel(y, ref):
             / ref.float().abs().max().clamp_min(1e-30)).item()
 
 
+def _bound_ratio(v, y, scale=2.0):
+    """max |y − ref| / bound over the elements, ``ref.bf16_bound``'s."""
+    ref, bound = bf16_bound(*(v[k].reshape(-1, v[k].shape[-1]) if k == "x"
+                              else v[k] for k in ORDER), scale)
+    return ((y.float().reshape(ref.shape) - ref).abs() / bound).max().item()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -76,6 +90,78 @@ def test_kernel_matches_plain(cuda, dtype, lead, K_, N, r):
     torch.cuda.synchronize()
     assert y.shape == ref.shape == (*lead, N) and y.dtype == dtype
     assert _rel(y, ref) <= TOL[dtype]
+    if dtype == torch.bfloat16:
+        assert _bound_ratio(v, y) <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K_,N,r", [
+    (8, 4096, 4096, 8),             # the decode split at full width
+    (8, 4096, 4096, 16),
+    (1, 4096, 4096, 8),
+    (9, 4096, 4096, 8),             # two n-tiles of decode rows
+    (16, 4096, 4096, 8),            # the last M of the decode variant
+    (17, 4096, 4096, 8),            # the first M of the prefill variant
+    (512, 4096, 4096, 8),           # the prefill at full width
+    (3, 4160, 200, 64),             # decode, a rank-64 bucket, ragged N
+    (130, 136, 264, 24),            # prefill, two row tiles, r 24 of 32
+])
+def test_bf16_tensor_core_variants(cuda, M, K_, N, r):
+    v = _inputs((M,), K_, N, r, torch.bfloat16, cuda, seed=M)
+    K.reset_launches()
+    y = _run(v, None)
+    assert K.LAUNCHES == {"fused_dora": 1}
+    ref = _run(v, "torch")
+    torch.cuda.synchronize()
+    assert y.shape == (M, N) and bool(torch.isfinite(y.float()).all())
+    assert _rel(y, ref) <= TOL[torch.bfloat16]
+    assert _bound_ratio(v, y) <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [8, 64])
+def test_bf16_unaligned_pointers_take_the_guarded_loads(cuda, M):
+    """x, W0 and B_dir one element past a 16-byte boundary, K and N
+    multiples of 8: the kernels must not issue cp.async from them."""
+    v = _inputs((M,), 256, 192, 8, torch.bfloat16, cuda, seed=3)
+    for k in ("x", "w0"):
+        buf = torch.empty(v[k].numel() + 1, dtype=v[k].dtype, device=cuda)
+        buf[1:] = v[k].reshape(-1)
+        v[k] = buf[1:].view(v[k].shape)
+    x, w0 = v["x"], v["w0"]
+    a_eff = (v["a_dir"] + v["da_dir"]).bfloat16()
+    b_eff = v["b_mag"] + v["db_mag"]
+    bbuf = torch.empty(v["b_dir"].numel() + 1, dtype=torch.bfloat16,
+                       device=cuda)
+    bbuf[1:] = v["b_dir"].reshape(-1).bfloat16()
+    b_dir = bbuf[1:].view(v["b_dir"].shape)
+    y = K.fused_dora_cuda(x, w0, a_eff, v["a_mag"], b_dir, b_eff, scale=2.0)
+    ref = _run(v, "torch")
+    torch.cuda.synchronize()
+    assert _rel(y, ref) <= TOL[torch.bfloat16]
+    assert _bound_ratio(v, y) <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [8, 64])
+def test_bf16_graph_replay_equals_eager(cuda, M):
+    """Captured in a CUDA graph (the decode variant's workspace is then
+    allocated from the graph's pool) and replayed: bit for bit the eager
+    output, which is deterministic."""
+    v = _inputs((M,), 1024, 512, 8, torch.bfloat16, cuda, seed=5)
+    eager = _run(v, None)
+    assert torch.equal(eager, _run(v, None))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _run(v, None)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = _run(v, None)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
 
 
 @pytest.mark.gpu
