@@ -7,9 +7,9 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
 Phase 1  the card's name and power limit; builds every CUDA kernel from
          the checkout's sources (one nvcc per source, started together);
-         holds the bf16 kernels of the flash_attention and fused_dora
-         libraries to the tensor cores (HMMA instructions in ``cuobjdump
-         -sass``) and to 0 spilled bytes (``-Xptxas -v``).
+         holds the bf16 kernels of the flash_attention, fused_dora and
+         quant_matmul libraries to the tensor cores (HMMA instructions in
+         ``cuobjdump -sass``) and to 0 spilled bytes (``-Xptxas -v``).
 Phase 2  each kernel against its plain PyTorch version on the card, f32
          and bf16, and its time beside the plain version's, one library
          call's and the bound (bytes over 3.35 TB/s or operations over
@@ -25,7 +25,11 @@ Phase 2  each kernel against its plain PyTorch version on the card, f32
              the rate W0 streams at (decode);
            quant_matmul int8 and int4, per channel and in groups of 128,
              at (K, N) = (4096, 4096), (4096, 11008), (11008, 4096) and
-             M = 8, 512 and a ragged 37, with zero-scale columns;
+             M = 8, 512 and a ragged 37, with zero-scale columns, f32 and
+             bf16, plus a bf16 call in groups of 24 (qmm_tiled); each
+             call's variant printed; bf16 timed at M = 8 and 512 beside
+             the CUDA-core kernel's earlier time (QUANT_EARLIER_MS), the
+             TFLOP/s (prefill) or the rate the codes stream at (decode);
            flash_attention, bf16, timed through its dispatcher at
              llama2-7b prefill (1 x 4096, causal), decode (8 x 1 x 128),
              the gemma3-1b local layer (window 512), qwen3-32b prefill
@@ -73,8 +77,12 @@ unquantized model is printed only.  fused_dora: within FUSED_TOL of the
 plain version relative to its max |y|, and bf16 also elementwise within
 the bound of its cast points (``ref.bf16_bound``: f32 sums in any order,
 one bf16 ulp at T(h ⊙ b_eff_mag) and at the output), which a K tile
-left out would break.  flash_attention: f32 within 2e-5,
-bf16 within 2e-2, absolute, of the plain version run in f32 on the same
+left out would break.  quant_matmul: within TOL of the plain version
+relative to its max |y|, and bf16 also elementwise within
+``quant_matmul/ref.py::bf16_bound`` (f32 sums in any order, the scale
+per element or per group, the output's rounding).  flash_attention: f32
+within 2e-5, bf16 within 2e-2, absolute, of the plain version run in f32
+on the same
 values, and bf16 also elementwise within the bound of its roundings
 (``bf16_bound_bhsd``: u |ref| + (1 + u)(u min(Σ w|v|, 8 sqrt(Σ w² v²))
 + 2e-5), u = 2^-8).  ssd_scan: f32 within rtol 1e-3, atol 1e-4 elementwise; bf16
@@ -467,9 +475,56 @@ def quant_bound(x, q, s, dtype_name):
     return roofline(nbytes, 2 * M * K * N + K * N, dtype_name)
 
 
+def quant_bound_ratio(x, q, s, y):
+    """max |y − ref| / bound over the elements, for a bf16 output: ref and
+    bound from ``ref.bf16_bound``, the exact value and the bound of f32
+    sums in any order, the scale per element or per group and the output's
+    rounding.  A zero-scale column has ref and bound 0 and must be 0."""
+    from repro_torch.kernels.quant_matmul.ref import bf16_bound
+    ref, bnd = bf16_bound(x, q, s)
+    return ((y.double() - ref).abs() / bnd.clamp_min(1e-300)).max().item()
+
+
+# bf16 ms of the CUDA-core quant_matmul (PERF.md, the kernel table's row 4
+# and the FFN shapes below it: NVIDIA H100 80GB HBM3, 700.00 W), printed
+# beside the tensor-core kernel's
+QUANT_EARLIER_MS = {
+    "int8 decode 4096x4096": 0.0390, "int8 prefill 4096x4096": 1.123,
+    "int4 decode 4096x4096": 0.0385, "int4 prefill 4096x4096": 1.134,
+    "int8 decode 4096x11008": 0.0791, "int8 prefill 4096x11008": 3.132,
+    "int8 decode 11008x4096": 0.0963, "int8 prefill 11008x4096": 3.118,
+    "int4 decode 4096x11008": 0.0741, "int4 prefill 4096x11008": 2.916,
+    "int4 decode 11008x4096": 0.0912, "int4 prefill 11008x4096": 3.166}
+# a bf16 call whose groups of 24 rows are not a whole number of the tensor
+# cores' k steps, so it keeps qmm_tiled: ragged M and N
+QUANT_TILED_CASE = dict(M=37, K=4080, N=4100, mode="int8", gs=24)
+
+
+def check_quant(case, x, q, s, y, ref, worst):
+    """y against the plain output within TOL and, in bf16, within the
+    rounding bound; returns (rel err, max abs err, bound ratio)."""
+    dn = str(x.dtype).split(".")[-1]
+    rel, err = rel_err(y, ref)
+    check(y.shape == ref.shape and bool(y.float().isfinite().all()) and bool(
+        (y[:, -2:] == 0).all()), f"{case} shape, zero-scale columns "
+        f"exactly 0")
+    check(rel <= TOL[dn], f"{case} rel err {rel:.3e} <= {TOL[dn]}")
+    worst[("quant_matmul", dn)] = max(worst.get(("quant_matmul", dn), 0), rel)
+    ratio = None
+    if dn == "bfloat16":
+        ratio = quant_bound_ratio(x, q, s, y)
+        check(ratio <= 1.0, f"{case} within the bf16 rounding bound: max "
+              f"|err| / bound {ratio:.3f}")
+        worst[("quant_matmul", "bound_ratio")] = max(
+            worst.get(("quant_matmul", "bound_ratio"), 0), ratio)
+    return rel, err, ratio
+
+
 def phase_quant_matmul(torch, side, worst):
     from repro_torch.kernels import dequantize, quant_matmul
-    from repro_torch.kernels.quant_matmul.quant_matmul import quant_matmul_cuda
+    from repro_torch.kernels.quant_matmul.quant_matmul import (
+        quant_matmul_cuda, variant)
+    taken = {}
     for K, N in QUANT_SHAPES:
         for mode in ("int8", "int4"):
             for gs in (None, 128):
@@ -483,17 +538,26 @@ def phase_quant_matmul(torch, side, worst):
                         y = quant_matmul(x, q, s)
                         ref = quant_matmul(x, q, s, impl="torch")
                         torch.cuda.synchronize()
-                        rel, _ = rel_err(y, ref)
-                        case = (f"quant_matmul {mode} g={gs} {dn} x({M}, {K}) "
-                                f"W({K}, {N})")
-                        check(y.shape == ref.shape == (M, N) and bool(
-                            torch.isfinite(y.float()).all()) and bool(
-                            (y[:, -2:] == 0).all()),
-                            f"{case} shape, zero-scale columns exactly 0")
-                        check(rel <= TOL[dn], f"{case} rel err {rel:.3e} <= "
-                              f"{TOL[dn]}")
-                        key = ("quant_matmul", dn)
-                        worst[key] = max(worst.get(key, 0), rel)
+                        v = variant(M, K, s.shape[0], dtype)
+                        taken.setdefault(v, []).append(f"{dn} M={M}")
+                        check_quant(f"quant_matmul {mode} g={gs} {dn} "
+                                    f"x({M}, {K}) W({K}, {N}) [{v}]",
+                                    x, q, s, y, ref, worst)
+    c = QUANT_TILED_CASE
+    q, s = quant_inputs(torch, c["K"], c["N"], c["mode"], c["gs"], seed=3)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((c["M"], c["K"]), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    v = variant(c["M"], c["K"], s.shape[0], x.dtype)
+    check(v == "qmm_tiled", f"quant_matmul bf16 groups of {c['gs']} take "
+          f"qmm_tiled: {v}")
+    taken.setdefault(v, []).append(f"bfloat16 M={c['M']} g={c['gs']}")
+    check_quant(f"quant_matmul {c['mode']} g={c['gs']} bfloat16 "
+                f"x({c['M']}, {c['K']}) W({c['K']}, {c['N']}) [{v}]",
+                x, q, s, quant_matmul(x, q, s),
+                quant_matmul(x, q, s, impl="torch"), worst)
+    print("quant_matmul variants taken: " + json.dumps(
+        {k: sorted(set(v)) for k, v in taken.items()}))
     rows = {}
     for K, N in QUANT_SHAPES:
         for mode, gs in QUANT_MODES:
@@ -505,15 +569,19 @@ def phase_quant_matmul(torch, side, worst):
 
                 def lib():
                     return torch.matmul(x, dequantize(q, s).to(x.dtype))
+                key = f"{mode} {label} {K}x{N}"
                 ref = quant_matmul(x, q, s, impl="torch")
-                rel, err = rel_err(quant_matmul(x, q, s), ref)
+                rel, err, ratio = check_quant(
+                    f"quant_matmul {key} bf16", x, q, s, quant_matmul(x, q, s),
+                    ref, worst)
                 lib_rel = rel_err(lib(), ref)[0]
                 check(lib_rel <= TOL["bfloat16"], f"quant_matmul {label} "
                       f"library yardstick vs plain {lib_rel:.3e}")
                 b_ms, b_by = quant_bound(x, q, s, "bfloat16")
                 row = {"x": [M, K], "w": [K, N], "mode": mode, "group": gs,
+                       "variant": variant(M, K, s.shape[0], x.dtype),
                        "max_abs_err": err, "rel_err": rel,
-                       "tolerance": TOL["bfloat16"],
+                       "bound_ratio": ratio, "tolerance": TOL["bfloat16"],
                        "bound_ms": b_ms, "bound_by": b_by,
                        "f32_core_bound_ms": quant_bound(x, q, s,
                                                         "float32")[0]}
@@ -521,9 +589,24 @@ def phase_quant_matmul(torch, side, worst):
                     "ms": lambda: quant_matmul_cuda(x, q, s),
                     "plain_ms": lambda: quant_matmul(x, q, s, impl="torch"),
                     "library_ms": lib}))
-                rows[f"{mode} {label} {K}x{N}"] = row
+                code_bytes = q.numel() * q.element_size()
+                row.update(bound_share=b_ms / row["ms"],
+                           tflops=2 * M * K * N / row["ms"] / 1e9,
+                           code_gbps=code_bytes / row["ms"] / 1e6)
+                rows[key] = row
                 print(f"quant_matmul {mode} g={gs} {label} x({M}, {K}) "
                       f"W({K}, {N}) bf16: " + json.dumps(row))
+                rate = (f"{row['tflops']:.1f} TFLOP/s" if label == "prefill"
+                        else f"codes at {row['code_gbps']:.0f} GB/s")
+                print(f"quant_matmul {key} [{row['variant']}]: "
+                      f"{row['ms']:.5f} ms, CUDA-core kernel before "
+                      f"{QUANT_EARLIER_MS[key]} ms; {rate}; "
+                      f"{row['bound_share']:.3f} of the bf16 bound "
+                      f"({b_ms:.5f} ms, {b_by}); library "
+                      f"{row['library_ms']:.5f} ms "
+                      f"({row['ms'] / row['library_ms']:.2f}x); eager "
+                      f"{row['eager_ms']:.5f} ms; |err| / bound {ratio:.3f}")
+    print(f"QUANT_EARLIER_MS = {json.dumps(QUANT_EARLIER_MS)}")
     return rows
 
 
@@ -689,6 +772,17 @@ def count_opcode(sass: str, opcode: str) -> dict[str, int]:
     return out
 
 
+def template_args(tail):
+    """The template arguments that open ``tail``, the rest of a mangled
+    name after the kernel's own: f32 / bf16 for a type, the digits of an
+    int or bool."""
+    out = []
+    m = re.match(r"I((?:f|13__nv_bfloat16|L[ib]\d+E)+)E", tail)
+    for t in re.findall(r"f|13__nv_bfloat16|L[ib]\d+E", m.group(1) if m else ""):
+        out.append({"f": "f32", "13__nv_bfloat16": "bf16"}.get(t, t[2:-1]))
+    return out
+
+
 def check_build(name, short, tensor_core, n_tensor_core, what):
     """The built library ``name``'s kernels whose mangled names hold
     ``tensor_core`` run on the tensor cores (a count of HMMA instructions
@@ -706,8 +800,8 @@ def check_build(name, short, tensor_core, n_tensor_core, what):
         check=True, timeout=300).stdout, "HMMA")
     out = {}
     for fn, u in sorted(usage.items()):
-        key = (re.search(short, fn).group(0)
-               + "<" + ",".join(re.findall(r"Li(\d+)E", fn)) + ">")
+        m = re.search(short, fn)
+        key = m.group(0) + "<" + ",".join(template_args(fn[m.end():])) + ">"
         out[key] = dict(u, hmma=hmma.get(fn))
         print(f"{name} kernel {key}: {u['registers']} registers, "
               f"{u['spill_stores']} / {u['spill_loads']} bytes spilled, "
@@ -1060,10 +1154,12 @@ def profiled(fn):
     return by_name
 
 
-def profile_run(torch, eng, reqs, label):
+def profile_run(torch, eng, reqs, label, kernel=None):
     """Device busy share of one prefill + one decode chunk of the engine
     (8 rows), from torch.profiler's kernel events; the profiler's own
-    host cost inflates the wall time, so the share is a lower bound."""
+    host cost inflates the wall time, so the share is a lower bound.
+    ``kernel`` (name, part): also the device ms of the kernels whose
+    names hold ``part``, and their share of the busy time."""
     for t, p in reqs[:ROWS]:
         eng.submit(t, p, CHUNK + 1)
     torch.cuda.synchronize()
@@ -1076,6 +1172,11 @@ def profile_run(torch, eng, reqs, label):
            "prefill_ms": 1e3 * st["prefill_seconds"][0],
            "decode_chunk_ms": 1e3 * st["chunk_seconds"][0],
            "top_kernels_ms": {k[:80]: v for k, v in top}}
+    if kernel is not None:
+        name, part = kernel
+        ms = sum(v for k, v in by_name.items() if part in k)
+        out.update({f"{name}_device_ms": ms,
+                    f"{name}_share_of_busy": ms / busy_ms})
     print(f"profile {label} (1 prefill + 1 decode chunk, 8 rows): "
           + json.dumps(out))
     return out
@@ -1314,7 +1415,8 @@ def phase_quant_path(torch, ctx):
         out.update(engine_report(label, st, len(reqs),
                                  torch.cuda.max_memory_allocated()))
         if mode == "int8":
-            out["profile"] = profile_run(torch, eng, reqs, label)
+            out["profile"] = profile_run(torch, eng, reqs, label,
+                                         ("quant_matmul", "::qmm_"))
         report[mode] = out
         launches[mode] = counts["quant_matmul"]
         del eng
@@ -1501,6 +1603,10 @@ def main():
         fused_build = check_build(
             "fused_dora", r"(?<=\d)fused_dora_[a-z_]+(?=I)", "fused_dora_mma", 8,
             "bf16 mma and mma_decode at r buckets 8, 16, 32, 64")
+        quant_build = check_build(
+            "quant_matmul", r"(?<=\d)qmm_[a-z_]+(?=I)", "qmm_mma", 6,
+            "bf16 qmm_mma int8 / int4 x per channel / grouped and "
+            "qmm_mma_decode int8 / int4")
         t0 = time.perf_counter()
         rows = phase_kernels(torch)
         print(f"phase 2 took {time.perf_counter() - t0:.1f} s")
@@ -1556,12 +1662,18 @@ def main():
         f"{pallas}/quant_matmul/quant_matmul.py:60", quant_launches["int8"],
         qm["int8 decode {}x{}".format(*QUANT_SHAPES[0])],
         "x (8, 4096) bf16, int8 codes (4096, 4096), per channel (q/k/v/o at "
-        "decode on path B4)",
+        "decode on path B4); variants: bf16 qmm_mma_decode (M <= 16), "
+        "qmm_mma (M > 16), qmm_tiled for groups not a multiple of 16; f32 "
+        "qmm_skinny, qmm_tiled",
         {"launches_int4": quant_launches["int4"],
-         "shapes": {k: {f: v[f] for f in ("ms", "plain_ms", "library_ms",
-                                           "bound_ms", "bound_by",
-                                           "f32_core_bound_ms", "eager_ms")}
-                    for k, v in qm.items()}}))
+         "variant": qm["int8 decode {}x{}".format(*QUANT_SHAPES[0])]["variant"],
+         "bound_ratio": qm["int8 decode {}x{}".format(*QUANT_SHAPES[0])][
+             "bound_ratio"],
+         "shapes": {k: {f: v[f] for f in (
+             "variant", "ms", "plain_ms", "library_ms", "bound_ms",
+             "bound_by", "f32_core_bound_ms", "eager_ms", "bound_ratio",
+             "tflops", "code_gbps")} for k, v in qm.items()},
+         "build": quant_build}))
     fa = rows["flash_attention"]
     kernels.append(kernel_entry(
         "flash_attention", f"{kdir}/flash_attention/csrc/flash_attention.cu",

@@ -4,12 +4,19 @@
 
 ``quant_matmul_cuda`` checks device, dtype, shape and contiguity and
 raises on anything the kernel does not take; allocates the output, and
-on the skinny (decode) path the (splits, M, N) f32 partials of the
-split-K pass, with ``torch.empty``; launches on the current stream
-without synchronising; raises if the launch was refused; and then adds
-one to ``LAUNCHES["quant_matmul"]``.
+for a split-K variant (``qmm_skinny``, ``qmm_mma_decode``) the
+(splits, M, N) f32 partials, with ``torch.empty`` (so a call can be
+captured in a CUDA graph); launches on the current stream without
+synchronising; raises if the launch was refused; and then adds one to
+``LAUNCHES["quant_matmul"]``.  ``variant`` names the kernel a call
+takes, as the source's ``launch`` picks it: bf16 x on the tensor cores
+(``qmm_mma`` for M > 16, ``qmm_mma_decode`` for M <= 16) when the scales
+are per channel or their groups are a multiple of 16 rows, else the
+CUDA-core ``qmm_tiled`` / ``qmm_skinny``, which also serve f32 x.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -20,6 +27,9 @@ from repro_torch.kernels._wrap import sm_count, stream
 LAUNCHES = {"quant_matmul": 0}
 
 _MODE = {torch.int8: "int8", torch.uint8: "int4"}
+
+# quant_matmul_variant's codes
+VARIANTS = ("qmm_skinny", "qmm_tiled", "qmm_mma", "qmm_mma_decode")
 
 
 def reset_launches() -> None:
@@ -36,10 +46,27 @@ def _lib():
                 fn = getattr(lib, f"quant_matmul_{mode}_{s}")
                 fn.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
                 fn.restype = I
-        lib.quant_matmul_splits.argtypes = [I, I, I, I]
+        # M, K, N, G, is_bf16, is_int4, sm_count
+        lib.quant_matmul_splits.argtypes = [I, I, I, I, I, I, I]
         lib.quant_matmul_splits.restype = I
+        lib.quant_matmul_variant.argtypes = [I, I, I, I]
+        lib.quant_matmul_variant.restype = I
         lib._argtypes_set = True
     return lib
+
+
+@functools.lru_cache(maxsize=256)
+def _splits(M: int, K: int, N: int, G: int, bf16: bool, int4: bool,
+            sms: int) -> int:
+    return _lib().quant_matmul_splits(M, K, N, G, int(bf16), int(int4), sms)
+
+
+@functools.lru_cache(maxsize=256)
+def variant(M: int, K: int, G: int, dtype) -> str:
+    """The kernel an (M, K) x (K, N) call with G scale groups and x of
+    ``dtype`` takes: one of ``VARIANTS``."""
+    return VARIANTS[_lib().quant_matmul_variant(M, K, G,
+                                                int(dtype == torch.bfloat16))]
 
 
 def quant_matmul_cuda(x, q, scale):
@@ -63,7 +90,8 @@ def quant_matmul_cuda(x, q, scale):
     if M == 0 or N == 0:
         return y
     lib = _lib()
-    splits = lib.quant_matmul_splits(M, K, N, sm_count(dev))
+    splits = _splits(M, K, N, G, x.dtype == torch.bfloat16, int4,
+                     sm_count(dev))
     part = (torch.empty((splits, M, N), dtype=torch.float32, device=dev)
             if splits > 1 else None)
     fn = getattr(lib, f"quant_matmul_{_MODE[q.dtype]}_{SUFFIX[x.dtype]}")

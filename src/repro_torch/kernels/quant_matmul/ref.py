@@ -15,13 +15,25 @@ clip).  Layouts:
 
 The storage dtype is the format tag: int8 leaves are int8, packed int4
 leaves are uint8.  ``quant_matmul_ref`` serves CPU tensors and is what
-the CUDA kernel is held against.
+the CUDA kernel is held against; like the JAX package's oracle it rounds
+the dequantized weight to x's dtype before the product.
+
+``quant_matmul_cast_ref`` computes the same function with the Pallas
+body's cast points instead: f32(x) · (f32(code) · scale) in f32, rounded
+once to x's dtype.  ``bf16_bound`` gives the exact value of that
+function and an elementwise bound on how far an output computed with f32
+sums in any order, the scale applied per element or per group, and one
+final rounding may lie from it.
 """
 from __future__ import annotations
 
 import torch
 
 _EPS = 1e-8          # scale floor: an all-zero channel dequantizes to zero
+BF16_UNIT = 2.0 ** -8    # bf16's unit roundoff: 8 significant bits
+# an f32 add's relative error: 2^-24 rounding to nearest, 2^-23 for the
+# tensor cores' sums, which may truncate
+F32_SUM_UNIT = 2.0 ** -23
 
 
 def _grouped(w, group_size):
@@ -67,17 +79,51 @@ def unpack_int4(packed):
     return torch.stack([lo, hi], dim=-2).reshape(*lead, 2 * p, d_out)
 
 
-def dequantize(q, scale):
-    """The f32 weight of an int8 or packed-int4 leaf."""
+def dequantize(q, scale, dtype=torch.float32):
+    """The f32 weight of an int8 or packed-int4 leaf (``dtype`` f64: the
+    exact code · scale)."""
     if q.dtype == torch.uint8:
         q = unpack_int4(q)
     *lead, d_in, d_out = q.shape
     G = scale.shape[-2]
-    wg = q.to(torch.float32).reshape(*lead, G, d_in // G, d_out)
-    return (wg * scale[..., None, :]).reshape(*lead, d_in, d_out)
+    wg = q.to(dtype).reshape(*lead, G, d_in // G, d_out)
+    return (wg * scale.to(dtype)[..., None, :]).reshape(*lead, d_in, d_out)
 
 
 def quant_matmul_ref(x, q, scale):
     """x (..., d_in) @ dequant(q, scale) → (..., d_out): the weight is
     dequantized in f32, cast to x's dtype, and multiplied."""
     return x @ dequantize(q, scale).to(x.dtype)
+
+
+def quant_matmul_cast_ref(x, q, scale):
+    """x (M, K) → (M, N) in x's dtype: f32(x) @ (f32(code) · scale) in
+    f32, rounded once, as the Pallas body computes it."""
+    return (x.to(torch.float32) @ dequantize(q, scale)).to(x.dtype)
+
+
+def _gamma(n: int) -> float:
+    """The relative error bound of an f32 sum of n terms in any order."""
+    return n * F32_SUM_UNIT / (1.0 - n * F32_SUM_UNIT)
+
+
+def bf16_bound(x, q, scale):
+    """The exact (f64) value of Σ_k x[m, k] · code[k, n] · scale[g(k), n]
+    and an elementwise bound on how far an output in x's dtype computed
+    with f32 arithmetic may lie from it; both (M, N) f64.  x is (M, K).
+
+    An f32 computation of y takes each term x · code · s through at most
+    K + 1 f32 roundings: the Pallas body's f32(code) · s and its product
+    with x, then its sums, or the kernel's exact products x · code, its
+    sums within a group, the group scale's multiply and the sum over groups
+    (one FMA each).  Sums of n terms in any order, and those multiplies,
+    lie within γ_{K+2} Σ_k |x code s| of the exact value (γ_n = n u32 /
+    (1 − n u32), u32 = 2^-23, which also covers sums that truncate).  With
+    E that bound, the output's own rounding to bf16 (u = 2^-8) gives
+    bound = u |ref| + (1 + u) E."""
+    f64 = torch.float64
+    xf = x.to(f64)
+    w = dequantize(q, scale, f64)
+    ref = xf @ w
+    err = _gamma(xf.shape[-1] + 2) * (xf.abs() @ w.abs())
+    return ref, BF16_UNIT * ref.abs() + (1 + BF16_UNIT) * err

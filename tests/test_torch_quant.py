@@ -10,6 +10,12 @@ order), and ``quantize_backbone`` quantizes the same leaf paths.  The
 quantized engine (int8 per channel, int4 in groups of 16) serves the
 same tokens as the JAX engine and, inside the port, as greedy decoding
 over ``quantize_backbone(base)``: tokens exactly.
+
+In bf16: the port's cast-point plain version (``quant_matmul_cast_ref``,
+f32(x) · (f32(code) · scale) rounded once) and the JAX Pallas body lie
+elementwise within ``bf16_bound`` of the exact value; at the decode
+width the kernel runs at, a computation that leaves one K tile of 64 out,
+or applies group g's scale to group g + 1, lies outside it.
 """
 import dataclasses
 
@@ -31,6 +37,8 @@ from repro.utils import pytree as jpt
 from repro_torch.checkpoint.bridge import params_from_numpy
 from repro_torch.kernels.quant_matmul import ops as t_ops
 from repro_torch.kernels.quant_matmul import ref as t_ref
+from repro_torch.kernels.quant_matmul.ref import (bf16_bound,
+                                                  quant_matmul_cast_ref)
 from repro_torch.launch.serve import greedy_generate
 from repro_torch.models.config import ArchConfig as TArch
 from repro_torch.serve import AdapterStore, ServeEngine
@@ -133,6 +141,74 @@ def test_plain_matches_jax_oracle_and_pallas(shape, mode, gs):
                                     impl="interpret")):
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=1e-5, atol=1e-5)
+
+
+def _worst(y, ref, bound):
+    """max |y − ref| / bound over the elements."""
+    return ((torch.as_tensor(np.asarray(y, np.float64)) - ref).abs()
+            / bound.clamp_min(1e-300)).max().item()
+
+
+@pytest.mark.parametrize("shape", [(8, 64, 48), (300, 96, 80),
+                                   (2, 3, 32, 24)])
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+@pytest.mark.parametrize("gs", [None, 16])
+def test_cast_point_plain_and_pallas_within_the_bf16_bound(shape, mode, gs):
+    """bf16 x at the kernel sweep's shapes: the cast-point plain version
+    and the Pallas body (interpret mode) both lie within the bound."""
+    *lead, d_in, d_out = shape
+    x = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(*lead, d_in)).astype(np.float32)).bfloat16()
+    jq, js = QUANT[mode][0](jnp.asarray(_w(d_in, d_out, seed=5)),
+                            group_size=gs)
+    tq = to_port({"q": jq, "s": js})
+    ref, bound = bf16_bound(x.reshape(-1, d_in), tq["q"], tq["s"])
+    got = quant_matmul_cast_ref(x.reshape(-1, d_in), tq["q"], tq["s"])
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    want = j_ops.quant_matmul(jnp.asarray(x.float().numpy(), jnp.bfloat16),
+                              jq, js, impl="interpret")
+    assert want.dtype == jnp.bfloat16
+    assert _worst(got.float(), ref, bound) <= 1.0
+    assert _worst(np.asarray(want.astype(jnp.float32)).reshape(-1, d_out),
+                  ref, bound) <= 1.0
+
+
+def _decode_width(mode, gs):
+    """x (8, 4096) N(0, 1) in bf16 and the codes of an N(0, 0.02²) 4096 x
+    4096 weight: the decode call of chip_smoke.py's phase 2."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(8, 4096)).astype(
+        np.float32)).bfloat16()
+    w = torch.from_numpy(rng.normal(size=(4096, 4096)).astype(
+        np.float32) * 0.02)
+    q, s = QUANT[mode][1](w, group_size=gs)
+    return x, q, s
+
+
+@pytest.mark.parametrize("mode,gs", [("int8", None), ("int4", 128)])
+def test_bf16_bound_sees_a_dropped_k_tile_at_decode_width(mode, gs):
+    """The cast-point plain version lies within the bound; the same
+    computation with K tile 31 of 64 (rows 1984-2047) left out does not."""
+    x, q, s = _decode_width(mode, gs)
+    ref, bound = bf16_bound(x, q, s)
+    assert _worst(quant_matmul_cast_ref(x, q, s).float(), ref, bound) <= 1.0
+    dropped = x.clone()
+    dropped[:, 31 * 64:32 * 64] = 0
+    assert _worst(quant_matmul_cast_ref(dropped, q, s).float(), ref,
+                  bound) > 1.0
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_bf16_bound_sees_a_misplaced_group_scale_at_decode_width(mode):
+    """In groups of 128: group 15's scale applied to group 16 as well
+    (instead of group 16's own) lies outside the bound."""
+    x, q, s = _decode_width(mode, 128)
+    ref, bound = bf16_bound(x, q, s)
+    assert _worst(quant_matmul_cast_ref(x, q, s).float(), ref, bound) <= 1.0
+    misplaced = s.clone()
+    misplaced[16] = s[15]
+    assert _worst(quant_matmul_cast_ref(x, q, misplaced).float(), ref,
+                  bound) > 1.0
 
 
 # ---------------------------------------------------------------------------
