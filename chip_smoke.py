@@ -7,17 +7,24 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
 Phase 1  the card's name and power limit; builds every CUDA kernel from
          the checkout's sources (one nvcc per source, started together);
-         holds the bf16 kernels of the flash_attention, fused_dora and
-         quant_matmul libraries to the tensor cores (HMMA instructions in
-         ``cuobjdump -sass``) and to 0 spilled bytes (``-Xptxas -v``).
+         holds the 48 BGMV kernels to 0 spilled bytes (``-Xptxas -v``) and
+         the 16 of them that shrink bf16 prefill tiles, and the bf16
+         kernels of the flash_attention, fused_dora and quant_matmul
+         libraries, to the tensor cores (HMMA instructions in ``cuobjdump
+         -sass``).
 Phase 2  each kernel against its plain PyTorch version on the card, f32
          and bf16, and its time beside the plain version's, one library
          call's and the bound (bytes over 3.35 TB/s or operations over
          the peak), each replayed from a CUDA graph (device time) and
          issued eagerly:
            BGMV at llama2-7b widths (d_in = d_out = 4096, r 8 and 16, 9
-             pool slots; decode rows, prefill blocks, an odd S, repeated
-             slots, mixed ranks with rank-0 slots that must give 0);
+             pool slots; decode rows, prefill blocks, an odd S, B * S at
+             the decode / prefill threshold and one above it, repeated
+             slots, mixed ranks with rank-0 slots that must give 0), each
+             call's variant printed, bf16 also within
+             ``batched_lora/ref.py::bf16_bound``; timed in bf16 at r 8
+             beside the one-block-a-row kernel's earlier time
+             (BGMV_EARLIER_MS), with the rate the factors stream at;
            fused_dora at x (8, 4096) and (512, 4096), W0 4096 x 4096, r 8
              and 16, nonzero dA_dir and dB_mag, and a ragged (37, 4096) x
              (4096, 4160), timed in bf16 at r 8 beside the CUDA-core
@@ -73,7 +80,11 @@ logits, kernels against plain versions, relative to max |logit|: bf16
 weights through the first CHECK_DEPTH layers within 2e-2, f32 weights
 through all 32 within 1e-4; the other depths are printed.  Path B1 is
 also held against the unfused path in f32; path B4's drift from the
-unquantized model is printed only.  fused_dora: within FUSED_TOL of the
+unquantized model is printed only.  BGMV: within TOL of the plain
+version relative to its max |y|, and bf16 also elementwise within
+``batched_lora/ref.py::bf16_bound`` (f32 sums in any order, one bf16 ulp
+of h per rank column, the output's rounding), which a d_in slice left
+out would break.  fused_dora: within FUSED_TOL of the
 plain version relative to its max |y|, and bf16 also elementwise within
 the bound of its cast points (``ref.bf16_bound``: f32 sums in any order,
 one bf16 ulp at T(h ⊙ b_eff_mag) and at the output), which a K tile
@@ -280,29 +291,79 @@ def timings(torch, side, fns, **kw):
     return row
 
 
+# bf16 ms of the one-block-a-row BGMV kernel (PERF.md, the kernel table's
+# rows 1 and 2: NVIDIA H100 80GB HBM3, 700.00 W), printed beside the
+# cluster kernel's
+BGMV_EARLIER_MS = {"bgmv decode": 0.01680, "bgmv prefill": 0.03154,
+                   "bgmv_mag decode": 0.01160, "bgmv_mag prefill": 0.02510}
+# (B, S) of phase 2's BGMV cases: decode rows, the prefill block, a ragged
+# S, and B * S at the decode / prefill threshold (16) and one above it
+BGMV_SHAPES = ((8, None), (8, 64), (8, 37), (2, 8), (1, 17))
+
+
+def bgmv_bound_ratio(kind, v, y, ranked, scale=4.0):
+    """max |y − ref| / bound over the elements, for a bf16 output: ref and
+    bound from ``batched_lora/ref.py::bf16_bound``, the exact value at the
+    Pallas cast points and the bound of f32 sums in any order, h's rounding
+    per rank column and the output's.  Rank-0 rows have ref and bound 0 and
+    must be 0."""
+    from repro_torch.kernels.batched_lora.ref import bf16_bound
+    x = v["x"] if v["x"].dim() == 3 else v["x"][:, None]
+    ranks = v["ranks"] if ranked else None
+    if kind == "bgmv":
+        ref, bnd = bf16_bound(x, v["a_pool"], v["b_pool"], v["idx"], scale,
+                              ranks)
+    else:
+        ref, bnd = bf16_bound(x, v["a_dir"], v["b_dir"], v["idx"], scale,
+                              ranks, mag=(v["a_mag"], v["b_mag"], v["dmag"]))
+    return ((y.double().reshape(ref.shape) - ref.double()).abs()
+            / bnd.double().clamp_min(1e-300)).max().item()
+
+
+def factor_bytes(kind, v):
+    """The factor bytes a call must read: one (d_in, r) + (r, d_out) f32
+    pair per distinct slot (pairs), or the shared pair (magnitude)."""
+    r = v["a_dir"].shape[1]
+    slots = len(set(v["idx"].tolist())) if kind == "bgmv" else 1
+    return 4 * slots * 2 * D * r
+
+
 def phase_bgmv(torch, side, worst):
+    from repro_torch.kernels.batched_lora.bgmv import variant
+    taken = {}
     for kind in ("bgmv", "bgmv_mag"):
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).split(".")[-1]
             for r in (8, 16):
-                for B, S in ((8, None), (8, 64), (8, 37)):
+                for B, S in BGMV_SHAPES:
                     v = kernel_inputs(torch, B, S, r, dtype, seed=r + (S or 0))
+                    var = variant(B, S or 1)
+                    taken.setdefault(var, set()).add(f"x{tuple(v['x'].shape)}")
                     for ranked in (False, True):
                         y = call(kind, v, None, ranked)
                         ref = call(kind, v, "torch", ranked)
                         torch.cuda.synchronize()
                         rel, _ = rel_err(y, ref)
                         case = (f"{kind} {dn} r={r} x{tuple(v['x'].shape)} "
-                                f"{'ranked' if ranked else 'full'}")
+                                f"{'ranked' if ranked else 'full'} [{var}]")
                         check(y.shape == ref.shape and bool(
                             torch.isfinite(y.float()).all()), f"{case} shape")
                         check(rel <= TOL[dn], f"{case} rel err {rel:.3e} <= "
                               f"{TOL[dn]}")
+                        if dn == "bfloat16":
+                            ratio = bgmv_bound_ratio(kind, v, y, ranked)
+                            check(ratio <= 1.0, f"{case} within the bf16 "
+                                  f"rounding bound: max |err| / bound "
+                                  f"{ratio:.3f}")
+                            worst[(kind, "bound_ratio")] = max(
+                                worst.get((kind, "bound_ratio"), 0), ratio)
                         if ranked:
                             zero = (v["ranks"][v["idx"].long()] == 0)
                             check(bool((y[zero] == 0).all()),
                                   f"{case} rank-0 rows exactly 0")
                         worst[(kind, dn)] = max(worst.get((kind, dn), 0), rel)
+    print("bgmv variants taken: " + json.dumps(
+        {k: sorted(v) for k, v in taken.items()}))
 
     rows = {}
     for kind in ("bgmv", "bgmv_mag"):
@@ -312,20 +373,40 @@ def phase_bgmv(torch, side, worst):
             y = call(kind, v, None, True)
             ref = call(kind, v, "torch", True)
             rel, err = rel_err(y, ref)
+            ratio = bgmv_bound_ratio(kind, v, y, True)
+            check(rel <= TOL["bfloat16"] and ratio <= 1.0, f"{kind} {label} "
+                  f"bf16 rel err {rel:.3e}, |err| / bound {ratio:.3f}")
             b_ms, b_by = bound(kind, v, "bfloat16")
             lib = library_call(torch, kind, v)
             lib_rel = rel_err(lib().reshape(ref.shape), ref)[0]
             check(lib_rel <= TOL["bfloat16"], f"{kind} {label} library "
                   f"yardstick vs plain {lib_rel:.3e} <= {TOL['bfloat16']}")
-            row = {"x": list(v["x"].shape), "max_abs_err": err,
-                   "rel_err": rel, "tolerance": TOL["bfloat16"]}
+            row = {"x": list(v["x"].shape), "variant": variant(ROWS, S or 1),
+                   "max_abs_err": err, "rel_err": rel, "bound_ratio": ratio,
+                   "tolerance": TOL["bfloat16"]}
             row.update(timings(torch, side, {
                 "ms": lambda: call(kind, v, None, True),
                 "plain_ms": lambda: call(kind, v, "torch", True),
                 "library_ms": lib}))
-            rows[kind][label] = dict(row, bound_ms=b_ms, bound_by=b_by)
+            row.update(bound_ms=b_ms, bound_by=b_by,
+                       bound_share=b_ms / row["ms"],
+                       factor_gbps=factor_bytes(kind, v) / row["ms"] / 1e6)
+            rows[kind][label] = row
             print(f"{kind} {label} x{tuple(v['x'].shape)} bf16 r={R_MAIN}: "
-                  + json.dumps(rows[kind][label]))
+                  + json.dumps(row))
+            key = f"{kind} {label}"
+            print(f"{key} [{row['variant']}]: {row['ms']:.5f} ms, "
+                  f"one-block-a-row kernel before {BGMV_EARLIER_MS[key]} ms; "
+                  f"factors at {row['factor_gbps']:.0f} GB/s; "
+                  f"{row['bound_share']:.3f} of the bound ({b_ms:.5f} ms, "
+                  f"{b_by}); library {row['library_ms']:.5f} ms "
+                  f"({row['ms'] / row['library_ms']:.2f}x); eager "
+                  f"{row['eager_ms']:.5f} ms; |err| / bound {ratio:.3f}")
+    pf = rows["bgmv"]["prefill"]
+    print(f"bgmv prefill faster than the library call: "
+          f"{pf['ms'] < pf['library_ms']} ({pf['ms']:.5f} vs "
+          f"{pf['library_ms']:.5f} ms)")
+    print(f"BGMV_EARLIER_MS = {json.dumps(BGMV_EARLIER_MS)}")
     return rows
 
 
@@ -783,11 +864,12 @@ def template_args(tail):
     return out
 
 
-def check_build(name, short, tensor_core, n_tensor_core, what):
+def check_build(name, short, held, n_held, what, tensor_core=""):
     """The built library ``name``'s kernels whose mangled names hold
-    ``tensor_core`` run on the tensor cores (a count of HMMA instructions
-    from ``cuobjdump -sass`` above 0 in each) and spill nothing
-    (``-Xptxas -v``), and there are ``n_tensor_core`` of them (``what``).
+    ``held`` spill nothing (``-Xptxas -v``), those of them whose names also
+    hold ``tensor_core`` (by default all of them; None for none) run on the
+    tensor cores (a count of HMMA instructions from ``cuobjdump -sass``
+    above 0 in each), and there are ``n_held`` of them (``what``).
     ``short`` is the regular expression that finds each kernel's name in
     its mangled one.  Returns what was read, by short name and template
     arguments."""
@@ -806,13 +888,14 @@ def check_build(name, short, tensor_core, n_tensor_core, what):
         print(f"{name} kernel {key}: {u['registers']} registers, "
               f"{u['spill_stores']} / {u['spill_loads']} bytes spilled, "
               f"{hmma.get(fn)} HMMA")
-        if tensor_core in fn:
-            check(hmma.get(fn, 0) > 0, f"{name} kernel {key} runs on the "
-                  f"tensor cores: {hmma.get(fn)} HMMA instructions")
+        if held in fn:
+            if tensor_core is not None and (tensor_core or held) in fn:
+                check(hmma.get(fn, 0) > 0, f"{name} kernel {key} runs on the "
+                      f"tensor cores: {hmma.get(fn)} HMMA instructions")
             check(u["spill_stores"] == 0 and u["spill_loads"] == 0,
                   f"{name} kernel {key} spills nothing")
-    check(sum(tensor_core in fn for fn in usage) == n_tensor_core,
-          f"{n_tensor_core} {name} tensor-core kernels ({what})")
+    check(sum(held in fn for fn in usage) == n_held,
+          f"{n_held} {name} kernels ({what})")
     return out
 
 
@@ -1154,12 +1237,12 @@ def profiled(fn):
     return by_name
 
 
-def profile_run(torch, eng, reqs, label, kernel=None):
+def profile_run(torch, eng, reqs, label, kernels=()):
     """Device busy share of one prefill + one decode chunk of the engine
     (8 rows), from torch.profiler's kernel events; the profiler's own
     host cost inflates the wall time, so the share is a lower bound.
-    ``kernel`` (name, part): also the device ms of the kernels whose
-    names hold ``part``, and their share of the busy time."""
+    ``kernels``, pairs (name, part): also the device ms of the kernels
+    whose names hold ``part``, and their share of the busy time."""
     for t, p in reqs[:ROWS]:
         eng.submit(t, p, CHUNK + 1)
     torch.cuda.synchronize()
@@ -1172,8 +1255,7 @@ def profile_run(torch, eng, reqs, label, kernel=None):
            "prefill_ms": 1e3 * st["prefill_seconds"][0],
            "decode_chunk_ms": 1e3 * st["chunk_seconds"][0],
            "top_kernels_ms": {k[:80]: v for k, v in top}}
-    if kernel is not None:
-        name, part = kernel
+    for name, part in kernels:
         ms = sum(v for k, v in by_name.items() if part in k)
         out.update({f"{name}_device_ms": ms,
                     f"{name}_share_of_busy": ms / busy_ms})
@@ -1259,8 +1341,9 @@ def phase_main_path(torch):
     report["dora_mag"]["prefill_logits"] = logits_checks(
         torch, "dora_mag", pt.merge_trees(params, mag.overlay()), cfg,
         prefill_logits(torch, batch, last))
-    report["dora_mag"]["profile"] = profile_run(torch, engine(params, cfg, mag),
-                                                reqs, "dora_mag")
+    report["dora_mag"]["profile"] = profile_run(
+        torch, engine(params, cfg, mag), reqs, "dora_mag",
+        (("bgmv_mag", "bgmv_kernel"),))
 
     # --- pairs: raw-LoRA tenants at their own ranks (add_lora's init) ----
     pairs = AdapterStore(params, cfg, n_slots=8, kind="pairs", rank=R_MAIN,
@@ -1415,8 +1498,9 @@ def phase_quant_path(torch, ctx):
         out.update(engine_report(label, st, len(reqs),
                                  torch.cuda.max_memory_allocated()))
         if mode == "int8":
-            out["profile"] = profile_run(torch, eng, reqs, label,
-                                         ("quant_matmul", "::qmm_"))
+            out["profile"] = profile_run(
+                torch, eng, reqs, label, (("quant_matmul", "::qmm_"),
+                                          ("bgmv_mag", "bgmv_kernel")))
         report[mode] = out
         launches[mode] = counts["quant_matmul"]
         del eng
@@ -1597,6 +1681,12 @@ def main():
         for name in libs:
             print(f"--- nvcc log {name} ---\n"
                   + _build.log_path(name).read_text().strip())
+        bgmv_build = check_build(
+            "bgmv", r"(?<=\d)bgmv_kernel(?=I)", "bgmv_kernel", 48,
+            "pairs / magnitude x r buckets 8, 16, 32, 64 x aligned / general "
+            "x f32, bf16, bf16 prefill; the last, whose template arguments "
+            "end in MMA = true, on the tensor cores",
+            tensor_core="Lb1EEEvPK")
         flash_build = check_build(
             "flash_attention", r"flash_[a-z_]+?_kernel", "flash_mma", 6,
             "bf16 mma and mma_decode at dh 64, 128, 256")
@@ -1640,10 +1730,15 @@ def main():
         kernels.append(kernel_entry(
             name, f"{kdir}/batched_lora/csrc/bgmv.cu",
             f"{pallas}/batched_lora/bgmv.py:{line}", launches[name], dec,
-            "x (8, 4096) bf16, r 8, 9 slots, ranked (the decode step)",
-            {"prefill": {k: rows[name]["prefill"][k] for k in
-                         ("x", "ms", "plain_ms", "library_ms", "bound_ms",
-                          "eager_ms")}}))
+            "x (8, 4096) bf16, r 8, 9 slots, ranked (the decode step); "
+            "variants: decode (B * S <= 16), prefill (tiles of 32 tokens)",
+            {"variant": dec["variant"], "bound_ratio": dec["bound_ratio"],
+             "factor_gbps": dec["factor_gbps"],
+             "prefill": {k: rows[name]["prefill"][k] for k in
+                         ("x", "variant", "ms", "plain_ms", "library_ms",
+                          "bound_ms", "eager_ms", "bound_ratio",
+                          "factor_gbps")},
+             "build": bgmv_build}))
     fd = rows["fused_dora"]
     kernels.append(kernel_entry(
         "fused_dora", f"{kdir}/fused_dora/csrc/fused_dora.cu",

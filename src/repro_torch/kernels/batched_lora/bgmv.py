@@ -6,9 +6,15 @@ Each wrapper checks device, dtype, shape and contiguity and raises on
 anything the kernel does not take; allocates its output with
 ``torch.empty``; launches on the current stream without synchronising;
 raises if the launch was refused; and then adds one to its count in
-``LAUNCHES``, so a run can show that it went through the kernel.
+``LAUNCHES`` (one a call, whatever the kernel's grid), so a run can show
+that it went through the kernel.  ``variant`` names the tiling a call
+takes, as the source's ``launch`` picks it: ``decode`` for B * S <= 16
+rows (pairs one block cluster a batch row, the magnitude kind one cluster
+for all rows), else ``prefill`` (clusters over tiles of 32 tokens).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -19,6 +25,9 @@ from repro_torch.kernels._wrap import raise_on
 LAUNCHES = {"bgmv": 0, "bgmv_mag": 0}
 
 MAX_RANK = 64                    # kMaxRank in csrc/bgmv.cu
+
+# bgmv_variant's codes
+VARIANTS = ("decode", "prefill")
 
 
 def reset_launches() -> None:
@@ -37,8 +46,17 @@ def _lib():
             fn = getattr(lib, f"bgmv_mag_{s}")
             fn.argtypes = [P, P, P, P, P, P, P, P] + tail
             fn.restype = I
+        lib.bgmv_variant.argtypes = [I, I]
+        lib.bgmv_variant.restype = I
         lib._argtypes_set = True
     return lib
+
+
+@functools.lru_cache(maxsize=256)
+def variant(B: int, S: int) -> str:
+    """The variant a call with x (B, S, d_in) takes: one of ``VARIANTS``
+    (the same for both kinds and both dtypes)."""
+    return VARIANTS[_lib().bgmv_variant(B, S)]
 
 
 def _check_x(x, r):

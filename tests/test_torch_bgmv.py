@@ -112,3 +112,101 @@ def test_rank_zero_rows_are_exactly_zero(kind):
     c["idx"][:] = [4, 0, 4, 1]                    # slot 4 has rank 0
     got = _port(kind, c, True)
     assert (got[[0, 2]] == 0).all() and np.abs(got[[1, 3]]).max() > 0
+
+
+# --- ref.bf16_bound: the elementwise bound every bf16 kernel output is
+# held to (chip_smoke.py phase 2, tests/test_torch_bgmv_gpu.py) ---------
+
+from repro_torch.kernels.batched_lora.ref import (  # noqa: E402
+    bf16_bound, bgmv_cast_ref, bgmv_ref)
+
+BOUND_CASES = {
+    "blocks": (4, 16, 256, 8, 192, 5),
+    "decode_rows": (8, 1, 512, 16, 256, 9),
+    "ragged": (3, 37, 300, 5, 200, 4),      # d_in, d_out no multiple of 8
+}
+
+
+def _bound_args(kind, t):
+    """(a, b, mag) of ``bf16_bound`` / ``bgmv_cast_ref`` for ``kind``."""
+    if kind == "bgmv":
+        return t["a_pool"], t["b_pool"], None
+    return t["a_dir"], t["b_dir"], (t["a_mag"], t["b_mag"], t["dmag"])
+
+
+def _bound_case(case, seed):
+    c = _case(*BOUND_CASES[case], seed=seed)
+    t = {k: torch.from_numpy(v) for k, v in c.items()}
+    t["x"] = t["x"].bfloat16()
+    return t
+
+
+def _ratio(y, ref_bound):
+    ref, bound = ref_bound
+    return ((y.double() - ref.double()).abs()
+            / bound.double().clamp_min(1e-300)).max().item()
+
+
+@pytest.mark.parametrize("kind", ["bgmv", "bgmv_mag"])
+@pytest.mark.parametrize("ranked", [False, True], ids=["full", "ranked"])
+@pytest.mark.parametrize("case", sorted(BOUND_CASES))
+def test_bf16_bound_holds_the_cast_point_plain_version(kind, ranked, case):
+    """f32 sums at the Pallas cast points lie within the bound of the f64
+    evaluation at the same cast points (about 0.3 of it); so does the plain
+    pairs version, which rounds where the Pallas body rounds."""
+    t = _bound_case(case, seed=11)
+    ranks = t["ranks"] if ranked else None
+    a, b, mag = _bound_args(kind, t)
+    rb = bf16_bound(t["x"], a, b, t["idx"], 4.0, ranks, mag=mag)
+    assert rb[0].shape == (*t["x"].shape[:2], b.shape[-1])
+    y = bgmv_cast_ref(t["x"], a, b, t["idx"], 4.0, ranks, mag=mag)
+    assert y.dtype == torch.bfloat16
+    assert _ratio(y, rb) <= 1.0
+    if kind == "bgmv":
+        plain = bgmv_ref(t["x"], a, b, t["idx"], 4.0, ranks=ranks)
+        assert _ratio(plain, rb) <= 1.0
+
+
+@pytest.mark.parametrize("kind", ["bgmv", "bgmv_mag"])
+@pytest.mark.parametrize("case", ["decode_rows", "padded_S"])
+def test_bf16_bound_holds_the_pallas_body(kind, case):
+    """The Pallas kernel body itself (interpret mode), bf16, ranked: its
+    cast points are the bound's, so its output lies within it."""
+    c = _case(*CASES[case], seed=7)
+    want = torch.from_numpy(np.array(_jax(kind, c, True, "interpret",
+                                         jnp.bfloat16)))
+    t = {k: torch.from_numpy(v) for k, v in c.items()}
+    x = t["x"].bfloat16()
+    if x.dim() == 2:
+        x, want = x[:, None], want[:, None]
+    a, b, mag = _bound_args(kind, t)
+    scale = 2.0 if kind == "bgmv" else 4.0
+    assert _ratio(want, bf16_bound(x, a, b, t["idx"], scale, t["ranks"],
+                                   mag=mag)) <= 1.0
+
+
+@pytest.mark.parametrize("kind", ["bgmv", "bgmv_mag"])
+@pytest.mark.parametrize("case", sorted(BOUND_CASES))
+def test_bf16_bound_sees_a_dropped_d_in_slice(kind, case):
+    """A kernel that left out one block's slice of d_in (an eighth, as a
+    cluster of 8 splits it) reads many times the bound."""
+    t = _bound_case(case, seed=13)
+    a, b, mag = _bound_args(kind, t)
+    rb = bf16_bound(t["x"], a, b, t["idx"], 4.0, t["ranks"], mag=mag)
+    x = t["x"].clone()
+    d = x.shape[-1]
+    x[..., 3 * d // 8: 4 * d // 8] = 0
+    y = bgmv_cast_ref(x, a, b, t["idx"], 4.0, t["ranks"], mag=mag)
+    assert _ratio(y, rb) > 20.0
+
+
+@pytest.mark.parametrize("case", sorted(BOUND_CASES))
+def test_bf16_bound_sees_a_dropped_magnitude_delta(case):
+    """bgmv_mag with ΔB_M left out (b_mag alone as the magnitude) reads
+    many times the bound."""
+    t = _bound_case(case, seed=17)
+    a, b, mag = _bound_args("bgmv_mag", t)
+    rb = bf16_bound(t["x"], a, b, t["idx"], 4.0, t["ranks"], mag=mag)
+    no_delta = (mag[0], mag[1], torch.zeros_like(mag[2]))
+    y = bgmv_cast_ref(t["x"], a, b, t["idx"], 4.0, t["ranks"], mag=no_delta)
+    assert _ratio(y, rb) > 20.0
