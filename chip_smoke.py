@@ -9,9 +9,9 @@ Phase 1  the card's name and power limit; builds every CUDA kernel from
          the checkout's sources (one nvcc per source, started together);
          holds the 48 BGMV kernels to 0 spilled bytes (``-Xptxas -v``) and
          the 16 of them that shrink bf16 prefill tiles, and the bf16
-         kernels of the flash_attention, fused_dora and quant_matmul
-         libraries, to the tensor cores (HMMA instructions in ``cuobjdump
-         -sass``).
+         kernels of the flash_attention, fused_dora, quant_matmul and
+         ssd_scan libraries, to the tensor cores (HMMA instructions in
+         ``cuobjdump -sass``); every ssd_scan kernel to 0 spilled bytes.
 Phase 2  each kernel against its plain PyTorch version on the card, f32
          and bf16, and its time beside the plain version's, one library
          call's and the bound (bytes over 3.35 TB/s or operations over
@@ -44,8 +44,12 @@ Phase 2  each kernel against its plain PyTorch version on the card, f32
              4096 keys at qwen3-32b and a gemma3-1b global layer, beside
              scaled_dot_product_attention, the CUDA-core kernel's earlier
              time and the achieved TFLOP/s;
-           ssd_scan, bf16, timed at mamba2-2.7b 1 x 4096, chunk 128 (no
-             single PyTorch call computes it); each output held as phase 6
+           ssd_scan timed at mamba2-2.7b 1 x 4096 in bf16 and f32 at
+             chunk 128 and in bf16 at the default chunk 256, and at
+             jamba-v0.1's SSM layers 1 x 4096 in bf16 (no single PyTorch
+             call computes it), each beside the one-block-a-head kernel's
+             earlier time (SSD_EARLIER_MS), with its variant and the
+             blocks of its four launches; each output held as phase 6
              holds its own.
 Phase 3  the serving path at full width: llama2-7b, 32 layers, bf16,
          random weights from a seeded generator on the card.
@@ -97,7 +101,14 @@ on the same
 values, and bf16 also elementwise within the bound of its roundings
 (``bf16_bound_bhsd``: u |ref| + (1 + u)(u min(Σ w|v|, 8 sqrt(Σ w² v²))
 + 2e-5), u = 2^-8).  ssd_scan: f32 within rtol 1e-3, atol 1e-4 elementwise; bf16
-within 2e-2 of max |y| of the plain version on the same bf16 inputs.
+within 2e-2 of max |y| of the plain version on the same bf16 inputs, and
+elementwise within ``ssd_scan/ref.py::bf16_bound`` (the cast points of
+the reference and of the kernel, f32 sums in any order, the output's
+rounding), which a left-out carried state, column tile or chunk end
+state would break, and inside ``ssd_scan/ref.py::cast_point_interval``
+(the kernel's own cast points with exact sums: only f32 sums and exps in
+another order may move an output), which a state rounded once to bf16
+would break.
 
 Prints a JSON ``kernels`` line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -979,31 +990,63 @@ def ssd_f32_errs(y, st, y_ref, st_ref):
 
 def ssd_bf16_errs(torch, v, y, st, chunk):
     """Kernel bf16 against the plain version on the same bf16 inputs
-    (held), and, printed beside it, that plain version against itself in
-    f32 and the kernel against the plain f32 version."""
+    (held), against ``ssd_scan/ref.py::bf16_bound`` elementwise (held:
+    the largest |y − ref| / bound) and against ``cast_point_interval``
+    (held: no output outside it); printed beside them, that plain
+    version against itself in f32 and the kernel against the plain f32
+    version."""
+    from repro_torch.kernels.ssd_scan.ref import (bf16_bound,
+                                                  cast_point_interval)
     y_p, st_p = ssd_call(v, "torch", chunk=chunk)
     f32 = {k: t.float() for k, t in v.items()}
     y_f, _ = ssd_call(f32, "torch", chunk=chunk)
+    ins = [v[k] for k in SSD_ORDER]
+    ref, bnd = bf16_bound(*ins, min(chunk, v["x"].shape[1]))
+    lo, hi = cast_point_interval(*ins, min(chunk, v["x"].shape[1]))
+    outside = int(((y < lo) | (y > hi)).sum().item())
+    wide = (lo != hi).float().mean().item()
+    del lo, hi
     return {"kernel_vs_plain": max(rel_err(y, y_p)[0], rel_err(st, st_p)[0]),
+            "cast_point_outside": outside, "cast_point_wide": wide,
             "max_abs_err": rel_err(y, y_p)[1],
+            "bound_ratio": ((y.float() - ref).abs() / bnd).max().item(),
+            "plain_bound_ratio": ((y_p.to(y.dtype).float() - ref).abs()
+                                  / bnd).max().item(),
             "plain_bf16_vs_f32": rel_err(y_p, y_f)[0],
             "kernel_vs_plain_f32": rel_err(y, y_f)[0]}
 
 
 def check_ssd_bf16(torch, label, v, y, st, chunk):
     e = ssd_bf16_errs(torch, v, y, st, chunk)
-    check(e["kernel_vs_plain"] <= SSD_BF16_TOL, f"{label}: rel err "
-          f"{e['kernel_vs_plain']:.3e} <= {SSD_BF16_TOL} (plain bf16 vs "
+    check(e["kernel_vs_plain"] <= SSD_BF16_TOL and e["bound_ratio"] <= 1.0
+          and e["cast_point_outside"] == 0,
+          f"{label}: rel err {e['kernel_vs_plain']:.3e} <= {SSD_BF16_TOL}, "
+          f"worst |err| / bf16_bound {e['bound_ratio']:.3f} <= 1 and "
+          f"{e['cast_point_outside']} outputs outside cast_point_interval "
+          f"(wider than one value at {e['cast_point_wide']:.3f} of them) (plain "
+          f"bf16 {e['plain_bound_ratio']:.3f} of the bound; plain bf16 vs "
           f"f32 {e['plain_bf16_vs_f32']:.3e}, kernel vs plain f32 "
           f"{e['kernel_vs_plain_f32']:.3e})")
     return e
 
 
+def check_ssd_f32(label, v, y, st, chunk):
+    from repro_torch.kernels import ssd_ref
+    y_r, st_r = ssd_ref(*(v[k] for k in SSD_ORDER),
+                        min(chunk, v["x"].shape[1]))
+    ratio, rel = ssd_f32_errs(y, st, y_r, st_r)
+    check(ratio <= 1.0, f"{label}: kernel vs ssd_ref within rtol {SSD_RTOL} "
+          f"atol {SSD_ATOL} (worst |err| / bound {ratio:.3f}; {rel:.3e} of "
+          f"max |y|)")
+    return {"vs_ssd_ref_bound_ratio": ratio, "vs_ssd_ref_rel": rel,
+            "max_abs_err": max_abs(y, y_r), "rel_err": rel}, (y_r, st_r)
+
+
 def ssd_bound(v, dtype_name, chunk):
-    """x, dt, B, C read once, y and the state written once; per head and
-    chunk the triangle of C.B^T (2N a pair) and of the decayed product
-    with x.dt (2P + 2 a pair), the state term and the state update (2NP
-    a step each)."""
+    """x, dt, B, C read once, y and the state written once; C.B^T once a
+    group and chunk (the triangle, 2N a pair), and per head and chunk the
+    decayed triangle's product with x.dt (2P + 2 a pair), the state term
+    and the chunk's end state (2NP a step each)."""
     b, S, H, P = v["x"].shape
     G, N = v["B"].shape[2:]
     Q = min(chunk, S)
@@ -1011,38 +1054,87 @@ def ssd_bound(v, dtype_name, chunk):
     nbytes = (es * (2 * b * S * H * P + 2 * b * S * G * N) + 4 * b * S * H
               + 4 * H + 4 * b * H * N * P)
     tri = Q * (Q + 1) // 2
-    ops = b * H * (S // Q) * (tri * (2 * N + 2 * P + 2) + 4 * Q * N * P
-                              + 2 * Q * P + Q * N)
+    ops = (b * G * (S // Q) * tri * 2 * N
+           + b * H * (S // Q) * (tri * (2 * P + 2) + 4 * Q * N * P + 2 * Q * P
+                                 + Q * N))
     return roofline(nbytes, ops, dtype_name)
 
 
+# label: config, b, S, chunk, dtype of phase 2's timed ssd_scan calls
+SSD_TIMED = {
+    "mamba2 bf16": (MAMBA2_2_7B, 1, 4096, 128, "bfloat16"),
+    "mamba2 f32": (MAMBA2_2_7B, 1, 4096, 128, "float32"),
+    "mamba2 bf16 chunk 256": (MAMBA2_2_7B, 1, 4096, 256, "bfloat16"),
+    "jamba bf16": (JAMBA_V0_1, 1, 4096, 128, "bfloat16"),
+}
+# ms of the one-block-a-head CUDA-core kernel (PR 13's source) at these
+# calls, the mean of the two rounds of scripts/ssd_scan_variants.py
+# --earlier (PERF.md, the kernel table's row 6: NVIDIA H100 80GB HBM3,
+# 700.00 W), printed beside the chunk-parallel kernel's
+SSD_EARLIER_MS = {"mamba2 bf16": 3.6326, "mamba2 f32": 3.7915,
+                  "mamba2 bf16 chunk 256": 4.6966, "jamba bf16": 1.6812}
+
+
+def ssd_timed_inputs(torch, label):
+    """Head-major inputs of a SSD_TIMED call (the dispatcher's fold of heads
+    into the batch is then a view) and its chunk."""
+    c, b, S, chunk, dn = SSD_TIMED[label]
+    v = ssd_inputs(torch, b, S, c, getattr(torch, dn), seed=7)
+    v = {k: t if k == "A_log" else head_major(t) for k, t in v.items()}
+    return v, chunk
+
+
+def ssd_check(torch, label, v, y, st, chunk):
+    """The phase 2 / phase 6 check of one output: shape, finite, and bf16
+    as ``check_ssd_bf16``, f32 as ``check_ssd_f32``."""
+    check(y.shape == v["x"].shape and bool(torch.isfinite(y.float()).all()
+                                           and torch.isfinite(st).all()),
+          f"{label} shape, finite")
+    if y.dtype == torch.bfloat16:
+        e = check_ssd_bf16(torch, label, v, y, st, chunk)
+        return dict(e, rel_err=e["kernel_vs_plain"]), None
+    return check_ssd_f32(label, v, y, st, chunk)
+
+
 def phase_ssd(torch, side, worst):
-    """Times at mamba2-2.7b's full width, bf16, through the dispatcher on
-    head-major inputs; the output held as phase 6 holds its own."""
-    c = MAMBA2_2_7B
-    b, S, chunk = 1, 4096, c["chunk"]
-    v = {k: t if k == "A_log" else head_major(t)
-         for k, t in ssd_inputs(torch, b, S, c, torch.bfloat16, seed=7).items()}
-    y, st = ssd_call(v, chunk=chunk)
-    e = check_ssd_bf16(torch, f"ssd_scan mamba2-2.7b x{tuple(v['x'].shape)} "
-                       f"chunk {chunk} bf16", v, y, st, chunk)
-    key = ("ssd_scan", "bfloat16")
-    worst[key] = max(worst.get(key, 0), e["kernel_vs_plain"])
-    b_ms, b_by = ssd_bound(v, "bfloat16", chunk)
-    row = {"x": list(v["x"].shape), "N": c["N"], "chunk": chunk,
-           "max_abs_err": e["max_abs_err"], "rel_err": e["kernel_vs_plain"],
-           "tolerance": SSD_BF16_TOL, "bound_ms": b_ms, "bound_by": b_by,
-           "f32_core_bound_ms": ssd_bound(v, "float32", chunk)[0],
-           "library_ms": None, "eager_library_ms": None,
-           "library_ms_range": None, "eager_library_ms_range": None,
-           "blocks": b * c["H"]}
-    row.update(timings(torch, side, {
-        "ms": lambda: ssd_call(v, chunk=chunk),
-        "plain_ms": lambda: ssd_call(v, "torch", chunk=chunk)},
-        reps=3, iters=10, warmup=3))
-    print(f"ssd_scan mamba2-2.7b x{tuple(v['x'].shape)} chunk {chunk} bf16: "
-          + json.dumps(row))
-    return row
+    """The SSD_TIMED calls at full width through the dispatcher on
+    head-major inputs, each held as phase 6 holds its own, timed beside
+    the plain version and SSD_EARLIER_MS, with its variant and blocks."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as K
+    rows = {}
+    for label, (c, b, S, chunk, dn) in SSD_TIMED.items():
+        v, chunk = ssd_timed_inputs(torch, label)
+        y, st = ssd_call(v, chunk=chunk)
+        name = f"ssd_scan {label} x{tuple(v['x'].shape)} chunk {chunk}"
+        e, _ = ssd_check(torch, name, v, y, st, chunk)
+        key = ("ssd_scan", dn)
+        worst[key] = max(worst.get(key, 0), e["rel_err"])
+        b_ms, b_by = ssd_bound(v, dn, chunk)
+        blocks = K.blocks(b * c["H"], b * c["G"], S, c["P"], c["N"], chunk,
+                          v["x"].dtype)
+        row = dict(e, x=list(v["x"].shape), N=c["N"], chunk=chunk,
+                   tolerance=SSD_BF16_TOL if dn == "bfloat16" else
+                   [SSD_RTOL, SSD_ATOL], bound_ms=b_ms, bound_by=b_by,
+                   f32_core_bound_ms=ssd_bound(v, "float32", chunk)[0],
+                   library_ms=None, eager_library_ms=None,
+                   library_ms_range=None, eager_library_ms_range=None,
+                   variant=K.variant(v["x"].dtype), blocks=blocks)
+        row.update(timings(torch, side, {
+            "ms": lambda: ssd_call(v, chunk=chunk),
+            "plain_ms": lambda: ssd_call(v, "torch", chunk=chunk)},
+            reps=3, iters=10, warmup=3))
+        row["bound_share"] = b_ms / row["ms"]
+        rows[label] = row
+        print(f"{name} {dn}: " + json.dumps(row))
+        print(f"ssd_scan {label}: {row['ms']:.5f} ms (variant "
+              f"{row['variant']}, blocks {blocks}); one-block-a-head kernel "
+              f"before {SSD_EARLIER_MS[label]} ms; plain "
+              f"{row['plain_ms']:.4f} ms; bound "
+              f"{b_ms:.5f} ms ({b_by}, {row['bound_share']:.3f} of it), "
+              f"f32-core {row['f32_core_bound_ms']:.4f} ms")
+        del v, y, st
+    print(f"SSD_EARLIER_MS = {json.dumps(SSD_EARLIER_MS)}")
+    return rows
 
 
 def phase_kernels(torch):
@@ -1546,9 +1638,10 @@ def phase_standalone(torch):
     ``flash_attention_bhsd_cuda``) with every launch count at 0; the
     outputs are held against the plain versions after the counts are
     read."""
-    from repro_torch.kernels import flash_attention, ssd_naive, ssd_ref, ssd_scan
+    from repro_torch.kernels import flash_attention, ssd_naive, ssd_scan
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention_bhsd_cuda)
+    from repro_torch.kernels.ssd_scan.ssd_scan import variant as ssd_variant
     from repro_torch.models.layers import _causal_mask, _sdpa
 
     flash_in = [qkv(torch, B, Sq, Sk, c["H"], c["K"], c["dh"],
@@ -1611,26 +1704,16 @@ def phase_standalone(torch):
     for (name, c, b, S, chunk, dn), v, (y, st) in zip(SSD_PATH, ssd_in, ssd_out):
         ch = 256 if chunk is None else chunk
         label = f"standalone ssd_scan {name} {dn} x{tuple(v['x'].shape)} chunk {ch}"
-        check(y.shape == v["x"].shape and bool(torch.isfinite(y.float()).all()
-                                               and torch.isfinite(st).all()),
-              f"{label} shape, finite")
-        if dn == "bfloat16":
-            e = check_ssd_bf16(torch, label, v, y, st, ch)
-        else:
-            y_r, st_r = ssd_ref(*(v[k] for k in SSD_ORDER), ch)
-            ratio, rel = ssd_f32_errs(y, st, y_r, st_r)
-            e = {"vs_ssd_ref_bound_ratio": ratio, "vs_ssd_ref_rel": rel}
-            check(ratio <= 1.0, f"{label}: kernel vs ssd_ref within rtol "
-                  f"{SSD_RTOL} atol {SSD_ATOL} (worst |err| / bound {ratio:.3f}; "
-                  f"{rel:.3e} of max |y|)")
-            if S <= 256:
-                y_n, st_n = ssd_naive(*(v[k] for k in SSD_ORDER))
-                for who, (ya, sa) in (("kernel", (y, st)), ("ssd_ref", (y_r, st_r))):
-                    ratio, rel = ssd_f32_errs(ya, sa, y_n, st_n)
-                    e[f"{who}_vs_naive_bound_ratio"] = ratio
-                    check(ratio <= 1.0, f"{label}: {who} vs ssd_naive within "
-                          f"rtol {SSD_RTOL} atol {SSD_ATOL} (worst |err| / bound "
-                          f"{ratio:.3f}; {rel:.3e} of max |y|)")
+        e, refs = ssd_check(torch, label, v, y, st, ch)
+        e["variant"] = ssd_variant(y.dtype)
+        if dn == "float32" and S <= 256:
+            y_n, st_n = ssd_naive(*(v[k] for k in SSD_ORDER))
+            for who, (ya, sa) in (("kernel", (y, st)), ("ssd_ref", refs)):
+                ratio, rel = ssd_f32_errs(ya, sa, y_n, st_n)
+                e[f"{who}_vs_naive_bound_ratio"] = ratio
+                check(ratio <= 1.0, f"{label}: {who} vs ssd_naive within "
+                      f"rtol {SSD_RTOL} atol {SSD_ATOL} (worst |err| / bound "
+                      f"{ratio:.3f}; {rel:.3e} of max |y|)")
         report["ssd_scan"][f"{name} {dn} b={b} S={S}"] = dict(e, chunk=ch)
     print("standalone: " + json.dumps(report))
     return report, {k: launches[k] for k in ("flash_attention", "ssd_scan")}
@@ -1697,6 +1780,12 @@ def main():
             "quant_matmul", r"(?<=\d)qmm_[a-z_]+(?=I)", "qmm_mma", 6,
             "bf16 qmm_mma int8 / int4 x per channel / grouped and "
             "qmm_mma_decode int8 / int4")
+        ssd_build = check_build(
+            "ssd_scan", r"(?<=\d)ssd_[a-z_]+(?=[IE])", "ssd_", 9,
+            "ssd_cb, ssd_states (two builds for bf16), ssd_y: f32 simt and "
+            "bf16 mma; ssd_pass: f32 in place, bf16 split; the mma builds on "
+            "the tensor cores",
+            tensor_core="_mma")
         t0 = time.perf_counter()
         rows = phase_kernels(torch)
         print(f"phase 2 took {time.perf_counter() - t0:.1f} s")
@@ -1787,10 +1876,20 @@ def main():
     sd = rows["ssd_scan"]
     kernels.append(kernel_entry(
         "ssd_scan", f"{kdir}/ssd_scan/csrc/ssd_scan.cu",
-        f"{pallas}/ssd_scan/ssd_scan.py:85", launches_6["ssd_scan"], sd,
+        f"{pallas}/ssd_scan/ssd_scan.py:85", launches_6["ssd_scan"],
+        sd["mamba2 bf16"],
         "mamba2-2.7b: x (1, 4096, 80, 64) bf16, B and C (1, 4096, 1, 128), "
         "chunk 128; library_ms null: no single PyTorch call computes the scan",
-        {"f32_core_bound_ms": sd["f32_core_bound_ms"], "blocks": sd["blocks"]}))
+        {"f32_core_bound_ms": sd["mamba2 bf16"]["f32_core_bound_ms"],
+         "variant": sd["mamba2 bf16"]["variant"],
+         "blocks": sd["mamba2 bf16"]["blocks"],
+         "bound_ratio": sd["mamba2 bf16"]["bound_ratio"],
+         "other_shapes": {k: {f: r[f] for f in (
+             "x", "N", "chunk", "variant", "ms", "plain_ms", "bound_ms",
+             "bound_by", "f32_core_bound_ms", "eager_ms", "max_abs_err",
+             "rel_err", "blocks")}
+             for k, r in sd.items() if k != "mamba2 bf16"},
+         "build": ssd_build}))
     print(json.dumps({"engine": report}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

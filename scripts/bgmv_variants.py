@@ -27,58 +27,30 @@ and the largest cycles each phase takes over the blocks of the last call
 import ctypes
 import json
 import os
-import subprocess
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
-sys.path.insert(0, str(ROOT))
+import _variants as V   # puts src/ and the checkout's root on sys.path
+import torch
 
-import torch  # noqa: E402
+import chip_smoke as cs
+from repro_torch.kernels import _build
 
-import chip_smoke as cs  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
-
-SRC = ROOT / "src/repro_torch/kernels/batched_lora/csrc/bgmv.cu"
-OUT = ROOT / "build" / "variants"
+SRC = V.ROOT / "src/repro_torch/kernels/batched_lora/csrc/bgmv.cu"
 
 
 def build(variants):
     """{name: library path} for every variant that compiled."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    nvcc, src, procs = _build.find_nvcc(), SRC.read_text(), {}
-    for name, subs in variants.items():
-        text = src
-        for old, new in subs.items():
-            if old not in text:
-                raise SystemExit(f"{name}: {old!r} is not in the source")
-            text = text.replace(old, new)
-        cu = OUT / f"bgmv_{name}.cu"
-        cu.write_text(text)
-        procs[name] = subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-o", str(OUT / f"bgmv_{name}.so"),
-             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            print(f"{name}: build failed\n{log[-3000:]}")
-            continue
-        usage = {k: (u["registers"], u["spill_stores"] + u["spill_loads"])
-                 for k, u in cs.ptxas_usage(log).items() if "Li8E" in k}
-        print(f"{name}: (registers, spilled bytes) of the r-8 kernels "
-              + json.dumps(usage))
-        libs[name] = OUT / f"bgmv_{name}.so"
-    return libs
+    src = SRC.read_text()
+    return V.build("bgmv", {name: V.edit(src, subs, name)
+                            for name, subs in variants.items()}, "Li8E")
 
 
 # the clock64 probes of --timeline: text substitutions of the source
 PHASES = ("staged", "shrink", "push", "barrier", "h", "expand")
 PROBES = {
     "namespace {\n\nconstexpr int kThreads":
-        "__device__ long long g_ts[1 << 16];\nnamespace {\n\nconstexpr int kThreads",
+        V.probe_arrays(["g_ts"]) + "namespace {\n\nconstexpr int kThreads",
     "  const int S = pr.S, d_in":
         "  long long ts[8] = {clock64()};\n  const int S = pr.S, d_in",
     "    __syncthreads();\n\n    if constexpr (MMA)":
@@ -93,17 +65,14 @@ PROBES = {
     "sc, nv);\n    }\n  }\n}":
         "sc, nv);\n    }\n  }\n  ts[6] = clock64();\n"
         "  if (tid == 0) for (int i = 0; i < 8; ++i) g_ts[blockIdx.x * 8 + i] = ts[i];\n}",
-    'extern "C" {\n':
-        'extern "C" {\nint bgmv_read_ts(void* host, int n) {\n'
-        '  return (int)cudaMemcpyFromSymbol(host, g_ts, n * 8);\n}\n'
-        'int bgmv_clear_ts() {\n  void* p;\n'
-        '  cudaError_t e = cudaGetSymbolAddress(&p, g_ts);\n'
-        '  return (int)(e ? e : cudaMemset(p, 0, sizeof(g_ts)));\n}\n',
+    'extern "C" {\n': 'extern "C" {\n' + V.probe_readers("bgmv", ["g_ts"]),
 }
 
 
 def timeline():
-    lib = ctypes.CDLL(str(build({"timeline": PROBES})["timeline"]))
+    lib = ctypes.CDLL(str(V.build(
+        "bgmv", {"timeline": V.edit(SRC.read_text(), PROBES, "timeline")},
+        "Li8E")["timeline"]))
     _build._loaded["bgmv"] = lib
     side = torch.cuda.Stream()
     for kind in ("bgmv", "bgmv_mag"):
@@ -111,17 +80,13 @@ def timeline():
             v = cs.kernel_inputs(torch, cs.ROWS, S, cs.R_MAIN, torch.bfloat16,
                                  seed=7)
             torch.cuda.synchronize()
-            if lib.bgmv_clear_ts():
-                raise SystemExit("clearing the probes failed")
+            V.clear_probes(lib, "bgmv", 0)
             cs.time_ms(torch, lambda: cs.call(kind, v, None, True), side,
                        reps=1, iters=200, warmup=20)
             torch.cuda.synchronize()
-            blocks = 4096   # more than any of these grids
-            buf = (ctypes.c_longlong * (blocks * 8))()
-            if lib.bgmv_read_ts(ctypes.cast(buf, ctypes.c_void_p), blocks * 8):
-                raise SystemExit("reading the probes failed")
-            rows = [buf[8 * i: 8 * i + 8] for i in range(blocks)]
-            rows = [r for r in rows if r[6] > r[0] > 0]
+            # 4096 blocks: more than any of these grids
+            rows = [r for r in V.read_probes(lib, "bgmv", 0, 4096)
+                    if r[6] > r[0] > 0]
             out = {}
             for i, name in enumerate(PHASES):
                 d = sorted(r[i + 1] - r[i] for r in rows)
@@ -152,18 +117,17 @@ def main():
 
             def call():
                 return cs.call(kind, v, None, True)
-            for rnd in (names, names[::-1]):
-                for name in rnd:
-                    lib = ctypes.CDLL(str(libs[name]))
-                    _build._loaded["bgmv"] = lib
-                    y = call()
-                    ratio = cs.bgmv_bound_ratio(kind, v, y, True)
-                    ms = cs.time_ms(torch, call, side)["graph"][0]
-                    print(f"{kind} {label} {name}: {ms:.5f} ms, |err| / "
-                          f"bound {ratio:.3f}", flush=True)
+            def run(name):
+                _build._loaded["bgmv"] = ctypes.CDLL(str(libs[name]))
+                y = call()
+                ratio = cs.bgmv_bound_ratio(kind, v, y, True)
+                ms = cs.time_ms(torch, call, side)["graph"][0]
+                print(f"{kind} {label} {name}: {ms:.5f} ms, |err| / "
+                      f"bound {ratio:.3f}", flush=True)
+            V.alternate(names, run)
     return 0
 
 
 if __name__ == "__main__":
-    os.chdir(ROOT)
+    os.chdir(V.ROOT)
     sys.exit(main())

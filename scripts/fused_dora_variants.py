@@ -20,52 +20,18 @@ rounds, the second in reverse order, on the one card.
 import ctypes
 import json
 import os
-import subprocess
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
-sys.path.insert(0, str(ROOT))
+import _variants as V   # puts src/ and the checkout's root on sys.path
+import torch
 
-import torch  # noqa: E402
+import chip_smoke as cs
+from repro_torch.kernels import _build
+from repro_torch.kernels.fused_dora import fused_dora as FD
+from repro_torch.kernels.fused_dora.ref import bf16_bound
 
-import chip_smoke as cs  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.fused_dora import fused_dora as FD  # noqa: E402
-from repro_torch.kernels.fused_dora.ref import bf16_bound  # noqa: E402
-
-SRC = ROOT / "src/repro_torch/kernels/fused_dora/csrc/fused_dora.cu"
-OUT = ROOT / "build" / "variants"
-
-
-def build(variants):
-    """{name: library path} for every variant that compiled."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    nvcc, src, procs = _build.find_nvcc(), SRC.read_text(), {}
-    for name, subs in variants.items():
-        text = src
-        for old, new in subs.items():
-            if old not in text:
-                raise SystemExit(f"{name}: {old!r} is not in the source")
-            text = text.replace(old, new)
-        cu = OUT / f"{name}.cu"
-        cu.write_text(text)
-        procs[name] = subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-o", str(OUT / f"{name}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            print(f"{name}: build failed\n{log[-3000:]}")
-            continue
-        usage = {k: (u["registers"], u["spill_stores"] + u["spill_loads"])
-                 for k, u in cs.ptxas_usage(log).items() if "_mma" in k}
-        print(f"{name}: (registers, spilled bytes) of the bf16 kernels "
-              + json.dumps(usage))
-        libs[name] = OUT / f"{name}.so"
-    return libs
+SRC = V.ROOT / "src/repro_torch/kernels/fused_dora/csrc/fused_dora.cu"
 
 
 def main():
@@ -76,7 +42,9 @@ def main():
     shapes = (json.loads(Path(sys.argv[2]).read_text()) if len(sys.argv) > 2
               else [[8, 4096, 4096], [512, 4096, 4096]])
     print(f"gpu: {cs.gpu_line()}")
-    libs = build(variants)
+    src = SRC.read_text()
+    libs = V.build("fused_dora", {name: V.edit(src, subs, name)
+                                  for name, subs in variants.items()}, "_mma")
     side = torch.cuda.Stream()
     for M, K, N in shapes:
         v = cs.fused_inputs(torch, M, K, N, 8, torch.bfloat16, seed=7)
@@ -87,18 +55,17 @@ def main():
         def call():
             return FD.fused_dora_cuda(v["x"], v["w0"], a_eff, v["a_mag"],
                                       b_dir, b_eff, scale=4.0)
-        names = list(libs)
-        for rnd in (names, names[::-1]):
-            for name in rnd:
-                _build._loaded["fused_dora"] = ctypes.CDLL(str(libs[name]))
-                y = call()
-                ratio = ((y.float() - ref).abs() / bound).max().item()
-                ms = cs.time_ms(torch, call, side)["graph"][0]
-                print(f"M={M} K={K} N={N} {name}: {ms:.5f} ms, |err| / bound "
-                      f"{ratio:.3f}", flush=True)
+        def run(name):
+            _build._loaded["fused_dora"] = ctypes.CDLL(str(libs[name]))
+            y = call()
+            ratio = ((y.float() - ref).abs() / bound).max().item()
+            ms = cs.time_ms(torch, call, side)["graph"][0]
+            print(f"M={M} K={K} N={N} {name}: {ms:.5f} ms, |err| / bound "
+                  f"{ratio:.3f}", flush=True)
+        V.alternate(list(libs), run)
     return 0
 
 
 if __name__ == "__main__":
-    os.chdir(ROOT)
+    os.chdir(V.ROOT)
     sys.exit(main())

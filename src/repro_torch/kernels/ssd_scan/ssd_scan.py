@@ -3,13 +3,22 @@
 (``repro/kernels/ssd_scan/ssd_scan.py``).
 
 ``ssd_scan_bh_cuda`` checks device, dtype, shape and contiguity and
-raises on anything the kernel does not take; allocates y and the final
-state with ``torch.empty``; launches on the current stream without
-synchronising; raises if the launch was refused (also when the shared
-memory a block needs for (P, N, chunk) is above the card's limit); and
-then adds one to ``LAUNCHES["ssd_scan"]``.
+raises on anything the kernel does not take; allocates y, the final
+state and the workspaces of the chunk-parallel scan (C·Bᵀ once a group
+and chunk in x's type, the f32 log-decay, the (BH, nc, N, P) f32 chunk
+states and, for bf16, the entering states split into bf16 hi and lo
+tiles) with ``torch.empty``, so a call can be captured in a CUDA graph;
+launches the four kernels on the current stream without synchronising;
+raises if a launch was refused (N above 256, or more shared memory than
+the card has for the chunk); and then adds one to
+``LAUNCHES["ssd_scan"]``.  ``variant`` names the path a call takes:
+``mma`` (bf16, the products on the tensor cores) or ``simt`` (f32, on the
+CUDA cores); ``blocks`` the blocks each of the four launches runs.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -21,6 +30,11 @@ LAUNCHES = {"ssd_scan": 0}
 
 MAX_P = 64                       # kMaxP in csrc/ssd_scan.cu
 
+# ssd_scan_variant's codes
+VARIANTS = ("simt", "mma")
+# the four launches of one call, in order (ssd_scan_blocks)
+KERNELS = ("ssd_cb", "ssd_states", "ssd_pass", "ssd_y")
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -31,12 +45,39 @@ def _lib():
     lib = _build.library("ssd_scan")
     if not getattr(lib, "_argtypes_set", False):
         for s in SUFFIX.values():
-            # x, dt, a_log, B, C, y, state, BH, BG, S, P, N, Q, stream
+            # x, dt, a_log, B, C, y, state, cb, lw, w, sin, BH, BG, S, P,
+            # N, Q, stream
             fn = getattr(lib, f"ssd_scan_{s}")
-            fn.argtypes = [P] * 7 + [I] * 6 + [P]
+            fn.argtypes = [P] * 11 + [I] * 6 + [P]
             fn.restype = I
+        lib.ssd_scan_variant.argtypes = [I]
+        lib.ssd_scan_variant.restype = I
+        # BH, BG, S, P, N, Q, is_bf16, out[4]
+        lib.ssd_scan_blocks.argtypes = [I] * 7 + [P]
+        lib.ssd_scan_blocks.restype = I
+        lib.ssd_scan_state_bytes.argtypes = [I] * 3
+        lib.ssd_scan_state_bytes.restype = I
         lib._argtypes_set = True
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def variant(dtype) -> str:
+    """The path a call with x of ``dtype`` takes: one of ``VARIANTS``."""
+    return VARIANTS[_lib().ssd_scan_variant(int(dtype == torch.bfloat16))]
+
+
+def blocks(BH: int, BG: int, S: int, P: int, N: int, chunk: int,
+           dtype) -> dict[str, int]:
+    """{kernel: blocks launched} for a (BH, S, P) x (BG, S, N) call at
+    ``chunk`` (capped at S, as the call caps it)."""
+    lib = _lib()
+    out = (ctypes.c_int * 4)()
+    rc = lib.ssd_scan_blocks(BH, BG, S, P, N, min(chunk, S),
+                             int(dtype == torch.bfloat16),
+                             ctypes.cast(out, ctypes.c_void_p))
+    raise_on(rc, lib, "ssd_scan", "ssd_scan")
+    return dict(zip(KERNELS, out))
 
 
 def ssd_scan_bh_cuda(x, dt, a_log, B, C, *, chunk: int = 256):
@@ -60,14 +101,23 @@ def ssd_scan_bh_cuda(x, dt, a_log, B, C, *, chunk: int = 256):
     check(a_log, "a_log", torch.float32, (BH,), dev)
     check(B, "B", x.dtype, (BG, S, N), dev)
     check(C, "C", x.dtype, (BG, S, N), dev)
+    nc = S // Q
     y = torch.empty_like(x)
     st = torch.empty((BH, N, Pd), dtype=torch.float32, device=dev)
+    cb = torch.empty((BG, nc, Q, Q), dtype=x.dtype, device=dev)
+    lw = torch.empty((BH, S), dtype=torch.float32, device=dev)
     lib = _lib()
+    split = lib.ssd_scan_state_bytes(Pd, N, int(x.dtype == torch.bfloat16))
+    w = torch.empty((BH, nc, N, Pd), dtype=torch.float32, device=dev)
+    sin = (torch.empty((BH * nc * split,), dtype=torch.uint8, device=dev)
+           if split else None)
     fn = getattr(lib, f"ssd_scan_{SUFFIX[x.dtype]}")
     with torch.cuda.device(dev):
         rc = fn(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), B.data_ptr(),
-                C.data_ptr(), y.data_ptr(), st.data_ptr(), BH, BG, S, Pd, N,
-                Q, stream(x))
+                C.data_ptr(), y.data_ptr(), st.data_ptr(), cb.data_ptr(),
+                lw.data_ptr(), w.data_ptr(),
+                None if sin is None else sin.data_ptr(), BH, BG, S, Pd, N, Q,
+                stream(x))
     raise_on(rc, lib, "ssd_scan", "ssd_scan")
     LAUNCHES["ssd_scan"] += 1
     return y, st

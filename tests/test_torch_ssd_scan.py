@@ -206,3 +206,111 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_counts_nothing():
     with pytest.raises(ValueError, match="unknown ssd_scan impl"):
         ssd_scan(*_t(v), chunk=8, impl="pallas")
     assert K.LAUNCHES == {"ssd_scan": 0}
+
+
+# --- ref.bf16_bound: the elementwise bound every bf16 kernel output is
+# held to (chip_smoke.py phases 2 and 6, tests/test_torch_ssd_scan_gpu.py).
+# Inputs at mamba2's init magnitudes, bf16, chunk 128 (the kernel's column
+# tiles are 32 wide, its row tiles 128); the largest |y − ref| / bound over
+# all elements, measured on the CPU at these cases and seeds: plain bf16
+# ssd_ref and ssd_cast_points 0.19–0.38, the Pallas body 0.12–0.15; the
+# carried state term left out 12.7–41×, the column tile 32–63 left out
+# 20.7–43.6×, chunk 1's end state left out 9.7–41×.
+
+from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
+    bf16_bound, cast_point_interval, ssd_cast_points)
+
+BOUND_CASES = {   # b, S, H, G, P, N, chunk
+    "mamba2": (1, 512, 8, 1, 64, 128, 128),
+    "groups": (1, 512, 8, 2, 16, 32, 128),     # rep 4
+    "ragged": (2, 512, 4, 4, 24, 20, 128),     # P 24, N 20, rep 1
+}
+
+
+def _bf16_case(case, seed):
+    b, S, H, G, P, N, Q = BOUND_CASES[case]
+    return _t(_mamba2_init(b, S, H, G, P, N, seed), torch.bfloat16), Q
+
+
+def _ratio(y, ref_bound):
+    ref, bound = ref_bound
+    return ((y.double() - ref.double()).abs()
+            / bound.double().clamp_min(1e-300)).max().item()
+
+
+@pytest.mark.parametrize("case", sorted(BOUND_CASES))
+def test_bf16_bound_holds_the_plain_and_cast_point_versions(case):
+    """The plain bf16 ssd_ref (the reference's cast points) and
+    ssd_cast_points (the kernel's) lie within the bound, as ssd_ref on f32
+    values lies within it trivially."""
+    t, Q = _bf16_case(case, seed=11)
+    rb = bf16_bound(*t, Q)
+    assert rb[0].shape == t[0].shape and rb[1].shape == t[0].shape
+    y = ssd_cast_points(*t, Q)[0]
+    assert y.dtype == torch.bfloat16
+    plain = ssd_ref(*t, Q)[0].to(torch.bfloat16)
+    assert not torch.equal(y, plain)            # they round at other points
+    assert _ratio(y, rb) <= 1.0
+    assert _ratio(plain, rb) <= 1.0
+
+
+@pytest.mark.parametrize("case", ["groups", "ragged"])
+def test_bf16_bound_holds_the_pallas_body(case):
+    """The Pallas kernel body (interpret mode) on the same bf16 values:
+    f32 products of the upcasts, one rounding of y."""
+    b, S, H, G, P, N, Q = BOUND_CASES[case]
+    v = _mamba2_init(b, 256, H, G, P, N, seed=5)
+    y = j_scan(*_j(v, jnp.bfloat16), chunk=Q, interpret=True)[0]
+    y = torch.from_numpy(np.array(y.astype(jnp.float32)))
+    assert _ratio(y, bf16_bound(*_t(v, torch.bfloat16), Q)) <= 1.0
+
+
+@pytest.mark.parametrize("omit", ["state", "column_tile", "chunk_state"])
+@pytest.mark.parametrize("case", sorted(BOUND_CASES))
+def test_bf16_bound_sees_a_left_out_piece(case, omit):
+    """A kernel that left out the carried state term, one column tile of
+    the triangle or one chunk's end state reads many times the bound."""
+    t, Q = _bf16_case(case, seed=13)
+    rb = bf16_bound(*t, Q)
+    assert _ratio(ssd_cast_points(*t, Q, omit=omit)[0], rb) > 8.0
+
+
+# --- ref.cast_point_interval: the kernel's bf16 y against its own cast
+# points, where only the order of f32 sums and exps may differ.  Measured
+# on the CPU at the cases above, seeds 11, 13, 19: ssd_cast_points in f32
+# lies inside at every output; with the low half of the state split left
+# out (the carried state rounded once to bf16) 121–313 outputs lie
+# outside, while that version reads only 0.19–0.44 of bf16_bound.
+
+@pytest.mark.parametrize("case", sorted(BOUND_CASES))
+def test_cast_point_interval_holds_the_cast_point_version(case):
+    """ssd_cast_points with f32 sums in torch's order rounds every output
+    into the interval taken around the same cast points with exact sums;
+    the interval is one value wide at most outputs."""
+    t, Q = _bf16_case(case, seed=11)
+    lo, hi = cast_point_interval(*t, Q)
+    assert lo.dtype == hi.dtype == torch.bfloat16
+    assert lo.shape == hi.shape == t[0].shape and bool((lo <= hi).all())
+    y = ssd_cast_points(*t, Q)[0]
+    assert bool(((y >= lo) & (y <= hi)).all())
+    assert (lo != hi).float().mean().item() < 0.5
+
+
+@pytest.mark.parametrize("case", sorted(BOUND_CASES))
+def test_cast_point_interval_sees_the_state_rounded_once(case):
+    """A kernel that carried the entering state as one bf16 value (the
+    split's low half left out) rounds many outputs outside the interval."""
+    t, Q = _bf16_case(case, seed=13)
+    lo, hi = cast_point_interval(*t, Q)
+    y = ssd_cast_points(*t, Q, omit="lo")[0]
+    assert ((y < lo) | (y > hi)).sum().item() >= 100
+
+
+def test_cast_points_in_f32_are_the_scan():
+    """With f32 inputs every rounding of ssd_cast_points is the identity,
+    so it computes the scan: within 1e-5 of ssd_ref's max |y|."""
+    v = _mamba2_init(1, 512, 4, 2, 16, 32, seed=17)
+    y, st = ssd_cast_points(*_t(v), 128)
+    y_r, st_r = ssd_ref(*_t(v), 128)
+    assert (y - y_r).abs().max() <= 1e-5 * y_r.abs().max()
+    assert (st - st_r).abs().max() <= 1e-5 * st_r.abs().max()

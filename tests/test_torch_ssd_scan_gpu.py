@@ -13,8 +13,13 @@ against the plain ``ssd_ref`` and the ``ssd_naive`` recurrence at rtol
 1e-3, atol 1e-4, the bounds of tests/test_kernels.py's ssd sweep (both
 the kernel and ``ssd_ref`` sum the log-decay in f64 and round it once, so
 they hold the same l); bf16 within 2e-2 of max |y| of the plain version
-on the same bf16 inputs (which rounds the decays, C·Bᵀ and x·dt to bf16
-where the kernel keeps f32).
+on the same bf16 inputs, elementwise within
+``ssd_scan/ref.py::bf16_bound`` (the reference's cast points and the
+kernel's, f32 sums in any order, the output's rounding), and inside
+``ssd_scan/ref.py::cast_point_interval`` (the kernel's own cast points
+with exact sums; only f32 sums and exps in another order may move an
+output, so a kernel that rounds the carried state to bf16 once lies
+outside it).
 """
 import numpy as np
 import pytest
@@ -22,7 +27,8 @@ import torch
 
 from repro_torch.kernels.ssd_scan import ssd_scan as K
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
-from repro_torch.kernels.ssd_scan.ref import ssd_naive
+from repro_torch.kernels.ssd_scan.ref import (bf16_bound, cast_point_interval,
+                                             ssd_naive)
 
 
 @pytest.fixture
@@ -72,6 +78,10 @@ def _close(got, want):
     (1, 512, 4, 2, 64, 128, 256),   # the dispatcher's default chunk
     (1, 256, 8, 1, 64, 16, 128),    # jamba's N
     (1, 300, 3, 1, 24, 20, 100),    # ragged tiles: chunk 100, P 24, N 20
+    (1, 128, 4, 1, 8, 8, 64),       # P 8 and N 8: less than one mma tile
+    (1, 256, 8, 2, 64, 128, 128),   # two groups of 4 heads
+    (4, 256, 8, 1, 64, 128, 128),   # b 4
+    (1, 256, 4, 1, 64, 256, 128),   # N 256, the largest the kernel takes
 ])
 def test_kernel_matches_plain(cuda, dtype, b, S, H, G, P, N, chunk):
     v = _inputs(b, S, H, G, P, N, dtype, cuda, seed=S + N)
@@ -89,6 +99,10 @@ def test_kernel_matches_plain(cuda, dtype, b, S, H, G, P, N, chunk):
                             / r.float().abs().max()).item()
         assert rel(y, y_p) <= 2e-2
         assert rel(st, st_p) <= 2e-2
+        ref, bound = bf16_bound(*(v[k] for k in ORDER), min(chunk, S))
+        assert ((y.float() - ref).abs() / bound).max().item() <= 1.0
+        lo, hi = cast_point_interval(*(v[k] for k in ORDER), min(chunk, S))
+        assert bool(((y >= lo) & (y <= hi)).all())
 
 
 @pytest.mark.gpu
@@ -130,10 +144,44 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="head dim"):
         wide = torch.zeros((4, 32, 128), device=cuda)
         K.ssd_scan_bh_cuda(wide, dt, a, B, B, chunk=16)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        # more shared memory than a block may have (N 2048)
-        Bw = torch.zeros((2, 32, 2048), device=cuda)
-        K.ssd_scan_bh_cuda(x, dt, a, Bw, Bw, chunk=16)
+    for n in (2048, 264):   # the kernel takes N up to 256
+        with pytest.raises(RuntimeError, match="launch failed"):
+            Bw = torch.zeros((2, 32, n), device=cuda)
+            K.ssd_scan_bh_cuda(x, dt, a, Bw, Bw, chunk=16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_graph_replay_equals_the_eager_call_bit_for_bit(cuda, dtype):
+    # no atomics, every sum in a fixed order: a replay is the same call
+    v = _inputs(1, 512, 8, 2, 64, 128, dtype, cuda, seed=3)
+    y, st = _run(v, 128)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _run(v, 128)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        y_g, st_g = _run(v, 128)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_g) and torch.equal(st, st_g)
+
+
+@pytest.mark.gpu
+def test_variant_and_blocks(cuda):
+    assert K.variant(torch.bfloat16) == "mma"
+    assert K.variant(torch.float32) == "simt"
+    # mamba2-2.7b, 1 x 4096, chunk 128: 32 chunks of 3 C.B^T tiles for the
+    # one group; a block a head and chunk; 4 blocks of 256 chunks of 8
+    # state entries a head (f32: of 8 entries of a state row, the same); one
+    # block of 128 rows a head and chunk (f32: two of 64)
+    assert K.blocks(80, 1, 4096, 64, 128, 128, torch.bfloat16) == {
+        "ssd_cb": 96, "ssd_states": 2560, "ssd_pass": 320, "ssd_y": 2560}
+    assert K.blocks(80, 1, 4096, 64, 128, 128, torch.float32) == {
+        "ssd_cb": 96, "ssd_states": 2560, "ssd_pass": 320, "ssd_y": 5120}
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
