@@ -79,6 +79,31 @@ Phase 6  the standalone entry points flash_attention(...) and ssd_scan(...)
          in f32) and jamba-v0.1's SSM layers (1 x 4096), and a three-way
          check (kernel, ssd_ref, ssd_naive) at S 256; each kernel
          launched once a call.
+Phase 7  training, run between phases 4 and 5 on phase 3's backbone:
+         first one stage-1 step's loss and the gradients of all 12
+         adapter leaves of the first CHECK_DEPTH layers cast to f32 (one
+         client, 1 x 64 tokens, dropout 0, a nonzero B_mag) on the card
+         against the CPU, within 1e-4 of each leaf's max |g|; then
+         run_federated (fedlora_opt: 4 specialist clients on the dolly
+         tasks, 2 rounds of 2 local steps of 4 x 128 tokens, 2 stage-2
+         steps on the task mix, 2 stage-3 steps; rank 8 on q/v, alpha 32,
+         lora_dropout 0.1) at full width, with every stage checked bit
+         for bit: stage 1 changes the base components and neither dA_dir
+         nor dB_mag (dB_mag stays 0), stage 2 changes dA_dir only, stage
+         3 dB_mag only, and after each rebroadcast every shared leaf is
+         equal across clients and each client keeps its own dB_mag (also
+         held on a copy of the clients whose dB_mag is nonzero, since the
+         real one is 0 until stage 3); the training path launches no
+         hand-written kernel; every loss and metric finite.  Then the 4 personalized clients (the stage-2
+         server model plus each one's dB_mag) serve 8 requests as
+         dora_mag tenants through ServeEngine: bgmv_mag 2 x 32 x
+         (prefills + decode steps) launches, the prefill logits held as
+         phase 3's.  Prints each stage's wall seconds, each stage-1
+         step's wall and process CPU ms, the median step after the first
+         (which warms up) and its training tokens/s, the peak memory, one stage-1 step
+         under torch.profiler (device busy share, top kernels), each
+         round's train CE and the accuracies (printed only: the weights
+         are random), the comm bytes and the serving tokens/s.
 Every run starts with every launch count at 0.  Each path's prefill
 logits, kernels against plain versions, relative to max |logit|: bf16
 weights through the first CHECK_DEPTH layers within 2e-2, f32 weights
@@ -1210,7 +1235,9 @@ def engine(params, cfg, store):
 def serve(torch, eng, reqs, label, *, expect=None):
     """Run ``reqs`` through ``eng`` with every launch count at 0; with
     ``expect`` ({kernel: launches per layer and forward pass}), hold the
-    counts to it."""
+    counts to it, and where the first 7 requests share one prompt (as
+    ``requests`` makes them) require more than one continuation among
+    them."""
     torch.cuda.synchronize()
     reset_launches()
     rids = [eng.submit(t, p, N_NEW) for t, p in reqs]
@@ -1226,7 +1253,9 @@ def serve(torch, eng, reqs, label, *, expect=None):
                        f"{st['prefills']} prefills + {st['decode_steps']} "
                        f"decode steps")
     outs = [results[r] for r in rids]
-    if expect is not None:
+    shared = len(reqs) >= 7 and all(np.array_equal(p, reqs[0][1])
+                                    for _, p in reqs[:7])
+    if expect is not None and shared:
         first = [tuple(o.tolist()) for o in outs[:7]]
         check(len(set(first)) >= 2, f"{label}: {len(set(first))} distinct "
               f"continuations of one prompt over 6 tenants + the null "
@@ -1313,20 +1342,23 @@ def logits_checks(torch, label, tree, cfg, logits, extra=None,
     return out
 
 
-def profiled(fn):
-    """Run ``fn`` under torch.profiler; returns {kernel name: device ms}
-    from its CUDA kernel events."""
+def profiled(fn, cpu=True):
+    """Run ``fn`` under torch.profiler; returns ({kernel name: device
+    ms}, {kernel name: launches}) from its CUDA kernel events.
+    ``cpu=False`` records no host op events (far less overhead on a step
+    of ~10^4 ops)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         fn()
-    by_name = {}
+    by_name, counts = {}, {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3)
-    return by_name
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return by_name, counts
 
 
 def profile_run(torch, eng, reqs, label, kernels=()):
@@ -1338,7 +1370,7 @@ def profile_run(torch, eng, reqs, label, kernels=()):
     for t, p in reqs[:ROWS]:
         eng.submit(t, p, CHUNK + 1)
     torch.cuda.synchronize()
-    by_name = profiled(eng.run)
+    by_name, _ = profiled(eng.run)
     st = eng.last_run
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -1505,7 +1537,7 @@ def phase_fused_path(torch, ctx):
     prefill()
     prefill_ms = 1e3 * (time.perf_counter() - t0)
     # what of that the device is busy for, fused_dora's share of it
-    by_name = profiled(prefill)
+    by_name, _ = profiled(prefill)
     unfused = greedy_generate(merged, {"tokens": prompts}, cfg, N_NEW,
                               device="cuda")
     same = float((unfused.cpu().numpy() == toks_h).mean())
@@ -1532,6 +1564,314 @@ def phase_fused_path(torch, ctx):
     report["prefill_logits"] = logits_checks(torch, "fused", merged, fcfg,
                                              logits, fused_vs_unfused)
     return report, launches["fused_dora"]
+
+
+# --- phase 7: training (run between phases 4 and 5) -----------------------
+
+TRAIN_HP = dict(method="fedlora_opt", n_clients=4, rounds=2, local_steps=2,
+                batch=4, seq_len=128, global_steps=2, personal_steps=2)
+TRAIN_EVAL = 2          # eval batches: global, and per client on its task
+GRAD_TOL = 1e-4         # card vs CPU, relative to each leaf's max |g|
+
+
+def grad_check(torch, cfg, params):
+    """One stage-1 step's loss and gradients of every adapter leaf on the
+    card against the CPU's: the first CHECK_DEPTH layers of the backbone
+    cast to f32, one client, 1 x 64 tokens of the dolly data, dropout 0,
+    a nonzero B_mag (so every leaf has a gradient), TF32 off."""
+    from repro_torch.data import (SyntheticInstructionDataset, to_device,
+                                  make_dataset_family, specialist_partition)
+    from repro_torch.fed.simulate import FedHyper, FedSim
+    from repro_torch.utils import pytree as pt
+
+    cfg2 = dataclasses.replace(cfg, n_layers=CHECK_DEPTH, dtype="float32",
+                               lora_dropout=0.0)
+    base = to_f32(dict(params, blocks=pt.tree_map(
+        lambda t: t[:CHECK_DEPTH], params["blocks"])))
+    fam = make_dataset_family("dolly", vocab_size=cfg.vocab_size)
+    ds = SyntheticInstructionDataset(fam, specialist_partition(1, 4)[0])
+    batch = ds.sample_batch(np.random.default_rng(1), 1, 64)
+    hp = FedHyper(method="fedlora_opt", n_clients=1)
+    sims = {dev: FedSim(cfg2, hp, base=pt.tree_map(lambda t: t.to(dev), base),
+                        device=dev) for dev in ("cuda", "cpu")}
+    del base
+    g = torch.Generator(device="cuda").manual_seed(2)
+    ad = pt.tree_map_with_path(
+        lambda p, x: (0.5 * torch.randn(x.shape, generator=g, device="cuda")
+                      if p.endswith("/B_mag") else x),
+        sims["cuda"].adapter_template)
+    out = {dev: sim.loss_and_grad(pt.tree_map(lambda t: t.to(dev), ad),
+                                  to_device(batch, dev))
+           for dev, sim in sims.items()}
+    (l_gpu, _, g_gpu), (l_cpu, _, g_cpu) = out["cuda"], out["cpu"]
+    errs = {"loss": abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu))}
+    for p, want in pt.tree_leaves_with_path(g_cpu):
+        got = pt.tree_get(g_gpu, p).cpu()
+        check(float(want.abs().max()) > 0, f"grad check: {p} has a nonzero "
+              f"gradient")
+        errs[p] = float((got - want).abs().max() / want.abs().max())
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= GRAD_TOL, f"grad check, {CHECK_DEPTH} layers f32, "
+          f"1 x 64 tokens: loss and {len(errs) - 1} adapter gradients on the "
+          f"card within {GRAD_TOL} of the CPU's (worst {worst}: "
+          f"{errs[worst]:.3e})")
+    return {"loss": float(l_gpu), "worst": worst, "worst_err": errs[worst],
+            "loss_err": errs["loss"], "leaves": len(errs) - 1}
+
+
+def checked_sim(torch, log):
+    """FedSim with the stage checks of phase 7 around each stage (bit for
+    bit, on the client-stacked leaves) and its wall time, host clock
+    around work that ends in a sync (stage 1 timed step by step, with the
+    process's CPU time beside each step's wall time)."""
+    from repro_torch.fed.simulate import FedSim
+    from repro_torch.utils import pytree as pt
+
+    def is_delta(p):
+        return p.endswith(("/dA_dir", "/dB_mag"))
+
+    def is_personal(p):
+        return p.endswith("/dB_mag")
+
+    def snap(tree):
+        return pt.tree_map(lambda t: t.clone(), tree)
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.process_time()
+        out = fn()
+        torch.cuda.synchronize()
+        log.setdefault(name, []).append(time.perf_counter() - t0)
+        log.setdefault(name + "_cpu", []).append(time.process_time() - c0)
+        return out
+
+    def check_rebroadcast(tree, aggregated, personal_before, what):
+        for p, x in pt.tree_leaves_with_path(tree):
+            if is_personal(p):
+                if not torch.equal(x, pt.tree_get(personal_before, p)):
+                    raise CheckFailed(f"{what}: {p} not kept per client")
+            elif not all(torch.equal(x[c], pt.tree_get(aggregated, p))
+                         for c in range(x.shape[0])):
+                raise CheckFailed(f"{what}: shared leaf {p} differs across "
+                                  f"clients")
+        print(f"ok: {what}: every shared leaf equal across clients, every "
+              f"dB_mag kept per client")
+
+    def check_changed(before, after, trains, what):
+        changed = [p for p, x in pt.tree_leaves_with_path(after)
+                   if not torch.equal(x, pt.tree_get(before, p))]
+        want = [p for p, _ in pt.tree_leaves_with_path(after) if trains(p)]
+        check(changed == want, f"{what}: the {len(want)} leaves it trains "
+              f"changed and nothing else ({len(changed)} changed)")
+
+    class CheckedSim(FedSim):
+        instances = []
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            CheckedSim.instances.append(self)
+
+        def local_round(self, batches, rng=None):
+            before = snap(self.client_adapters)
+            step = super(CheckedSim, self).local_round
+            for b in batches:           # one step a call, each timed
+                mets = timed("stage1_step", lambda: step([b], rng))
+            self.last_batches, self.last_rng = batches, rng
+            log["rounds"] = log.get("rounds", 0) + 1
+            what = f"stage 1 round {log['rounds']}"
+            check(all(np.isfinite(v).all() for v in mets.values()),
+                  f"{what}: metrics finite")
+            # dA_dir is 0 until the first stage 2 and then the server's;
+            # dB_mag is 0 until stage 3
+            check_changed(before, self.client_adapters,
+                          lambda p: not is_delta(p), what)
+            nz = [p for p, x in pt.tree_leaves_with_path(self.client_adapters)
+                  if is_personal(p) and torch.count_nonzero(x)]
+            check(not nz, f"{what}: every dB_mag still exactly 0")
+            return mets
+
+        def probe_rebroadcast(self, aggregated, what):
+            """The rebroadcast on a copy of the clients whose dB_mag is
+            nonzero and differs by client (the real one is 0 until stage
+            3, where a rebroadcast that overwrote it would not show)."""
+            g = torch.Generator(device=self.device).manual_seed(3)
+            probe = pt.tree_map_with_path(
+                lambda p, x: (torch.randn(x.shape, generator=g,
+                                          device=x.device, dtype=x.dtype)
+                              if is_personal(p) else x),
+                self.client_adapters)
+            real, self.client_adapters = self.client_adapters, probe
+            try:
+                out = self._rebroadcast(aggregated)
+            finally:
+                self.client_adapters = real
+            check_rebroadcast(out, aggregated, probe,
+                              f"{what} (probe, nonzero dB_mag)")
+
+        def aggregate(self, **kw):
+            personal = snap(self.client_adapters)
+            out = timed("aggregate", lambda: super(CheckedSim, self)
+                        .aggregate(**kw))
+            check_rebroadcast(self.client_adapters, out, personal,
+                              "aggregate")
+            self.probe_rebroadcast(out, "aggregate")
+            return out
+
+        def global_stage(self, aggregated, server_batches, rng=None):
+            before, personal = snap(aggregated), snap(self.client_adapters)
+            out = timed("stage2", lambda: super(CheckedSim, self)
+                        .global_stage(aggregated, server_batches, rng))
+            check_changed(before, out, lambda p: p.endswith("/dA_dir"),
+                          "stage 2")
+            check_rebroadcast(self.client_adapters, out, personal,
+                              "stage 2 rebroadcast")
+            self.probe_rebroadcast(out, "stage 2 rebroadcast")
+            self.server_model = out
+            return out
+
+        def personalize(self, batches, rng=None):
+            before = snap(self.client_adapters)
+            timed("stage3", lambda: super(CheckedSim, self)
+                  .personalize(batches, rng))
+            check_changed(before, self.client_adapters, is_personal,
+                          "stage 3")
+
+        def eval_global(self, aggregated, batches):
+            return timed("eval", lambda: super(CheckedSim, self)
+                         .eval_global(aggregated, batches))
+
+        def eval_personalized(self, batches_stacked):
+            return timed("eval", lambda: super(CheckedSim, self)
+                         .eval_personalized(batches_stacked))
+
+    return CheckedSim
+
+
+def phase_training(torch, ctx):
+    """Phase 7: the paper's pipeline (fedlora_opt stages 1-3) through
+    ``run_federated`` at llama2-7b full width on phase 3's backbone, its
+    stage checks, the card-vs-CPU gradient check, and the personalized
+    clients served as dora_mag tenants through ``bgmv_mag``."""
+    from repro_torch.core import fedlora
+    from repro_torch.data import (TASK_TYPES, SyntheticInstructionDataset,
+                                  eval_batches, make_dataset_family,
+                                  specialist_partition, to_device)
+    from repro_torch.fed.simulate import FedHyper, client
+    from repro_torch.serve import AdapterStore
+    from repro_torch.utils import pytree as pt
+
+    cfg, params = ctx["cfg"], ctx["params"]
+    report = {"grad_check": grad_check(torch, cfg, params)}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    hp = FedHyper(**TRAIN_HP)
+    C, B, S = hp.n_clients, hp.batch, hp.seq_len
+    fam = make_dataset_family("dolly", vocab_size=cfg.vocab_size)
+    part = specialist_partition(C, 4)
+    cds = [SyntheticInstructionDataset(fam, part[c], client_seed=c)
+           for c in range(C)]
+    sds = SyntheticInstructionDataset(fam, np.ones(4) / 4, client_seed=99)
+    ev_g = eval_batches(sds, B, S, TRAIN_EVAL, seed=20_000, device="cuda")
+    rng = np.random.default_rng(30_000)
+    ev_l = []
+    for _ in range(TRAIN_EVAL):
+        outs = [d.sample_task_batch(rng, B, S, TASK_TYPES[c % 4])
+                for c, d in enumerate(cds)]
+        ev_l.append(to_device({k: np.stack([o[k] for o in outs])
+                               for k in outs[0]}, "cuda"))
+
+    log = {}
+    sim_cls = checked_sim(torch, log)
+    real = fedlora.FedSim
+    fedlora.FedSim = sim_cls
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        res = fedlora.run_federated(cfg, hp, cds, sds, ev_g, ev_l, base=params,
+                                    device="cuda")
+    finally:
+        fedlora.FedSim = real
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(read_launches(), {}, cfg.n_layers, 1, "training",
+                   "the training path launches no hand-written kernel")
+    sim = sim_cls.instances[-1]
+    hist = res.history
+    check(all(np.isfinite([h["train_ce"], h["ce"], h["acc"]]).all()
+              for h in hist) and np.isfinite(res.local_acc)
+          and np.isfinite(res.global_acc),
+          "training: every loss and metric finite")
+    tokens_step = C * B * S
+    step_ms = [1e3 * s for s in log["stage1_step"]]
+    warm_ms = float(np.median(step_ms[1:]))     # the first step warms up
+    report.update({
+        "config": dict(TRAIN_HP, layers=cfg.n_layers, d_model=cfg.d_model,
+                       rank=cfg.lora_rank, lora_dropout=cfg.lora_dropout),
+        "wall_s": wall, "peak_bytes": peak,
+        "stage_wall_s": {k: v for k, v in log.items() if k != "rounds"},
+        "stage1_step_ms": step_ms,
+        "stage1_step_cpu_ms": [1e3 * s for s in log["stage1_step_cpu"]],
+        "stage1_step_ms_warm_median": warm_ms,
+        "train_tokens_per_s_warm": tokens_step / (warm_ms / 1e3),
+        "train_ce_by_round": [h["train_ce"] for h in hist],
+        "global_acc_by_round": [h["acc"] for h in hist],
+        "global_acc": res.global_acc, "local_acc": res.local_acc,
+        "per_client_acc": res.per_client, "comm_bytes": res.comm_bytes})
+    print("training: " + json.dumps(report))
+
+    # --- serve the personalized clients through bgmv_mag -----------------
+    server = sim.server_model
+    mag = AdapterStore(params, cfg, n_slots=8, kind="dora_mag", shared=server,
+                       device="cuda")
+    tenants = [f"client{c}" for c in range(C)]
+    for c, t in enumerate(tenants):
+        own = client(sim.client_adapters, c)
+        for p, x in pt.tree_leaves_with_path(own):
+            if not p.endswith("/dB_mag") and not torch.equal(
+                    x, pt.tree_get(server, p)):
+                raise CheckFailed(f"client {c}: {p} differs from the server "
+                                  f"model")
+        mag.register(t, pt.filter_tree(own, lambda p: p.endswith("/dB_mag")))
+    print("ok: each client's model is the stage-2 server model plus its own "
+          "dB_mag (registered as its tenant)")
+    rng = np.random.default_rng(7)
+    reqs = [(tenants[i % C], rng.integers(0, cfg.vocab_size,
+                                          size=int(rng.integers(16, PAD_W + 1))
+                                          ).astype(np.int32))
+            for i in range(8)]
+    torch.cuda.reset_peak_memory_stats()
+    _, st, counts = serve(torch, engine(params, cfg, mag), reqs, "trained",
+                          expect={"bgmv_mag": 2})
+    report["serve"] = engine_report("trained", st, len(reqs),
+                                    torch.cuda.max_memory_allocated())
+    batch, last = admitted_batch(torch, mag, reqs)
+    report["serve"]["prefill_logits"] = logits_checks(
+        torch, "trained", pt.merge_trees(params, mag.overlay()), cfg,
+        prefill_logits(torch, batch, last))
+
+    # --- one stage-1 step under the profiler -------------------------------
+    def one_step():                 # FedSim's own, without the checks
+        real.local_round(sim, sim.last_batches[:1], sim.last_rng)
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    by_name, n_by_name = profiled(one_step, cpu=False)
+    prof_ms = 1e3 * (time.perf_counter() - t0)
+    busy = sum(by_name.values())
+    gemm = sum(v for k, v in by_name.items()
+               if any(w in k for w in ("nvjet", "gemm", "cutlass")))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    report["profile"] = {
+        "step_ms_under_profiler": prof_ms, "device_busy_ms": busy,
+        "gemm_device_ms": gemm, "launches": sum(n_by_name.values()),
+        "busy_share_of_profiled_step": busy / prof_ms,
+        "busy_share_of_warm_step": busy / warm_ms,
+        "top_kernels_ms": {k[:80]: v for k, v in top}}
+    print(f"profile training (one stage-1 step, {C} clients x {B} x {S} "
+          f"tokens): " + json.dumps(report["profile"]))
+    return report, counts["bgmv_mag"]
 
 
 def quant_bytes(tree):
@@ -1795,6 +2135,10 @@ def main():
         t0 = time.perf_counter()
         report["fused"], launches["fused_dora"] = phase_fused_path(torch, ctx)
         print(f"phase 4 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        report["training"], train_launches = phase_training(torch, ctx)
+        launches["bgmv_mag"] += train_launches
+        print(f"phase 7 (training) took {time.perf_counter() - t0:.1f} s")
         del ctx["params"]
         gc.collect()
         torch.cuda.empty_cache()
@@ -1827,7 +2171,9 @@ def main():
                          ("x", "variant", "ms", "plain_ms", "library_ms",
                           "bound_ms", "eager_ms", "bound_ratio",
                           "factor_gbps")},
-             "build": bgmv_build}))
+             "build": bgmv_build,
+             **({"launches_phase7_training_serve": train_launches}
+                if name == "bgmv_mag" else {})}))
     fd = rows["fused_dora"]
     kernels.append(kernel_entry(
         "fused_dora", f"{kdir}/fused_dora/csrc/fused_dora.cu",

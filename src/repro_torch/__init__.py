@@ -10,8 +10,10 @@ kernels build on first use (``kernels/_build.py``).
 Ported so far: the dense decoder and the multi-tenant serving path
 (``AdapterStore`` → ``ServeEngine``) through hand-written Hopper BGMV
 kernels; fused-DoRA generation (``cfg.use_fused_dora``) through the
-``fused_dora`` kernel; and the int8/int4 quantized serving backbone
-(``cfg.backbone_quant``) through the ``quant_matmul`` kernel.  Everything
-else raises ``NotImplementedError`` naming its ROADMAP item.
+``fused_dora`` kernel; the int8/int4 quantized serving backbone
+(``cfg.backbone_quant``) through the ``quant_matmul`` kernel; and the
+paper's training pipeline (``core/fedlora.run_federated`` →
+``fed/simulate.FedSim``, ``optim/``, ``data/``) through torch autograd.
+Everything else raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from repro_torch.device import resolve_device  # noqa: F401

@@ -1,1 +1,2 @@
-"""DoRA decomposition and LoRA adapters."""
+"""DoRA decomposition, LoRA adapters and masks, aggregation, the method
+registry and the paper's pipeline (``fedlora.run_federated``)."""

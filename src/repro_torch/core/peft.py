@@ -4,7 +4,9 @@
 at the same paths the model's ``linear`` consults
 (``.../q_proj/lora_A`` etc.); ``merge_trees(base, adapters)`` gives the
 full forward params.  Raw LoRA and the paper's DoRA-decomposed form are
-ported; the other adapter kinds of the reference zoo are ROADMAP A8.
+ported, with the stage masks that drive ``optim.masked`` through the
+paper's pipeline; the other adapter kinds of the reference zoo, and the
+per-client rank masks of mixed-rank fleets, are ROADMAP A8.
 
 Random draws come from an explicit ``torch.Generator`` and differ from
 the reference's threefry streams, so parity tests carry the JAX
@@ -70,3 +72,33 @@ def add_lora(base: Params, cfg: ArchConfig, generator: torch.Generator, *,
             pt.set_leaf(overlay, f"{prefix}/lora_A", A)
             pt.set_leaf(overlay, f"{prefix}/lora_B", rawB * 1e-3)
     return overlay
+
+
+# ---------------------------------------------------------------------------
+# trainable masks (drive optim.masked and the paper's stage pipeline)
+# ---------------------------------------------------------------------------
+
+def mask_all(adapters: Params) -> Params:
+    return pt.path_mask(adapters, lambda p: True)
+
+
+def mask_stage_local_pretrain(adapters: Params) -> Params:
+    """Stage 1, client LoRA fine-tune: the base components train, the
+    pipeline deltas (dA_dir / dB_mag) stay zero until their stages."""
+    return pt.path_mask(adapters,
+                        lambda p: not re.search(r"d[AB]_(dir|mag)", p))
+
+
+def mask_stage_global(adapters: Params) -> Params:
+    """Stage 2, global optimizer: ΔA_D only (paper Eq. 9)."""
+    return pt.path_mask(adapters, lambda p: p.endswith("dA_dir"))
+
+
+def mask_stage_local(adapters: Params) -> Params:
+    """Stage 3, local optimizer: ΔB_M only (paper Eqs. 10-11)."""
+    return pt.path_mask(adapters, lambda p: p.endswith("dB_mag"))
+
+
+def reg_mask_dB(adapters: Params) -> Params:
+    """The leaves of the Eq. 11 ½λ‖·‖²_F regularizer."""
+    return pt.path_mask(adapters, lambda p: p.endswith("dB_mag"))

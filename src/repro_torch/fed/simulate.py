@@ -1,0 +1,282 @@
+"""Federated PEFT engine (port of ``repro/fed/simulate.py``).
+
+Clients are a leading axis C on every leaf of the adapter overlay; the
+frozen backbone is shared.  The engine is method-agnostic: every method
+is a ``FedMethod`` strategy from ``core/methods.py`` (adapter factory,
+stage masks, aggregate function, loss extras, keep-local regex), and this
+module holds no per-method branch.
+
+A training step runs the clients one after another: each gets its own
+value-and-grad through torch autograd (gradients of every adapter leaf,
+trainable or not, so the clip norm and ``grad_norm`` count the frozen
+ones as the reference's do), then the clip and the masked AdamW update.
+That is what the reference's ``vmap`` computes client by client; the
+client state (adapters and optimizer moments) stays stacked as (C, ...)
+leaves.  Rounds loop over their steps in Python (the reference's
+``lax.scan``), so there is no separate per-step reference loop.
+
+Randomness: adapter dropout draws from the ``torch.Generator`` a stage
+is given (on the engine's device), in order: client by client, layer by
+layer, q then k then v.  The JAX key chain cannot be reproduced, so
+parity with the reference holds at ``lora_dropout = 0``.
+
+Not ported yet: heterogeneous ranks, client weights and the FedProx term
+(ROADMAP A8); cohort rounds, checkpoints and obs spans (ROADMAP A10).
+"""
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import optim
+from repro_torch.core import aggregation as agg
+from repro_torch.core.methods import get_method
+from repro_torch.device import check_on, resolve_device
+from repro_torch.models import model as M
+from repro_torch.models.config import ArchConfig
+from repro_torch.utils import pytree as pt
+
+Params = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class FedHyper:
+    method: str = "fedlora_opt"   # any name in core.methods.available_methods()
+    n_clients: int = 4
+    rounds: int = 10
+    local_steps: int = 5
+    batch: int = 8
+    seq_len: int = 64
+    lr: float = 1e-3
+    server_lr: float = 5e-4
+    global_steps: int = 5          # stage-2 ΔA_D steps per round (pipeline)
+    personal_steps: int = 20       # stage-3 ΔB_M steps
+    lam: float = 1e-3              # Eq. 11 Frobenius regularizer
+    prox_mu: float = 0.0           # FedProx proximal coefficient (A8)
+    pipeline: bool = True          # global→local staging (Fig. 3 ablation)
+    clip: float = 1.0
+    seed: int = 0
+    client_ranks: tuple = None     # heterogeneous fleet (A8)
+    client_weights: tuple = None   # per-client aggregation weights (A8)
+
+    def __post_init__(self):
+        for name in ("client_ranks", "client_weights"):
+            v = getattr(self, name)
+            if v is not None:
+                object.__setattr__(self, name, tuple(v))
+
+
+def client(tree: Params, c: int) -> Params:
+    """Client ``c``'s slice (views) of a client-stacked tree."""
+    return pt.tree_map(lambda x: x[c], tree)
+
+
+def stack_clients(trees: list) -> Params:
+    """(C, ...) leaves from C trees of one structure."""
+    return pt.tree_map_with_path(
+        lambda p, _: torch.stack([pt.tree_get(t, p) for t in trees]),
+        trees[0])
+
+
+class FedSim:
+    """Federated simulation over one ArchConfig + per-client datasets."""
+
+    def __init__(self, cfg: ArchConfig, hp: FedHyper, base=None, *,
+                 device="cuda"):
+        if cfg.use_fused_dora:
+            raise ValueError(
+                "use_fused_dora is forward/serving-only (the kernel defines "
+                "no backward); training through FedSim requires the plain "
+                "adapter path: construct with use_fused_dora=False")
+        if hp.client_ranks is not None or hp.client_weights is not None:
+            raise NotImplementedError("heterogeneous-rank fleets and client "
+                                      "weights are not ported yet (ROADMAP "
+                                      "A8)")
+        if hp.prox_mu:
+            raise NotImplementedError("the FedProx proximal term is not "
+                                      "ported yet (ROADMAP A8)")
+        self.cfg, self.hp = cfg, hp
+        self.device = resolve_device(device)
+        self.method = get_method(hp.method)
+
+        def generator(seed):
+            return torch.Generator(device=self.device).manual_seed(seed)
+        if base is None:
+            base = M.init_params(generator(hp.seed), cfg, device=self.device)
+        check_on(pt.tree_leaves(base)[0], self.device, "base")
+        self.base = base
+        ad = self.method.make_adapter(base, cfg, generator(hp.seed + 1))
+        self.adapter_template = ad
+        self.train_mask = self.method.train_mask(ad)
+        self.global_mask = self.method.stage_global_mask(ad)
+        self.local_mask = self.method.stage_local_mask(ad)
+        self.reg_mask = (self.method.personal_reg(ad)
+                         if self.method.personal_reg else None)
+        self._keep_rx = (re.compile(self.method.keep_local)
+                         if self.method.keep_local else None)
+        self._comm_class = agg.comm_class(self.method)
+
+        self.opt = optim.chain_clip(
+            optim.masked(optim.adamw(hp.lr), self.train_mask), hp.clip)
+        self.opt_global = optim.chain_clip(
+            optim.masked(optim.adamw(hp.server_lr), self.global_mask),
+            hp.clip)
+        self.opt_local = optim.chain_clip(
+            optim.masked(optim.adamw(hp.lr), self.local_mask), hp.clip)
+        self.client_adapters = agg.broadcast_to_clients(ad, hp.n_clients)
+        # stage 1's optimizer state and step counter carry across rounds
+        self.opt_state = self._init_clients(self.opt)
+        self._step = 0
+        self.comm_bytes = 0
+
+    # ------------------------------------------------------------------
+    def _init_clients(self, opt) -> Params:
+        return stack_clients([opt.init(client(self.client_adapters, c))
+                              for c in range(self.hp.n_clients)])
+
+    def _loss(self, adapters, batch, gen, lam):
+        params = pt.merge_trees(self.base, adapters)
+        loss, met = M.loss_and_metrics(params, batch, self.cfg, rng=gen)
+        if lam:
+            reg = sum(torch.sum(torch.square(x))
+                      for p, x in pt.tree_leaves_with_path(adapters)
+                      if pt.tree_get(self.reg_mask, p))
+            loss = loss + 0.5 * lam * reg
+        return loss, met
+
+    def loss_and_grad(self, adapters: Params, batch: dict, gen=None,
+                      lam: float = 0.0):
+        """(loss, metrics, grads) of one adapter tree (no client axis) on
+        one (B, S) batch; ``grads`` has a leaf for every adapter leaf."""
+        leaves = pt.tree_map(lambda x: x.detach().requires_grad_(True),
+                             adapters)
+        with torch.enable_grad():
+            loss, met = self._loss(leaves, batch, gen, lam)
+            flat = pt.tree_leaves(leaves)
+            grads = iter(torch.autograd.grad(loss, flat, allow_unused=True))
+
+        def take(x):                    # same leaf order as tree_leaves
+            gi = next(grads)
+            return torch.zeros_like(x) if gi is None else gi
+        g = pt.tree_map(take, leaves)
+        return loss.detach(), {k: v.detach() for k, v in met.items()}, g
+
+    def _step_one(self, adapters, opt_state, batch, gen, step, opt, lam):
+        _, met, g = self.loss_and_grad(adapters, batch, gen, lam)
+        upd, opt_state = opt.update(g, opt_state, adapters, step)
+        met["grad_norm"] = pt.global_norm(g)
+        return optim.apply_updates(adapters, upd), opt_state, met
+
+    def _clients_step(self, adapters, opt_state, batch, gen, step, opt, lam):
+        """One step of every client, one after another, on a stacked
+        (C, B, S) batch → stacked adapters, state and (C,) metrics."""
+        outs = [self._step_one(client(adapters, c), client(opt_state, c),
+                               client(batch, c), gen, step, opt, lam)
+                for c in range(self.hp.n_clients)]
+        return tuple(stack_clients([o[i] for o in outs]) for i in range(3))
+
+    # ------------------------------------------------------------------
+    def local_round(self, batches: list[dict], rng=None) -> dict:
+        """One round of stage-1 local training.  batches: one stacked
+        (C, B, S) dict per local step; rng: the round's torch.Generator
+        (adapter dropout).  Returns the last step's (C,) metrics."""
+        mets = {}
+        for b in batches:
+            self.client_adapters, self.opt_state, mets = self._clients_step(
+                self.client_adapters, self.opt_state, b, rng, self._step,
+                self.opt, 0.0)
+            self._step += 1
+        return {k: v.cpu().numpy() for k, v in mets.items()}
+
+    def aggregate(self, *, weights=None, staleness=None,
+                  participation=None) -> Params:
+        """Method aggregation (Eqs. 5-8 for ours, FedAvg for the baseline)
+        and comm accounting; broadcasts the aggregate back with the
+        keep-local leaves (dB_mag) kept per client.  Returns the
+        aggregate (no client axis)."""
+        if weights is not None:
+            raise NotImplementedError("client weights are not ported yet "
+                                      "(ROADMAP A8)")
+        if staleness is not None or participation is not None:
+            raise NotImplementedError("cohort rounds are not ported yet "
+                                      "(ROADMAP A10)")
+        C = self.hp.n_clients
+        aggregated = self.method.aggregate(self.client_adapters)
+        self.comm_bytes += C * agg.comm_bytes_per_round(
+            self.adapter_template, exclude_rx=self.method.keep_local,
+            comm=self._comm_class, n_clients=C)
+        self.client_adapters = self._rebroadcast(aggregated)
+        return aggregated
+
+    def _rebroadcast(self, aggregated):
+        return agg.rebroadcast_keep_personal(aggregated, self.client_adapters,
+                                             self._keep_rx)
+
+    def run_round(self, batches: list[dict], rng=None) -> dict:
+        """Stage-1 local training, then the method's aggregation."""
+        mets = self.local_round(batches, rng)
+        self.aggregate()
+        return mets
+
+    def run_cohort_round(self, *args, **kwargs):
+        raise NotImplementedError("cohort rounds are not ported yet "
+                                  "(ROADMAP A10)")
+
+    def global_stage(self, aggregated: Params, server_batches: list[dict],
+                     rng=None) -> Params:
+        """Stage 2: train the global-stage leaves (ΔA_D for the paper,
+        Eq. 9) on the server task mixture, from a fresh optimizer at step
+        0; rebroadcast the result (keep-local leaves stay) and return it."""
+        opt_state = self.opt_global.init(aggregated)
+        for step, b in enumerate(server_batches):
+            aggregated, opt_state, _ = self._step_one(
+                aggregated, opt_state, b, rng, step, self.opt_global, 0.0)
+        self.client_adapters = self._rebroadcast(aggregated)
+        return aggregated
+
+    def personalize(self, batches: list[dict], rng=None) -> None:
+        """Stage 3: per-client fine-tune of the local-stage leaves (ΔB_M
+        with the Eq. 11 regularizer for the paper), from a fresh
+        optimizer at step 0."""
+        lam = self.hp.lam if self.method.personal_reg is not None else 0.0
+        ad, opt_state = self.client_adapters, self._init_clients(
+            self.opt_local)
+        for step, b in enumerate(batches):
+            ad, opt_state, _ = self._clients_step(
+                ad, opt_state, b, rng, step, self.opt_local, lam)
+        self.client_adapters = ad
+
+    def save(self, path: str, round_idx: int = 0) -> None:
+        raise NotImplementedError("FedSim checkpoints are not ported yet "
+                                  "(ROADMAP A10)")
+
+    def load(self, path: str) -> int:
+        raise NotImplementedError("FedSim checkpoints are not ported yet "
+                                  "(ROADMAP A10)")
+
+    # ------------------------------------------------------------------
+    def _metrics(self, adapters, batch) -> dict:
+        with torch.no_grad():
+            _, met = M.loss_and_metrics(pt.merge_trees(self.base, adapters),
+                                        batch, self.cfg)
+        return met
+
+    def eval_global(self, aggregated: Params, batches: list[dict]) -> dict:
+        mets = [self._metrics(aggregated, b) for b in batches]
+        return {"acc": float(np.mean([float(m["acc"]) for m in mets])),
+                "ce": float(np.mean([float(m["ce"]) for m in mets]))}
+
+    def eval_personalized(self, batches_stacked: list[dict]) -> dict:
+        """batches_stacked: list of (C, B, S) dicts, each client evaluated
+        on its own task distribution."""
+        accs = [np.stack([self._metrics(client(self.client_adapters, c),
+                                        client(b, c))["acc"].cpu().numpy()
+                          for c in range(self.hp.n_clients)])
+                for b in batches_stacked]
+        per_client = np.mean(np.stack(accs), axis=0)
+        return {"acc": float(np.mean(per_client)),
+                "per_client": per_client.tolist()}

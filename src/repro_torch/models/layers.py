@@ -75,8 +75,20 @@ def apply_rope(x, positions, theta: float = 1e4):
 # adapter-aware linear
 # ---------------------------------------------------------------------------
 
-def lora_delta(p: Params, x, scale: float):
-    """Low-rank adapter contribution for input x (..., d_in)."""
+def adapter_dropout(x, generator, p: float):
+    """Inverted dropout on the adapter's input: keep each element with
+    probability 1 − p (a fresh draw from ``generator``, which lives on
+    x's device) and divide the kept ones by 1 − p."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1 - p
+    return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
+
+
+def lora_delta(p: Params, x, scale: float, dropout_gen=None,
+               dropout: float = 0.0):
+    """Low-rank adapter contribution for input x (..., d_in), with adapter
+    dropout at rate ``dropout`` when ``dropout_gen`` is given."""
+    if dropout_gen is not None and dropout > 0.0:
+        x = adapter_dropout(x, dropout_gen, dropout)
     if "local_A" in p:
         raise NotImplementedError("FedALT dual adapters are not ported yet "
                                   "(ROADMAP A8)")
@@ -112,10 +124,12 @@ def _has_pooled(p: Params) -> bool:
     return "pool_A" in p or "pool_dB_mag" in p
 
 
-def linear(p: Params, x, *, lora_scale: float = 0.0, fused: bool = False,
-           adapter_idx=None, kernel_impl=None):
+def linear(p: Params, x, *, lora_scale: float = 0.0, dropout_gen=None,
+           dropout: float = 0.0, fused: bool = False, adapter_idx=None,
+           kernel_impl=None):
     if (fused and "A_dir" in p and lora_scale
             and (adapter_idx is None or not _has_pooled(p))
+            and (dropout_gen is None or dropout == 0.0)
             and "bias" not in p and "kernel" in p
             and p["kernel"].dim() == 2):
         # fused base + adapter product (forward only).  Pooled per-row
@@ -139,7 +153,7 @@ def linear(p: Params, x, *, lora_scale: float = 0.0, fused: bool = False,
     if adapter_idx is not None and lora_scale and _has_pooled(p):
         y = y + lora_delta_batched(p, x, adapter_idx, lora_scale, kernel_impl)
     elif ("lora_A" in p or "A_dir" in p) and lora_scale:
-        y = y + lora_delta(p, x, lora_scale)
+        y = y + lora_delta(p, x, lora_scale, dropout_gen, dropout)
     return y
 
 
@@ -182,10 +196,15 @@ def _target_scale(cfg, proj: str, lora_scale: float) -> float:
 
 def attention(p: Params, x, positions, cfg, *, kind: str = "global",
               cache=None, cache_index=None,
-              lora_scale: float = 0.0, return_cache: bool = False,
-              cache_len: int = 0, adapter_idx=None, kernel_impl=None):
+              lora_scale: float = 0.0, dropout_gen=None,
+              return_cache: bool = False, cache_len: int = 0,
+              adapter_idx=None, kernel_impl=None):
     """Causal self-attention sublayer (pre-norm outside).  Returns
     (y, new_cache).
+
+    dropout_gen: torch.Generator for adapter dropout (training) on the
+    q/k/v adapters, at cfg.lora_dropout; each projection takes its own
+    draw from it.
 
     cache: dict(k=(B,Sc,K,dh), v=...) — decode buffer.  The port writes
     the new token's k/v into it IN PLACE (the reference returns a
@@ -206,12 +225,16 @@ def attention(p: Params, x, positions, cfg, *, kind: str = "global",
     scale = 1.0 / math.sqrt(dh)
     kw = dict(fused=cfg.use_fused_dora, adapter_idx=adapter_idx,
               kernel_impl=kernel_impl)
+    drop = dict(dropout_gen=dropout_gen, dropout=cfg.lora_dropout)
     q = linear(p["q_proj"], x, lora_scale=_target_scale(cfg, "q_proj",
-                                                        lora_scale), **kw)
+                                                        lora_scale),
+               **drop, **kw)
     k = linear(p["k_proj"], x, lora_scale=_target_scale(cfg, "k_proj",
-                                                        lora_scale), **kw)
+                                                        lora_scale),
+               **drop, **kw)
     v = linear(p["v_proj"], x, lora_scale=_target_scale(cfg, "v_proj",
-                                                        lora_scale), **kw)
+                                                        lora_scale),
+               **drop, **kw)
     q = q.reshape(B, S, H, dh)
     k = k.reshape(B, S, Kh, dh)
     v = v.reshape(B, S, Kh, dh)

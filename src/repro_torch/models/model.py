@@ -7,6 +7,7 @@ the reference's ``lax.scan`` over superblocks is a Python loop over
 Entry points:
   init_params(generator, cfg, device=)      → param tree (no adapters)
   forward(params, batch, cfg, ...)          → (hidden, cache, aux)
+  loss_and_metrics(params, batch, cfg, ...) → (loss, metrics), training
   prefill(...) / decode_step(...)           → serving path with caches
   init_cache(cfg, batch, seq_len, device=)  → per-layer cache tree
 """
@@ -16,6 +17,7 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -112,14 +114,16 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, *,
 # ---------------------------------------------------------------------------
 
 def _apply_sublayer(p, x, sub: SubLayer, cfg, *, positions, cache=None,
-                    cache_index=None, lora_scale=0.0, return_cache=False,
-                    cache_len=0, adapter_idx=None, kernel_impl=None):
+                    cache_index=None, lora_scale=0.0, dropout_gen=None,
+                    return_cache=False, cache_len=0, adapter_idx=None,
+                    kernel_impl=None):
     new_cache = {}
     h = L.rms_norm(x, p["input_norm"], cfg.norm_eps)
     acache = cache.get("attn") if cache else None
     y, nc = L.attention(p["attn"], h, positions, cfg, kind=sub.attn_kind,
                         cache=acache, cache_index=cache_index,
-                        lora_scale=lora_scale, return_cache=return_cache,
+                        lora_scale=lora_scale, dropout_gen=dropout_gen,
+                        return_cache=return_cache,
                         cache_len=cache_len, adapter_idx=adapter_idx,
                         kernel_impl=kernel_impl)
     if nc is not None:
@@ -145,15 +149,16 @@ def _superblock(x, p_sb, cache_sb, pattern, cfg, **kw):
 
 
 def _run_blocks(blocks, x, pattern, cfg, *, positions, cache=None,
-                cache_index=None, return_cache=False, cache_len=0,
-                adapter_idx=None, kernel_impl=None):
+                cache_index=None, dropout_gen=None, return_cache=False,
+                cache_len=0, adapter_idx=None, kernel_impl=None):
     """Loop over the stacked superblocks (the dense pattern has one
     sublayer, so there is no tail; caches keep an empty ``tail`` for the
     reference's layout).  A decode cache is updated in place and
     returned; a prefill cache (return_cache) is stacked back to the
     (n_sb, ...) layout."""
     kw = dict(positions=positions, cache_index=cache_index,
-              return_cache=return_cache, cache_len=cache_len,
+              dropout_gen=dropout_gen, return_cache=return_cache,
+              cache_len=cache_len,
               adapter_idx=adapter_idx, kernel_impl=kernel_impl)
     leaves = pt.tree_leaves(blocks)
     n_sb = leaves[0].shape[0] if leaves else 0
@@ -176,12 +181,12 @@ def _run_blocks(blocks, x, pattern, cfg, *, positions, cache=None,
 
 def forward(params, batch, cfg: ArchConfig, *, rng=None,
             return_cache=False, cache_len=0, kernel_impl=None):
-    """Prefill forward → (hidden (B,S,D), cache, aux).  ``batch`` holds
-    ``tokens`` (B, S) and optionally ``positions`` and ``adapter_idx``."""
+    """Training / prefill forward → (hidden (B,S,D), cache, aux).
+    ``batch`` holds ``tokens`` (B, S) and optionally ``positions`` and
+    ``adapter_idx``.  ``rng``: a torch.Generator on the params' device
+    for adapter dropout at cfg.lora_dropout (training); its draws run on
+    through the layers, so each projection's mask is its own."""
     check_supported(cfg)
-    if rng is not None:
-        raise NotImplementedError("adapter dropout (training) is not ported "
-                                  "yet (ROADMAP A4-A6)")
     if "prompt_embed" in params:
         raise NotImplementedError("prompt tuning is not ported yet "
                                   "(ROADMAP A8)")
@@ -193,8 +198,9 @@ def forward(params, batch, cfg: ArchConfig, *, rng=None,
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
     x, cache = _run_blocks(
         params["blocks"], x, cfg.pattern(), cfg,
-        positions=positions, return_cache=return_cache, cache_len=cache_len,
-        adapter_idx=batch.get("adapter_idx"), kernel_impl=kernel_impl)
+        positions=positions, dropout_gen=rng, return_cache=return_cache,
+        cache_len=cache_len, adapter_idx=batch.get("adapter_idx"),
+        kernel_impl=kernel_impl)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, cache, torch.zeros((), device=x.device)
 
@@ -203,6 +209,55 @@ def _head_kernel(params, cfg):
     if cfg.tie_embeddings or "lm_head" not in params:
         return params["embed"]["embedding"].T
     return params["lm_head"]["kernel"]
+
+
+def _ce_chunk(kern, hb, tb, mb):
+    """Summed CE, correct answers and answer positions of one sequence
+    chunk; run under ``checkpoint``, so its (B, Sc, V) logits are
+    recomputed in the backward pass instead of kept."""
+    logits = hb @ kern.to(hb.dtype)
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    tgt = torch.gather(logits, -1, tb[..., None])[..., 0].float()
+    loss = torch.sum((lse - tgt) * mb)
+    # accuracy counts only full-weight (answer) positions; fractional
+    # mask weights are auxiliary LM signal
+    amb = (mb >= 0.999).float()
+    correct = torch.sum((argmax_first(logits) == tb) * amb)
+    return loss, correct, torch.sum(amb)
+
+
+def loss_and_metrics(params, batch, cfg: ArchConfig, *, rng=None,
+                     n_loss_chunks: int = 0, aux_weight=0.01):
+    """Masked next-token CE → (loss, {ce, acc, aux, n_tok}), 0-d tensors.
+
+    The CE over the vocabulary runs in sequence chunks, each under
+    ``torch.utils.checkpoint``, so no (B, S, V) logits are kept for the
+    backward pass.  ``acc`` counts positions where loss_mask ≥ 0.999,
+    argmax ties going to the first index; ``task_id`` is ignored."""
+    hidden, _, aux = forward(params, batch, cfg, rng=rng)
+    tokens, mask = batch["tokens"].to(torch.int64), batch["loss_mask"]
+    B, Stot, D = hidden.shape
+    targets, h, m = tokens[:, 1:], hidden[:, :-1], mask[:, :-1]
+    Sl = Stot - 1
+    kern = _head_kernel(params, cfg)
+    V = kern.shape[-1]
+    if n_loss_chunks <= 0:
+        n_loss_chunks = max(1, min(32, (B * Sl * V) // (1 << 26)))
+    while Sl % n_loss_chunks:
+        n_loss_chunks -= 1
+    Sc = Sl // n_loss_chunks
+    tot_loss = tot_correct = tot_ans = 0.0
+    for i in range(n_loss_chunks):
+        sl = slice(i * Sc, (i + 1) * Sc)
+        l_c, a_c, n_c = checkpoint(_ce_chunk, kern, h[:, sl], targets[:, sl],
+                                   m[:, sl], use_reentrant=False)
+        tot_loss, tot_correct, tot_ans = (tot_loss + l_c, tot_correct + a_c,
+                                          tot_ans + n_c)
+    denom = torch.clamp(torch.sum(m), min=1.0)
+    ce = tot_loss / denom
+    return ce + aux_weight * aux, {
+        "ce": ce, "acc": tot_correct / torch.clamp(tot_ans, min=1.0),
+        "aux": aux, "n_tok": denom}
 
 
 def argmax_first(logits):

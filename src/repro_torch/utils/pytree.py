@@ -9,6 +9,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, Mapping
 
+import torch
+
 Tree = Any
 
 
@@ -33,6 +35,36 @@ def tree_map_with_path(fn: Callable[[str, Any], Any], tree: Tree) -> Tree:
 
 def tree_map(fn: Callable[[Any], Any], tree: Tree) -> Tree:
     return tree_map_with_path(lambda _, x: fn(x), tree)
+
+
+def tree_map2(fn: Callable[[Any, Any], Any], a: Tree, b: Tree) -> Tree:
+    """Map ``fn(x, y)`` over two trees of one structure (``a``'s)."""
+    return tree_map_with_path(lambda p, x: fn(x, tree_get(b, p)), a)
+
+
+def path_mask(tree: Tree, predicate: Callable[[str], bool]) -> Tree:
+    """Boolean mask tree: True where ``predicate(path)``."""
+    return tree_map_with_path(lambda p, _: bool(predicate(p)), tree)
+
+
+def tree_zeros_like(tree: Tree) -> Tree:
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_sub(a: Tree, b: Tree) -> Tree:
+    return tree_map2(torch.sub, a, b)
+
+
+def tree_dot(a: Tree, b: Tree):
+    """Σ over leaves of the flattened dot product, a 0-d tensor."""
+    return sum(torch.vdot(x.reshape(-1), tree_get(b, p).reshape(-1))
+               for p, x in _leaves_with_path(a))
+
+
+def global_norm(tree: Tree):
+    """sqrt(Σ x²) over every leaf, a 0-d tensor (no host sync)."""
+    return torch.sqrt(sum(torch.sum(torch.square(x))
+                          for x in tree_leaves(tree)))
 
 
 def tree_leaves_with_path(tree: Tree) -> list[tuple[str, Any]]:
