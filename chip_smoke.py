@@ -104,6 +104,35 @@ Phase 7  training, run between phases 4 and 5 on phase 3's backbone:
          under torch.profiler (device busy share, top kernels), each
          round's train CE and the accuracies (printed only: the weights
          are random), the comm bytes and the serving tokens/s.
+Phase 8  the baselines, run after phase 7 on phase 3's backbone: first the
+         card-vs-CPU gradient check of phase 7 on one method of each new
+         adapter kind (fedalt's dual pair, adapter's Houlsby bottleneck,
+         prompt tuning; the zero-initialized factor drawn nonzero); then
+         run_federated for each of the nine uniform-rank methods of the
+         registry (ffa_lora, fedprox, prompt, adapter, fedalt,
+         lora_trimmed, lora_fedbuff, lora_fedavg_q8, lora_fedavg_topk: 4
+         specialist dolly clients, 1 round of 2 steps of 4 x 128 tokens,
+         1 personalization step, prox_mu 0.1) through phase 7's checking
+         FedSim (each stage changes exactly the leaves its mask trains,
+         so ffa_lora no lora_A and prompt / adapter only their own
+         leaves; each rebroadcast as phase 7's, fedalt's on a probe copy
+         too), with each method's own checks: fedalt's aggregate holds
+         exact zeros in local_A / local_B; lora_fedavg_topk uplinks
+         exactly ⌈0.05·n⌉ nonzeros a leaf a client; lora_fedavg_q8's
+         aggregate is within one quantization step of the plain mean;
+         lora_trimmed's equals numpy's trimmed mean within 1e-6;
+         fedprox's loss is the loss without the term plus ½µ‖θ − θ_ref‖²
+         within 1e-5; comm bytes equal the formula of the method's comm
+         class; no hand-written kernel launched; every loss and metric
+         finite.  sensitivity_report (Fig. 1) of lora_fedbuff's clients
+         against their aggregate is printed.  Then the global models of
+         ffa_lora, fedprox, lora_trimmed, lora_fedbuff, lora_fedavg_q8,
+         lora_fedavg_topk and fedalt (its shared pair) serve 8 requests
+         as pairs tenants with the null tenant: bgmv 2 x 32 x (prefills
+         + decode steps) launches, the prefill logits held as phase 3's.
+         Prints each method's stage walls, stage-1 steps' wall and CPU
+         ms, train CE, comm bytes and peak memory, and the serving
+         tokens/s.  Each sim is freed before the next.
 Every run starts with every launch count at 0.  Each path's prefill
 logits, kernels against plain versions, relative to max |logit|: bf16
 weights through the first CHECK_DEPTH layers within 2e-2, f32 weights
@@ -143,6 +172,7 @@ any check fails.  Imports nothing of JAX.
 import dataclasses
 import gc
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -1574,11 +1604,14 @@ TRAIN_EVAL = 2          # eval batches: global, and per client on its task
 GRAD_TOL = 1e-4         # card vs CPU, relative to each leaf's max |g|
 
 
-def grad_check(torch, cfg, params):
-    """One stage-1 step's loss and gradients of every adapter leaf on the
-    card against the CPU's: the first CHECK_DEPTH layers of the backbone
-    cast to f32, one client, 1 x 64 tokens of the dolly data, dropout 0,
-    a nonzero B_mag (so every leaf has a gradient), TF32 off."""
+def grad_check(torch, cfg, params, method="fedlora_opt", nonzero="/B_mag",
+               scale=0.5):
+    """One stage-1 step's loss and gradients of every adapter leaf of
+    ``method`` on the card against the CPU's: the first CHECK_DEPTH
+    layers of the backbone cast to f32, one client, 1 x 64 tokens of the
+    dolly data, dropout 0, the zero-initialized leaves ending in
+    ``nonzero`` drawn N(0, scale²) (so every leaf has a gradient), TF32
+    off."""
     from repro_torch.data import (SyntheticInstructionDataset, to_device,
                                   make_dataset_family, specialist_partition)
     from repro_torch.fed.simulate import FedHyper, FedSim
@@ -1591,14 +1624,15 @@ def grad_check(torch, cfg, params):
     fam = make_dataset_family("dolly", vocab_size=cfg.vocab_size)
     ds = SyntheticInstructionDataset(fam, specialist_partition(1, 4)[0])
     batch = ds.sample_batch(np.random.default_rng(1), 1, 64)
-    hp = FedHyper(method="fedlora_opt", n_clients=1)
+    hp = FedHyper(method=method, n_clients=1)
     sims = {dev: FedSim(cfg2, hp, base=pt.tree_map(lambda t: t.to(dev), base),
                         device=dev) for dev in ("cuda", "cpu")}
     del base
     g = torch.Generator(device="cuda").manual_seed(2)
     ad = pt.tree_map_with_path(
-        lambda p, x: (0.5 * torch.randn(x.shape, generator=g, device="cuda")
-                      if p.endswith("/B_mag") else x),
+        lambda p, x: (scale * torch.randn(x.shape, generator=g,
+                                          device="cuda")
+                      if nonzero and p.endswith(nonzero) else x),
         sims["cuda"].adapter_template)
     out = {dev: sim.loss_and_grad(pt.tree_map(lambda t: t.to(dev), ad),
                                   to_device(batch, dev))
@@ -1611,27 +1645,71 @@ def grad_check(torch, cfg, params):
               f"gradient")
         errs[p] = float((got - want).abs().max() / want.abs().max())
     worst = max(errs, key=errs.get)
-    check(errs[worst] <= GRAD_TOL, f"grad check, {CHECK_DEPTH} layers f32, "
-          f"1 x 64 tokens: loss and {len(errs) - 1} adapter gradients on the "
-          f"card within {GRAD_TOL} of the CPU's (worst {worst}: "
-          f"{errs[worst]:.3e})")
+    check(errs[worst] <= GRAD_TOL, f"grad check {method}, {CHECK_DEPTH} "
+          f"layers f32, 1 x 64 tokens: loss and {len(errs) - 1} adapter "
+          f"gradients on the card within {GRAD_TOL} of the CPU's (worst "
+          f"{worst}: {errs[worst]:.3e})")
     return {"loss": float(l_gpu), "worst": worst, "worst_err": errs[worst],
             "loss_err": errs["loss"], "leaves": len(errs) - 1}
 
 
-def checked_sim(torch, log):
-    """FedSim with the stage checks of phase 7 around each stage (bit for
-    bit, on the client-stacked leaves) and its wall time, host clock
-    around work that ends in a sync (stage 1 timed step by step, with the
-    process's CPU time beside each step's wall time)."""
+# What each method's adapter holds, what each stage trains and what the
+# rebroadcast keeps per client, written out here from the paper and the
+# baselines' papers rather than read from the program, so that a wrong
+# mask or regex in the port fails the stage checks: regexes over the
+# adapter's leaf paths.  "leaves": every leaf of the adapter matches it;
+# "stage1" / "stage2" / "stage3": the leaves local training, the
+# server's global stage and the personalization step train (no
+# "stage2": the method has no global stage); "keep": the leaves kept
+# per client through every rebroadcast; "zero": the leaves the
+# aggregate holds at exactly 0; "zero_in_stage1": the leaves still
+# exactly 0 after every stage-1 round.
+_LORA = {"leaves": r"/lora_[AB]$", "stage1": ".", "stage3": "."}
+EXPECT = {
+    "fedlora_opt": {"leaves": r"/(A_mag|A_dir|B_dir|B_mag|dA_dir|dB_mag)$",
+                    "stage1": r"/(A_mag|A_dir|B_dir|B_mag)$",
+                    "stage2": r"/dA_dir$", "stage3": r"/dB_mag$",
+                    "keep": r"/dB_mag$", "zero_in_stage1": r"/dB_mag$"},
+    "lora": _LORA, "fedprox": _LORA, "lora_trimmed": _LORA,
+    "lora_fedbuff": _LORA, "lora_fedavg_q8": _LORA,
+    "lora_fedavg_topk": _LORA,
+    "ffa_lora": dict(_LORA, stage1=r"/lora_B$", stage3=r"/lora_B$"),
+    "prompt": {"leaves": r"^prompt_embed$", "stage1": ".", "stage3": "."},
+    "adapter": {"leaves": r"/mlp/adapter_(down|up)$", "stage1": ".",
+                "stage3": "."},
+    "fedalt": {"leaves": r"/(lora|local)_[AB]$", "stage1": ".",
+               "stage3": ".", "keep": r"/local_[AB]$",
+               "zero": r"/local_[AB]$"},
+}
+
+
+def select(tree, rx):
+    """The leaf paths of ``tree`` that regex ``rx`` matches (none for
+    None)."""
+    from repro_torch.utils import pytree as pt
+    return [p for p, _ in pt.tree_leaves_with_path(tree)
+            if rx is not None and re.search(rx, p)]
+
+
+def checked_sim(torch, log, hooks=None):
+    """FedSim with the stage checks of phases 7 and 8 around each stage
+    (bit for bit, on the client-stacked leaves), held to the method's
+    ``EXPECT`` entry: at construction, the adapter's leaves, each
+    stage's mask, the keep-local and the zeroed leaves the port's method
+    declares; after each stage, the leaves it changed (those it trains
+    and nothing else); after each rebroadcast, every shared leaf equal
+    across clients and each client keeping its own keep-local leaves
+    (also on a copy of the clients whose keep-local leaves are nonzero);
+    and each stage's wall time, host clock around work that ends in a
+    sync (stage 1 timed step by step, with the process's CPU time beside
+    each step's wall time).  ``hooks``: {"round": fn(sim, batches),
+    "aggregate": fn(sim, clients, aggregated)}, a method's own checks
+    after stage 1 and after the aggregation (the client adapters it was
+    given, cloned)."""
+    from repro_torch.core import aggregation as agg
     from repro_torch.fed.simulate import FedSim
     from repro_torch.utils import pytree as pt
-
-    def is_delta(p):
-        return p.endswith(("/dA_dir", "/dB_mag"))
-
-    def is_personal(p):
-        return p.endswith("/dB_mag")
+    hooks = hooks or {}
 
     def snap(tree):
         return pt.tree_map(lambda t: t.clone(), tree)
@@ -1645,31 +1723,66 @@ def checked_sim(torch, log):
         log.setdefault(name + "_cpu", []).append(time.process_time() - c0)
         return out
 
-    def check_rebroadcast(tree, aggregated, personal_before, what):
-        for p, x in pt.tree_leaves_with_path(tree):
-            if is_personal(p):
-                if not torch.equal(x, pt.tree_get(personal_before, p)):
-                    raise CheckFailed(f"{what}: {p} not kept per client")
-            elif not all(torch.equal(x[c], pt.tree_get(aggregated, p))
-                         for c in range(x.shape[0])):
-                raise CheckFailed(f"{what}: shared leaf {p} differs across "
-                                  f"clients")
-        print(f"ok: {what}: every shared leaf equal across clients, every "
-              f"dB_mag kept per client")
-
-    def check_changed(before, after, trains, what):
-        changed = [p for p, x in pt.tree_leaves_with_path(after)
-                   if not torch.equal(x, pt.tree_get(before, p))]
-        want = [p for p, _ in pt.tree_leaves_with_path(after) if trains(p)]
-        check(changed == want, f"{what}: the {len(want)} leaves it trains "
-              f"changed and nothing else ({len(changed)} changed)")
-
     class CheckedSim(FedSim):
         instances = []
 
         def __init__(self, *a, **k):
             super().__init__(*a, **k)
             CheckedSim.instances.append(self)
+            self.expect = EXPECT[self.hp.method]
+            self.check_declared()
+
+        def want(self, key):
+            return select(self.adapter_template, self.expect.get(key))
+
+        def named(self, key):
+            rx = self.expect.get(key)
+            return {None: "no", ".": "every"}.get(rx, f"the {rx}")
+
+        def check_declared(self):
+            """The port's method against the written-out expectation."""
+            name, ex, tmpl = self.hp.method, self.expect, self.adapter_template
+            leaves = select(tmpl, ".")
+            check(leaves and self.want("leaves") == leaves,
+                  f"{name}: the adapter's {len(leaves)} leaves all match "
+                  f"{ex['leaves']}")
+            for stage, mask in (("stage1", self.train_mask),
+                                ("stage2", self.global_mask),
+                                ("stage3", self.local_mask)):
+                if stage not in ex:
+                    continue
+                got = [p for p, m in pt.tree_leaves_with_path(mask) if m]
+                check(got == self.want(stage), f"{name}: the {stage} mask "
+                      f"trains exactly {self.named(stage)} leaves "
+                      f"({len(got)})")
+            check(select(tmpl, self.method.keep_local) == self.want("keep"),
+                  f"{name}: keep-local holds {self.named('keep')} leaves")
+            check(select(tmpl, agg.aggregate_zero_rx(self.method))
+                  == self.want("zero"),
+                  f"{name}: the aggregate zeroes {self.named('zero')} leaves")
+
+        def check_changed(self, before, after, stage, what):
+            changed = [p for p, x in pt.tree_leaves_with_path(after)
+                       if not torch.equal(x, pt.tree_get(before, p))]
+            want = self.want(stage)
+            check(changed == want, f"{self.hp.method} {what}: the "
+                  f"{len(want)} leaves it trains ({self.named(stage)} "
+                  f"leaf) changed and nothing else ({len(changed)} changed)")
+
+        def check_rebroadcast(self, tree, aggregated, personal_before, what):
+            what = f"{self.hp.method} {what}"
+            keep = set(self.want("keep"))
+            for p, x in pt.tree_leaves_with_path(tree):
+                if p in keep:
+                    if not torch.equal(x, pt.tree_get(personal_before, p)):
+                        raise CheckFailed(f"{what}: {p} not kept per client")
+                elif not all(torch.equal(x[c], pt.tree_get(aggregated, p))
+                             for c in range(x.shape[0])):
+                    raise CheckFailed(f"{what}: shared leaf {p} differs "
+                                      f"across clients")
+            print(f"ok: {what}: every shared leaf equal across clients"
+                  + (f", every {self.expect['keep']} leaf kept per client"
+                     if keep else ""))
 
         def local_round(self, batches, rng=None):
             before = snap(self.client_adapters)
@@ -1680,51 +1793,68 @@ def checked_sim(torch, log):
             log["rounds"] = log.get("rounds", 0) + 1
             what = f"stage 1 round {log['rounds']}"
             check(all(np.isfinite(v).all() for v in mets.values()),
-                  f"{what}: metrics finite")
-            # dA_dir is 0 until the first stage 2 and then the server's;
-            # dB_mag is 0 until stage 3
-            check_changed(before, self.client_adapters,
-                          lambda p: not is_delta(p), what)
-            nz = [p for p, x in pt.tree_leaves_with_path(self.client_adapters)
-                  if is_personal(p) and torch.count_nonzero(x)]
-            check(not nz, f"{what}: every dB_mag still exactly 0")
+                  f"{self.hp.method} {what}: metrics finite")
+            self.check_changed(before, self.client_adapters, "stage1", what)
+            # fedlora_opt: dA_dir is 0 until the first stage 2 and then
+            # the server's; dB_mag is 0 until stage 3
+            if "zero_in_stage1" in self.expect:
+                nz = [p for p in self.want("zero_in_stage1") if torch
+                      .count_nonzero(pt.tree_get(self.client_adapters, p))]
+                check(not nz, f"{self.hp.method} {what}: every "
+                      f"{self.expect['zero_in_stage1']} leaf still exactly 0")
+            if "round" in hooks:
+                hooks["round"](self, batches)
             return mets
 
         def probe_rebroadcast(self, aggregated, what):
-            """The rebroadcast on a copy of the clients whose dB_mag is
-            nonzero and differs by client (the real one is 0 until stage
-            3, where a rebroadcast that overwrote it would not show)."""
+            """The rebroadcast on a copy of the clients whose keep-local
+            leaves are nonzero and differ by client (fedlora_opt's dB_mag
+            is 0 until stage 3, where a rebroadcast that overwrote it
+            would not show)."""
+            keep = set(self.want("keep"))
+            if not keep:
+                return
             g = torch.Generator(device=self.device).manual_seed(3)
             probe = pt.tree_map_with_path(
                 lambda p, x: (torch.randn(x.shape, generator=g,
                                           device=x.device, dtype=x.dtype)
-                              if is_personal(p) else x),
+                              if p in keep else x),
                 self.client_adapters)
             real, self.client_adapters = self.client_adapters, probe
             try:
                 out = self._rebroadcast(aggregated)
             finally:
                 self.client_adapters = real
-            check_rebroadcast(out, aggregated, probe,
-                              f"{what} (probe, nonzero dB_mag)")
+            self.check_rebroadcast(out, aggregated, probe,
+                                   f"{what} (probe, nonzero keep-local)")
 
         def aggregate(self, **kw):
-            personal = snap(self.client_adapters)
+            clients = snap(self.client_adapters)
             out = timed("aggregate", lambda: super(CheckedSim, self)
                         .aggregate(**kw))
-            check_rebroadcast(self.client_adapters, out, personal,
-                              "aggregate")
+            if "zero" in self.expect:
+                zero = self.want("zero")
+                check(zero and all(not torch.count_nonzero(pt.tree_get(out, p))
+                                   for p in zero),
+                      f"{self.hp.method}: the aggregate's {len(zero)} "
+                      f"{self.expect['zero']} leaves exactly 0")
+            self.check_rebroadcast(self.client_adapters, out, clients,
+                                   "aggregate")
             self.probe_rebroadcast(out, "aggregate")
+            self.aggregated = out
+            if "aggregate" in hooks:
+                hooks["aggregate"](self, clients, out)
             return out
 
         def global_stage(self, aggregated, server_batches, rng=None):
+            check("stage2" in self.expect, f"{self.hp.method}: a global "
+                  f"stage runs only in the staged pipeline")
             before, personal = snap(aggregated), snap(self.client_adapters)
             out = timed("stage2", lambda: super(CheckedSim, self)
                         .global_stage(aggregated, server_batches, rng))
-            check_changed(before, out, lambda p: p.endswith("/dA_dir"),
-                          "stage 2")
-            check_rebroadcast(self.client_adapters, out, personal,
-                              "stage 2 rebroadcast")
+            self.check_changed(before, out, "stage2", "stage 2")
+            self.check_rebroadcast(self.client_adapters, out, personal,
+                                   "stage 2 rebroadcast")
             self.probe_rebroadcast(out, "stage 2 rebroadcast")
             self.server_model = out
             return out
@@ -1733,8 +1863,8 @@ def checked_sim(torch, log):
             before = snap(self.client_adapters)
             timed("stage3", lambda: super(CheckedSim, self)
                   .personalize(batches, rng))
-            check_changed(before, self.client_adapters, is_personal,
-                          "stage 3")
+            self.check_changed(before, self.client_adapters, "stage3",
+                               "stage 3")
 
         def eval_global(self, aggregated, batches):
             return timed("eval", lambda: super(CheckedSim, self)
@@ -1747,26 +1877,13 @@ def checked_sim(torch, log):
     return CheckedSim
 
 
-def phase_training(torch, ctx):
-    """Phase 7: the paper's pipeline (fedlora_opt stages 1-3) through
-    ``run_federated`` at llama2-7b full width on phase 3's backbone, its
-    stage checks, the card-vs-CPU gradient check, and the personalized
-    clients served as dora_mag tenants through ``bgmv_mag``."""
-    from repro_torch.core import fedlora
+def fed_data(cfg, C, B, S):
+    """Phases 7 and 8's data: C specialist clients on the dolly tasks,
+    the server's task mix, TRAIN_EVAL global eval batches and as many
+    stacked per-client batches of each client's own task, on the card."""
     from repro_torch.data import (TASK_TYPES, SyntheticInstructionDataset,
                                   eval_batches, make_dataset_family,
                                   specialist_partition, to_device)
-    from repro_torch.fed.simulate import FedHyper, client
-    from repro_torch.serve import AdapterStore
-    from repro_torch.utils import pytree as pt
-
-    cfg, params = ctx["cfg"], ctx["params"]
-    report = {"grad_check": grad_check(torch, cfg, params)}
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    hp = FedHyper(**TRAIN_HP)
-    C, B, S = hp.n_clients, hp.batch, hp.seq_len
     fam = make_dataset_family("dolly", vocab_size=cfg.vocab_size)
     part = specialist_partition(C, 4)
     cds = [SyntheticInstructionDataset(fam, part[c], client_seed=c)
@@ -1780,9 +1897,18 @@ def phase_training(torch, ctx):
                 for c, d in enumerate(cds)]
         ev_l.append(to_device({k: np.stack([o[k] for o in outs])
                                for k in outs[0]}, "cuda"))
+    return cds, sds, ev_g, ev_l
 
+
+def run_checked(torch, cfg, params, hp, data, hooks=None):
+    """``run_federated`` on the card through a checking FedSim swapped
+    into ``core.fedlora`` for the call, with every launch count at 0
+    before it and the peak memory reset; the training path must launch
+    no hand-written kernel.  Returns (result, sim, stage log, wall s,
+    peak bytes)."""
+    from repro_torch.core import fedlora
     log = {}
-    sim_cls = checked_sim(torch, log)
+    sim_cls = checked_sim(torch, log, hooks)
     real = fedlora.FedSim
     fedlora.FedSim = sim_cls
     torch.cuda.synchronize()
@@ -1790,20 +1916,43 @@ def phase_training(torch, ctx):
     reset_launches()
     t0 = time.perf_counter()
     try:
-        res = fedlora.run_federated(cfg, hp, cds, sds, ev_g, ev_l, base=params,
+        res = fedlora.run_federated(cfg, hp, *data, base=params,
                                     device="cuda")
     finally:
         fedlora.FedSim = real
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    check_launches(read_launches(), {}, cfg.n_layers, 1, "training",
+    check_launches(read_launches(), {}, cfg.n_layers, 1,
+                   f"training {hp.method}",
                    "the training path launches no hand-written kernel")
-    sim = sim_cls.instances[-1]
     hist = res.history
     check(all(np.isfinite([h["train_ce"], h["ce"], h["acc"]]).all()
               for h in hist) and np.isfinite(res.local_acc)
           and np.isfinite(res.global_acc),
-          "training: every loss and metric finite")
+          f"training {hp.method}: every loss and metric finite")
+    return res, sim_cls.instances[-1], log, wall, peak
+
+
+def phase_training(torch, ctx):
+    """Phase 7: the paper's pipeline (fedlora_opt stages 1-3) through
+    ``run_federated`` at llama2-7b full width on phase 3's backbone, its
+    stage checks, the card-vs-CPU gradient check, and the personalized
+    clients served as dora_mag tenants through ``bgmv_mag``."""
+    from repro_torch.fed.simulate import FedHyper, FedSim, client
+    from repro_torch.serve import AdapterStore
+    from repro_torch.utils import pytree as pt
+
+    cfg, params = ctx["cfg"], ctx["params"]
+    report = {"grad_check": grad_check(torch, cfg, params)}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    hp = FedHyper(**TRAIN_HP)
+    C, B, S = hp.n_clients, hp.batch, hp.seq_len
+    ctx["fed_data"] = fed_data(cfg, C, B, S)
+    res, sim, log, wall, peak = run_checked(torch, cfg, params, hp,
+                                            ctx["fed_data"])
+    hist = res.history
     tokens_step = C * B * S
     step_ms = [1e3 * s for s in log["stage1_step"]]
     warm_ms = float(np.median(step_ms[1:]))     # the first step warms up
@@ -1854,7 +2003,7 @@ def phase_training(torch, ctx):
 
     # --- one stage-1 step under the profiler -------------------------------
     def one_step():                 # FedSim's own, without the checks
-        real.local_round(sim, sim.last_batches[:1], sim.last_rng)
+        FedSim.local_round(sim, sim.last_batches[:1], sim.last_rng)
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     by_name, n_by_name = profiled(one_step, cpu=False)
@@ -1872,6 +2021,233 @@ def phase_training(torch, ctx):
     print(f"profile training (one stage-1 step, {C} clients x {B} x {S} "
           f"tokens): " + json.dumps(report["profile"]))
     return report, counts["bgmv_mag"]
+
+
+# --- phase 8: the baselines (run after phase 7) ---------------------------
+
+BASELINES = ("ffa_lora", "fedprox", "prompt", "adapter", "fedalt",
+             "lora_trimmed", "lora_fedbuff", "lora_fedavg_q8",
+             "lora_fedavg_topk")
+BASELINE_HP = dict(n_clients=4, rounds=1, local_steps=2, batch=4,
+                   seq_len=128, personal_steps=1, prox_mu=0.1)
+# each method's comm class (psum where not named) and the top-k
+# uplink's density, from the baselines' definitions
+COMM = {"lora_trimmed": "all_gather", "lora_fedavg_q8": "q8",
+        "lora_fedavg_topk": "topk"}
+TOPK_RATIO = 0.05
+# one method of each new adapter kind, its zero-initialized factor and
+# the scale it is drawn at: a few AdamW steps' size.  local_B at 0.5
+# makes q ~ 10² and saturates the softmax, where f32 gradients are
+# 1.1-1.3e-3 from those with f64 weights on the H100 and 0.9-1.6e-3 on
+# the CPU, 4-7e-6 at 0.01 (scripts/grad_conditioning.py)
+KIND_GRADS = (("fedalt", "/local_B", 0.01), ("adapter", "/adapter_up", 0.01),
+              ("prompt", None, 0.0))
+# the global models served as pairs tenants (FedALT's shared pair)
+SERVED = ("ffa_lora", "fedprox", "lora_trimmed", "lora_fedbuff",
+          "lora_fedavg_q8", "lora_fedavg_topk", "fedalt")
+PROX_TOL = 1e-5         # relative, the prox term's loss identity
+TRIM_TOL = 1e-6         # relative to max |value|, trimmed mean vs numpy
+TOPK_TOL = 1e-6         # relative to max |value|, top-k mean vs the hook's
+Q8_MIN = 0.1            # q8: some coordinate at least this many steps off
+
+
+def comm_formula(template, keep_local, comm, C, ratio):
+    """One client's wire bytes a round by comm class, written out from
+    ``aggregation.comm_bytes_per_round``'s docstring: psum 2·n·s,
+    all_gather (C+1)·n·s, q8 n + 4 + n·s, topk ⌈ratio·n⌉·(s + 4) + n·s,
+    over the leaves that are not kept local."""
+    from repro_torch.utils import pytree as pt
+    rx = re.compile(keep_local) if keep_local else None
+    total = 0
+    for p, x in pt.tree_leaves_with_path(template):
+        if rx is not None and rx.search(p):
+            continue
+        n, sz = x.numel(), x.element_size()
+        total += {"psum": 2 * n * sz, "all_gather": (C + 1) * n * sz,
+                  "q8": n + 4 + n * sz,
+                  "topk": max(1, math.ceil(ratio * n)) * (sz + 4) + n * sz
+                  }[comm]
+    return total
+
+
+def baseline_hooks(torch, name, checks):
+    """The checks of method ``name`` after its stage-1 round and after
+    its aggregation (``checked_sim``'s hooks); readings go to
+    ``checks``."""
+    from repro_torch.core import aggregation as agg
+    from repro_torch.core.sensitivity import sensitivity_report
+    from repro_torch.fed.simulate import client
+    from repro_torch.utils import pytree as pt
+
+    def prox(sim, batches):
+        """Client 0's trained adapters against its round reference (what
+        the round started from), on the round's first batch, dropout 0;
+        the term itself summed here in f64."""
+        theta, ref = client(sim.client_adapters, 0), client(sim._round_ref, 0)
+        b = client(batches[0], 0)
+        with_term, _, _ = sim.loss_and_grad(theta, b, prox_ref=ref)
+        plain, _, _ = sim.loss_and_grad(theta, b)
+        sq = sum(float(((x.double() - pt.tree_get(ref, p).double()) ** 2)
+                       .sum()) for p, x in pt.tree_leaves_with_path(theta))
+        term = 0.5 * BASELINE_HP["prox_mu"] * sq
+        err = abs(float(with_term) - float(plain) - term) / float(with_term)
+        check(term > 0 and err <= PROX_TOL,
+              f"fedprox: loss {float(with_term):.6f} = loss without the "
+              f"term {float(plain):.6f} + ½µ‖θ − θ_ref‖² {term:.3e} within "
+              f"{PROX_TOL} ({err:.2e})")
+        checks["prox"] = {"loss": float(with_term), "plain": float(plain),
+                          "term": term, "rel_err": err}
+
+    def topk(sim, clients, out):
+        """Each client's uplink (the port's ``compress_update``) is its
+        ⌈ratio·n⌉ largest-|x| coordinates, picked here with torch.topk,
+        and the aggregate is the mean of those."""
+        worst, kept = 0.0, []
+        for p, x in pt.tree_leaves_with_path(clients):
+            n = x[0].numel()
+            k = math.ceil(TOPK_RATIO * n)
+            mine = torch.zeros_like(x).flatten(1)
+            idx = torch.topk(x.flatten(1).abs(), k, dim=1).indices
+            mine.scatter_(1, idx, x.flatten(1).gather(1, idx))
+            mine = mine.view_as(x)
+            for c in range(x.shape[0]):
+                up = pt.tree_get(agg.compress_update(
+                    client(clients, c), mode="topk",
+                    topk_ratio=TOPK_RATIO), p)
+                check(int(torch.count_nonzero(up)) == k
+                      and torch.equal(up, mine[c]), f"lora_fedavg_topk: "
+                      f"client {c} uplinks exactly the ⌈{TOPK_RATIO}·{n}⌉ = "
+                      f"{k} largest coordinates of {p}")
+            want = mine.mean(0)
+            err = float((pt.tree_get(out, p) - want).abs().max()
+                        / want.abs().max())
+            check(err <= TOPK_TOL, f"lora_fedavg_topk: {p} aggregate the "
+                  f"mean of the clients' top-k within {TOPK_TOL} ({err:.2e})")
+            worst, kept = max(worst, err), kept + [k]
+        checks["topk"] = {"ratio": TOPK_RATIO, "k_by_leaf": sorted(set(kept)),
+                          "rel_err": worst}
+
+    def q8(sim, clients, out):
+        """Within one quantization step of the plain mean everywhere, and
+        at least ``Q8_MIN`` steps off it somewhere in every leaf (a mean
+        with no rounding is ~1e-7 of a step off)."""
+        worst, least = 0.0, float("inf")
+        for p, x in pt.tree_leaves_with_path(clients):
+            step = float(torch.stack([x[c].abs().max() for c in range(
+                x.shape[0])]).mean()) / 127.0
+            err = float((pt.tree_get(out, p) - x.mean(0)).abs().max())
+            check(Q8_MIN * step <= err <= step * (1 + 1e-5),
+                  f"lora_fedavg_q8: {p} between {Q8_MIN} and 1 "
+                  f"quantization step {step:.3e} of the plain mean "
+                  f"({err:.3e})")
+            worst, least = max(worst, err / step), min(least, err / step)
+        checks["q8_err_over_step"] = {"max": worst, "least_leaf_max": least}
+
+    def trimmed(sim, clients, out):
+        worst = 0.0
+        for p, x in pt.tree_leaves_with_path(clients):
+            xs = np.sort(x.cpu().numpy(), axis=0)
+            C = xs.shape[0]
+            k = int(0.25 * C)
+            want = xs[k:C - k].mean(axis=0) if 0 < k < C - k else xs.mean(0)
+            err = float(np.abs(pt.tree_get(out, p).cpu().numpy() - want).max()
+                        / np.abs(want).max())
+            check(err <= TRIM_TOL, f"lora_trimmed: {p} the numpy trimmed "
+                  f"mean within {TRIM_TOL} ({err:.2e})")
+            worst = max(worst, err)
+        checks["trimmed_rel_err"] = worst
+
+    def sensitivity(sim, clients, out):
+        rep = sensitivity_report(
+            {f"client{c}": client(clients, c)
+             for c in range(sim.hp.n_clients)}, out)
+        checks["sensitivity"] = {k: rep[k] for k in (
+            "mean", "obs1_dir_ratio_A_over_B", "obs2_mag_ratio_B_over_A")}
+        print("sensitivity (Eqs. 2-3, clients against their aggregate; "
+              "random weights, printed only): " + json.dumps(
+                  checks["sensitivity"]))
+
+    return {"fedprox": {"round": prox},
+            "lora_fedavg_topk": {"aggregate": topk},
+            "lora_fedavg_q8": {"aggregate": q8},
+            "lora_trimmed": {"aggregate": trimmed},
+            "lora_fedbuff": {"aggregate": sensitivity}}.get(name, {})
+
+
+def phase_baselines(torch, ctx):
+    """Phase 8: the nine uniform-rank baselines of the registry through
+    ``run_federated`` at llama2-7b full width on phase 3's backbone, each
+    with its own checks; the card-vs-CPU gradient check of each new
+    adapter kind; the global models of the raw-LoRA-form methods served
+    as pairs tenants through ``bgmv``."""
+    from repro_torch.core import aggregation as agg
+    from repro_torch.fed.simulate import FedHyper
+    from repro_torch.serve import AdapterStore
+    from repro_torch.utils import pytree as pt
+
+    cfg, params = ctx["cfg"], ctx["params"]
+    report = {"grad_check": {m: grad_check(torch, cfg, params, m, nz, sc)
+                             for m, nz, sc in KIND_GRADS}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    served, runs = {}, {}
+    for name in BASELINES:
+        hp = FedHyper(method=name, **BASELINE_HP)
+        C = hp.n_clients
+        checks = {}
+        res, sim, log, wall, peak = run_checked(
+            torch, cfg, params, hp, ctx["fed_data"],
+            baseline_hooks(torch, name, checks))
+        comm = COMM.get(name, "psum")
+        check(agg.comm_class(sim.method) == comm, f"{name}: billed as "
+              f"{comm}")
+        want = hp.rounds * C * comm_formula(
+            sim.adapter_template, EXPECT[name].get("keep"), comm, C,
+            TOPK_RATIO)
+        check(res.comm_bytes == want, f"{name}: comm bytes {res.comm_bytes} "
+              f"= {hp.rounds} x {C} x the {comm} formula ({want})")
+        steps = [1e3 * t for t in log["stage1_step"]]
+        runs[name] = {
+            "comm": comm, "wall_s": wall,
+            "peak_bytes": peak,
+            "stage_wall_s": {k: v for k, v in log.items() if k != "rounds"},
+            "stage1_step_ms": steps,
+            "stage1_step_cpu_ms": [1e3 * t for t in log["stage1_step_cpu"]],
+            "warm_step_ms": steps[-1],       # the first step warms up
+            "train_ce": res.history[0]["train_ce"],
+            "global_acc": res.global_acc, "local_acc": res.local_acc,
+            "comm_bytes": res.comm_bytes, "checks": checks}
+        print(f"baseline {name}: " + json.dumps(runs[name]))
+        if name in SERVED:
+            served[name] = pt.filter_tree(
+                sim.aggregated, lambda p: not p.endswith(("/local_A",
+                                                          "/local_B")))
+        del res, sim
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["runs"] = runs
+
+    # --- serve the global models through bgmv ----------------------------
+    store = AdapterStore(params, cfg, n_slots=8, kind="pairs", rank=R_MAIN,
+                         device="cuda")
+    for name in SERVED:
+        store.register(name, served[name])
+    rng = np.random.default_rng(8)
+    reqs = [(t, rng.integers(0, cfg.vocab_size,
+                             size=int(rng.integers(16, PAD_W + 1))
+                             ).astype(np.int32))
+            for t in SERVED + (None,)]
+    torch.cuda.reset_peak_memory_stats()
+    _, st, counts = serve(torch, engine(params, cfg, store), reqs,
+                          "baselines", expect={"bgmv": 2})
+    report["serve"] = engine_report("baselines", st, len(reqs),
+                                    torch.cuda.max_memory_allocated())
+    batch, last = admitted_batch(torch, store, reqs)
+    report["serve"]["prefill_logits"] = logits_checks(
+        torch, "baselines", pt.merge_trees(params, store.overlay()), cfg,
+        prefill_logits(torch, batch, last))
+    del store
+    return report, counts["bgmv"]
 
 
 def quant_bytes(tree):
@@ -2139,6 +2515,10 @@ def main():
         report["training"], train_launches = phase_training(torch, ctx)
         launches["bgmv_mag"] += train_launches
         print(f"phase 7 (training) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        report["baselines"], baseline_launches = phase_baselines(torch, ctx)
+        launches["bgmv"] += baseline_launches
+        print(f"phase 8 (baselines) took {time.perf_counter() - t0:.1f} s")
         del ctx["params"]
         gc.collect()
         torch.cuda.empty_cache()
@@ -2173,7 +2553,8 @@ def main():
                           "factor_gbps")},
              "build": bgmv_build,
              **({"launches_phase7_training_serve": train_launches}
-                if name == "bgmv_mag" else {})}))
+                if name == "bgmv_mag" else
+                {"launches_phase8_baselines_serve": baseline_launches})}))
     fd = rows["fused_dora"]
     kernels.append(kernel_entry(
         "fused_dora", f"{kdir}/fused_dora/csrc/fused_dora.cu",

@@ -13,7 +13,9 @@ kernels; fused-DoRA generation (``cfg.use_fused_dora``) through the
 ``fused_dora`` kernel; the int8/int4 quantized serving backbone
 (``cfg.backbone_quant``) through the ``quant_matmul`` kernel; and the
 paper's training pipeline (``core/fedlora.run_federated`` →
-``fed/simulate.FedSim``, ``optim/``, ``data/``) through torch autograd.
+``fed/simulate.FedSim``, ``optim/``, ``data/``) through torch autograd,
+with the registry's baselines that run on a uniform-rank fleet
+(``core/methods.py``) and Fig. 1's ``core/sensitivity.py``.
 Everything else raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from repro_torch.device import resolve_device  # noqa: F401

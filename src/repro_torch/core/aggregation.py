@@ -1,20 +1,29 @@
-"""Federated aggregation (paper Eqs. 5-8) and its comm accounting (port
-of the ``repro/core/aggregation.py`` functions the paper's pipeline and
-the raw-LoRA baseline run).
+"""Federated aggregation (paper Eqs. 5-8), the baselines' aggregators and
+their comm accounting (port of ``repro/core/aggregation.py`` for
+uniform-rank fleets).
 
 Client adapter trees carry a leading client axis C on every leaf.  The
 decomposed aggregation of Eqs. 5-8 is "mean every leaf over the client
 axis" on the decomposed representation, and the raw-LoRA baseline is
-the same mean on {lora_A, lora_B}.  The rank-aware, compressed,
-trimmed and staleness aggregators are ROADMAP A8; the collective forms
-of the production round engine are A11.
+the same mean on {lora_A, lora_B}.  Beside the mean: the trimmed mean,
+FedALT's mean with the personal pair zeroed, the FedBuff staleness
+discount and the compressed uplinks (stochastic int8, top-k).  The
+rank-aware family of mixed-rank fleets is ROADMAP A8b.
+
+Every aggregator takes the client-stacked tree (plus optional weights)
+and returns the aggregate without the client axis.  ``CollectiveAgg``
+records only what the comm accounting reads of the reference's
+collective forms (the comm class and the top-k ratio); the shard_map
+collectives of the production round engine themselves are ROADMAP A11.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import re
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.utils import pytree as pt
@@ -22,6 +31,15 @@ from repro_torch.utils import pytree as pt
 Params = Any
 
 COMM_CLASSES = ("psum", "all_gather", "q8", "topk")
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveAgg:
+    """A method's collective form, as far as billing reads it: its comm
+    class (one of COMM_CLASSES) and, for "topk", the uplink's density.
+    Not callable here (ROADMAP A11)."""
+    comm: str
+    topk_ratio: float = 0.01
 
 
 def fedavg(client_adapters: Params, weights=None) -> Params:
@@ -45,6 +63,162 @@ def decomposed_fedavg(client_adapters: Params, weights=None) -> Params:
     return fedavg(client_adapters, weights)
 
 
+def trimmed_fedavg(client_adapters: Params, weights=None, *,
+                   trim_ratio: float = 0.25) -> Params:
+    """Coordinate-wise trimmed mean over the client axis (cf. Koo et
+    al.): per coordinate, drop the k lowest and k highest client values,
+    k = ⌊trim_ratio · C⌋, and average the rest; the plain mean when
+    that would leave nothing (2k ≥ C) or trim nothing.  ``weights`` are
+    ignored: order statistics do not compose with client weighting."""
+    def tmean(x):
+        C = x.shape[0]
+        k = int(trim_ratio * C)
+        if k == 0 or 2 * k >= C:
+            return torch.mean(x, dim=0)
+        return torch.mean(torch.sort(x, dim=0).values[k:C - k], dim=0)
+
+    return pt.tree_map(tmean, client_adapters)
+
+
+def fedavg_excluding(client_adapters: Params, weights=None, *,
+                     exclude_rx: str) -> Params:
+    """FedAvg with the leaves matching ``exclude_rx`` zeroed: they are
+    client-personal and stay out of the server's model (the engine's
+    keep-local rebroadcast restores each client's own values)."""
+    rx = re.compile(exclude_rx)
+    return pt.tree_map_with_path(
+        lambda p, x: torch.zeros_like(x) if rx.search(p) else x,
+        fedavg(client_adapters, weights))
+
+
+def keep_components(tree: Params, component_rx: str) -> Params:
+    """Zero every leaf that does NOT match ``component_rx``."""
+    rx = re.compile(component_rx)
+    return pt.tree_map_with_path(
+        lambda p, x: x if rx.search(p) else torch.zeros_like(x), tree)
+
+
+def aggregate_zero_rx(method) -> str | None:
+    """Regex of the leaves a method's aggregate zeroes in the global
+    model (FedALT's personal pair), or None: its ``server_zero_rx``.
+    The reference also reads the ``exclude_rx`` of a
+    ``fedavg_excluding`` partial when that field is unset; every
+    registered method that excludes leaves sets it."""
+    return getattr(method, "server_zero_rx", None)
+
+
+# ---------------------------------------------------------------------------
+# staleness-weighted (FedBuff-style) aggregation
+# ---------------------------------------------------------------------------
+
+def staleness_scale(staleness, alpha: float = 0.5):
+    """FedBuff's polynomial discount s(τ) = (1 + τ)^(−α): 1 for a fresh
+    update, so a synchronous fleet is exactly weighted FedAvg."""
+    return torch.pow(1.0 + torch.as_tensor(staleness, dtype=torch.float32),
+                     -alpha)
+
+
+@dataclasses.dataclass(frozen=True)
+class StalenessFedAvg:
+    """Weighted mean with client i's weight discounted by its staleness,
+    wᵢ·(1+τᵢ)^(−α).  ``needs_staleness`` (a class attribute) tells
+    ``FedSim.aggregate`` to pass the (C,) staleness vector."""
+    alpha: float = 0.5
+
+    needs_staleness = True        # no annotation: a class attribute
+
+    def __call__(self, client_adapters: Params, weights=None, *,
+                 staleness=None) -> Params:
+        C = pt.tree_leaves(client_adapters)[0].shape[0]
+        w = (torch.ones((C,), dtype=torch.float32) if weights is None
+             else torch.as_tensor(weights, dtype=torch.float32))
+        if staleness is not None:
+            w = w * staleness_scale(staleness, self.alpha)
+        return fedavg(client_adapters, w)
+
+
+# ---------------------------------------------------------------------------
+# compressed uplinks (q8, top-k)
+# ---------------------------------------------------------------------------
+
+def _sr_int8_roundtrip(x, generator):
+    """Stochastically rounded symmetric int8 encode → decode of one leaf,
+    one f32 scale a leaf: q = ⌊y⌋ + Bernoulli(y − ⌊y⌋) is unbiased per
+    coordinate, and an all-zero leaf comes back exactly zero."""
+    scale = torch.clamp(torch.max(torch.abs(x.float())), min=1e-8) / 127.0
+    y = torch.clamp(x.float() / scale, -127.0, 127.0)
+    lo = torch.floor(y)
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return ((lo + (u < y - lo)) * scale).to(x.dtype)
+
+
+def _topk_roundtrip(x, ratio: float):
+    """Keep the ⌈ratio·n⌉ largest-magnitude coordinates of the leaf and
+    zero the rest; deterministic."""
+    k = max(1, int(math.ceil(ratio * x.numel())))
+    if k >= x.numel():
+        return x
+    flat = x.reshape(-1)
+    idx = torch.topk(torch.abs(flat).float(), k).indices
+    out = torch.zeros_like(flat)
+    out[idx] = flat[idx]
+    return out.reshape(x.shape)
+
+
+def _q8_generator(device, seed: int, step: int, client_idx: int,
+                  leaf: int) -> torch.Generator:
+    """The stochastic-rounding stream of one leaf of one client's uplink
+    in one round.  The reference keys it by fold_in(seed, step, client,
+    leaf), which torch cannot reproduce: this seeds a torch.Generator
+    from the same four integers (numpy's SeedSequence mixes them), so
+    the draws are deterministic within the port and agree with the
+    reference only in distribution."""
+    s = np.random.SeedSequence([seed, int(step), client_idx, leaf])
+    return torch.Generator(device=device).manual_seed(
+        int(s.generate_state(1, np.uint64)[0]) & ((1 << 63) - 1))
+
+
+def compress_update(adapters: Params, *, mode: str, step=0, client_idx=0,
+                    topk_ratio: float = 0.01, seed: int = 0) -> Params:
+    """Encode → decode one client's adapters through the compressed
+    uplink: "q8" stochastic int8 (``_q8_generator``'s stream for each
+    leaf, in ``tree_leaves`` order), "topk" magnitude top-k."""
+    if mode == "topk":
+        return pt.tree_map(lambda x: _topk_roundtrip(x, topk_ratio), adapters)
+    if mode != "q8":
+        raise ValueError(f"unknown compression mode {mode!r} (q8 | topk)")
+    leaves = iter(range(len(pt.tree_leaves(adapters))))
+
+    def enc(x):
+        return _sr_int8_roundtrip(x, _q8_generator(x.device, seed, step,
+                                                   client_idx, next(leaves)))
+    return pt.tree_map(enc, adapters)
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressedFedAvg:
+    """Every client's adapters ride the compressed uplink
+    (``compress_update``) before the weighted mean.  ``needs_step`` (a
+    class attribute) tells ``FedSim.aggregate`` to pass its round
+    counter, which keys the q8 streams."""
+    mode: str                     # "q8" | "topk"
+    topk_ratio: float = 0.01
+    seed: int = 0
+
+    needs_step = True             # no annotation: a class attribute
+
+    def __call__(self, client_adapters: Params, weights=None, *,
+                 step=0) -> Params:
+        C = pt.tree_leaves(client_adapters)[0].shape[0]
+        enc = [compress_update(pt.tree_map(lambda x: x[c], client_adapters),
+                               mode=self.mode, step=step, client_idx=c,
+                               topk_ratio=self.topk_ratio, seed=self.seed)
+               for c in range(C)]
+        return fedavg(pt.tree_map_with_path(
+            lambda p, _: torch.stack([pt.tree_get(e, p) for e in enc]),
+            enc[0]), weights)
+
+
 def broadcast_to_clients(agg: Params, n_clients: int) -> Params:
     """(C, ...) copies of every leaf (copies, not expanded views, so a
     client's leaf can be replaced without touching another's)."""
@@ -58,7 +232,7 @@ def client_rebroadcast(aggregated: Params, own_adapters: Params,
     keep-local regex keep the client's ``own_adapters`` values (personal
     state never leaves the client).  ``keep_rx``: compiled pattern, regex
     string or None.  (The reference's rank re-mask, ``cover``, belongs to
-    mixed-rank fleets: ROADMAP A8.)"""
+    mixed-rank fleets: ROADMAP A8b.)"""
     if keep_rx is None:
         return aggregated
     rx = re.compile(keep_rx) if isinstance(keep_rx, str) else keep_rx
@@ -84,7 +258,7 @@ def comm_bytes_per_round(adapters_one_client: Params,
     """Per-client bytes for one round's aggregation: adapter leaves only
     (the frozen backbone never moves).  Leaves matching ``exclude_rx``
     stay client-local and are not billed.  (Billing a mixed-rank fleet's
-    client at its own rank, the reference's ``rank``, is ROADMAP A8.)
+    client at its own rank, the reference's ``rank``, is ROADMAP A8b.)
     Per transmitted leaf of n elements of ``itemsize`` bytes, by comm
     class:
 
@@ -120,8 +294,15 @@ def comm_bytes_per_round(adapters_one_client: Params,
 
 
 def comm_class(method) -> str:
-    """The comm class a method's aggregation moves on the wire.  A method
-    with an explicit collective form bills at its class; every
-    aggregator the port has is a mean, an all-reduce: "psum"."""
+    """The comm class a method's aggregation moves on the wire: its
+    collective's ``comm`` (trimmed mean "all_gather", the compressed
+    uplinks "q8" / "topk"); a method without one aggregates by a mean,
+    an all-reduce: "psum"."""
     collective = getattr(method, "collective", None)
     return getattr(collective, "comm", None) or "psum"
+
+
+def topk_ratio(method) -> float:
+    """The top-k density a method bills its uplink at (0.01, the
+    accounting's default, when it has no top-k collective)."""
+    return getattr(getattr(method, "collective", None), "topk_ratio", 0.01)

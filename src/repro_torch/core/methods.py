@@ -2,20 +2,30 @@
 
 A federated PEFT method is a ``FedMethod``: how to build its adapter
 overlay, which leaves train in each pipeline stage, how client adapters
-aggregate, which loss extras apply and which leaves stay client-local
-when the aggregate is rebroadcast.  ``fed/simulate.py`` and
-``core/fedlora.py`` consume only this interface.
+aggregate, which loss extras apply (the FedProx term, the paper's Eq. 11
+regularizer) and which leaves stay client-local when the aggregate is
+rebroadcast.  ``fed/simulate.py`` and ``core/fedlora.py`` consume only
+this interface.
 
-Ported entries:
+Ported entries (every method of the reference that runs on a
+uniform-rank fleet):
 
-  fedlora_opt   the paper's pipeline: decomposed adapters, Eqs. 5-8
-                aggregation, stage masks, dB_mag kept client-local
-  lora          raw LoRA + FedAvg (FedIT-style)
+  fedlora_opt       the paper's pipeline: decomposed adapters, Eqs. 5-8
+                    aggregation, stage masks, dB_mag kept client-local
+  lora              raw LoRA + FedAvg (FedIT-style)
+  ffa_lora          raw LoRA with A frozen (Sun et al.)
+  fedprox           raw LoRA + proximal term (Li et al.)
+  prompt            prompt tuning (Lester et al.)
+  adapter           Houlsby bottleneck adapters
+  fedalt            dual shared + individual LoRA pairs (FedALT-style)
+  lora_trimmed      raw LoRA + coordinate-wise trimmed mean
+  lora_fedbuff      raw LoRA + FedBuff staleness-weighted mean
+  lora_fedavg_q8    raw LoRA + FedAvg over a stochastic int8 uplink
+  lora_fedavg_topk  raw LoRA + FedAvg over a top-k (5%) uplink
 
-The reference's other twelve methods are ROADMAP A8: ``get_method``
-raises NotImplementedError naming it.  So are the reference's fields for
-what only they or mixed-rank fleets use (``prox``, ``het_ranks``,
-``rank_aware``, ``server_zero_rx``): ``FedMethod`` has none of them.
+The reference's three rank-aware methods of mixed-rank fleets are
+ROADMAP A8b: ``get_method`` raises NotImplementedError naming it, and
+``FedMethod`` has no ``het_ranks`` / ``rank_aware`` fields yet.
 """
 from __future__ import annotations
 
@@ -29,11 +39,8 @@ from repro_torch.core import peft
 Params = Any
 MaskFn = Callable[[Params], Params]
 
-# registered in the reference, not ported yet (ROADMAP A8)
-UNPORTED = ("ffa_lora", "fedprox", "prompt", "adapter", "fedalt",
-            "lora_trimmed", "lora_fedbuff", "lora_fedavg_q8",
-            "lora_fedavg_topk", "lora_zeropad", "lora_replication",
-            "lora_exact")
+# registered in the reference, not ported yet (ROADMAP A8b)
+UNPORTED = ("lora_zeropad", "lora_replication", "lora_exact")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,14 +58,19 @@ class FedMethod:
     aggregate: Callable[[Params], Params] = agg.fedavg
     # regex over leaf paths kept client-local through every rebroadcast
     keep_local: Optional[str] = None
-    # loss extra: Eq. 11 ½λ‖·‖²_F mask (stage 3)
+    # loss extras: the FedProx ½µ‖θ−θ_ref‖² term (stage 1) and the
+    # Eq. 11 ½λ‖·‖²_F mask (stage 3)
+    prox: bool = False
     personal_reg: Optional[MaskFn] = None
     # True → the paper's staged pipeline (aggregate → global stage on the
     # server mixture → final per-client stage)
     pipeline: bool = False
-    # the production round engine's collective form (ROADMAP A11); None →
-    # a mean, billed at the psum rate
-    collective: Optional[Any] = None
+    # the collective form's billing record (aggregation.CollectiveAgg;
+    # the collective itself is ROADMAP A11); None → a mean, billed at
+    # the psum rate
+    collective: Optional[agg.CollectiveAgg] = None
+    # regex over leaf paths the aggregated (server) model zeroes, or None
+    server_zero_rx: Optional[str] = None
     description: str = ""
 
     def stage_global_mask(self, adapters: Params) -> Params:
@@ -98,7 +110,7 @@ def get_method(name: str) -> FedMethod:
         if name in UNPORTED:
             raise NotImplementedError(
                 f"federated method {name!r} is not ported yet "
-                f"(ROADMAP A8)") from None
+                f"(ROADMAP A8b)") from None
         raise ValueError(
             f"unknown federated method {name!r}; available: "
             f"{', '.join(available_methods())}") from None
@@ -126,4 +138,98 @@ register(FedMethod(
     make_adapter=partial(peft.add_lora, decomposed=False),
     train_mask=peft.mask_all,
     description="raw LoRA + FedAvg (FedIT-style baseline)",
+))
+
+register(FedMethod(
+    name="ffa_lora",
+    make_adapter=partial(peft.add_lora, decomposed=False),
+    train_mask=peft.mask_ffa,
+    description="LoRA with A frozen (FFA-LoRA, Sun et al.)",
+))
+
+register(FedMethod(
+    name="fedprox",
+    make_adapter=partial(peft.add_lora, decomposed=False),
+    train_mask=peft.mask_all,
+    prox=True,
+    description="LoRA + proximal term to the round reference (FedProx)",
+))
+
+register(FedMethod(
+    name="prompt",
+    make_adapter=peft.add_prompt_tuning,
+    train_mask=peft.mask_all,
+    description="prompt-tuning (Lester et al.)",
+))
+
+register(FedMethod(
+    name="adapter",
+    make_adapter=peft.add_adapter_tuning,
+    train_mask=peft.mask_all,
+    description="Houlsby bottleneck adapters",
+))
+
+# FedALT's individual pair: kept out of the aggregate, zeroed in the
+# server's model and kept per client through every rebroadcast
+_FEDALT_LOCAL = r"local_[AB]$"
+
+register(FedMethod(
+    name="fedalt",
+    make_adapter=peft.add_dual_lora,
+    train_mask=peft.mask_all,
+    # the individual pair never reaches the server: zeroed in the
+    # aggregate (global / eval model = shared pair only) and restored
+    # per client by the keep-local rebroadcast
+    aggregate=partial(agg.fedavg_excluding, exclude_rx=_FEDALT_LOCAL),
+    keep_local=_FEDALT_LOCAL,
+    server_zero_rx=_FEDALT_LOCAL,
+    description=("dual adapters: shared rest-of-world LoRA pair is "
+                 "aggregated, the individual local_A/local_B pair never "
+                 "leaves the client (FedALT-style)"),
+))
+
+register(FedMethod(
+    name="lora_trimmed",
+    make_adapter=partial(peft.add_lora, decomposed=False),
+    train_mask=peft.mask_all,
+    aggregate=partial(agg.trimmed_fedavg, trim_ratio=0.25),
+    collective=agg.CollectiveAgg("all_gather"),
+    description=("LoRA + coordinate-wise trimmed-mean aggregation — "
+                 "robust to adversarial/outlier clients (cf. Koo et al.)"),
+))
+
+register(FedMethod(
+    name="lora_fedbuff",
+    make_adapter=partial(peft.add_lora, decomposed=False),
+    train_mask=peft.mask_all,
+    aggregate=agg.StalenessFedAvg(alpha=0.5),
+    description=("raw LoRA + FedBuff-style staleness-weighted buffered "
+                 "aggregation — each client's update is discounted by "
+                 "(1+τ)^(−α) for τ rounds of staleness before the "
+                 "weighted mean (async/buffered rounds; Nguyen et al.)"),
+))
+
+register(FedMethod(
+    name="lora_fedavg_q8",
+    make_adapter=partial(peft.add_lora, decomposed=False),
+    train_mask=peft.mask_all,
+    aggregate=agg.CompressedFedAvg(mode="q8"),
+    collective=agg.CollectiveAgg("q8"),
+    description=("raw LoRA + FedAvg over a stochastic-rounded int8 "
+                 "uplink — ~4× less uplink traffic, unbiased rounding "
+                 "(COMPRESSED comm class)"),
+))
+
+# the top-k uplink; its billing record reads the same density
+_TOPK_UPLINK = agg.CompressedFedAvg(mode="topk", topk_ratio=0.05)
+
+register(FedMethod(
+    name="lora_fedavg_topk",
+    make_adapter=partial(peft.add_lora, decomposed=False),
+    train_mask=peft.mask_all,
+    aggregate=_TOPK_UPLINK,
+    collective=agg.CollectiveAgg("topk", topk_ratio=_TOPK_UPLINK.topk_ratio),
+    description=("raw LoRA + FedAvg over a magnitude top-k sparsified "
+                 "uplink (5% density, deterministic; COMPRESSED comm "
+                 "class)"),
 ))

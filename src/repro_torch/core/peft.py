@@ -1,12 +1,18 @@
 """LoRA adapters as param-tree overlays over the shared backbone.
 
-``add_lora`` returns an *adapter tree*: a sparse overlay whose leaves sit
-at the same paths the model's ``linear`` consults
+Each ``add_*`` function returns an *adapter tree*: a sparse overlay
+whose leaves sit at the same paths the model consults
 (``.../q_proj/lora_A`` etc.); ``merge_trees(base, adapters)`` gives the
-full forward params.  Raw LoRA and the paper's DoRA-decomposed form are
-ported, with the stage masks that drive ``optim.masked`` through the
-paper's pipeline; the other adapter kinds of the reference zoo, and the
-per-client rank masks of mixed-rank fleets, are ROADMAP A8.
+full forward params.  The zoo:
+
+  add_lora            raw LoRA, or the paper's DoRA-decomposed form
+  add_dual_lora       FedALT's shared pair plus a client-local pair
+  add_prompt_tuning   a trained prompt prepended to every sequence
+  add_adapter_tuning  Houlsby bottleneck adapters after each dense FFN
+
+with the trainable masks that drive ``optim.masked`` (FFA-LoRA's is
+``mask_ffa``).  The per-client rank masks of mixed-rank fleets are
+ROADMAP A8b.
 
 Random draws come from an explicit ``torch.Generator`` and differ from
 the reference's threefry streams, so parity tests carry the JAX
@@ -38,6 +44,12 @@ def _target_kernels(base: Params, targets) -> list[tuple[str, Any]]:
     return out
 
 
+def _randn(g, shape, device):
+    """N(0, 1) in f32, drawn on the generator's device, moved to
+    ``device``."""
+    return torch.randn(shape, generator=g, device=g.device).to(device)
+
+
 def add_lora(base: Params, cfg: ArchConfig, generator: torch.Generator, *,
              decomposed: bool = False, rank: int = 0) -> Params:
     """Build the adapter overlay for every target projection.
@@ -53,10 +65,8 @@ def add_lora(base: Params, cfg: ArchConfig, generator: torch.Generator, *,
     overlay: dict = {}
     for path, kern in _target_kernels(base, cfg.lora_targets):
         *lead, d_in, d_out = kern.shape
-        A = (torch.randn((*lead, d_in, r), generator=g, device=g.device)
-             / math.sqrt(r)).to(kern.device)
-        rawB = torch.randn((*lead, r, d_out), generator=g,
-                           device=g.device).to(kern.device)
+        A = _randn(g, (*lead, d_in, r), kern.device) / math.sqrt(r)
+        rawB = _randn(g, (*lead, r, d_out), kern.device)
         prefix = path.rsplit("/", 1)[0]
         if decomposed:
             A_mag, A_dir = dora.decompose(A)
@@ -72,6 +82,69 @@ def add_lora(base: Params, cfg: ArchConfig, generator: torch.Generator, *,
             pt.set_leaf(overlay, f"{prefix}/lora_A", A)
             pt.set_leaf(overlay, f"{prefix}/lora_B", rawB * 1e-3)
     return overlay
+
+
+def add_dual_lora(base: Params, cfg: ArchConfig, generator: torch.Generator,
+                  *, rank: int = 0) -> Params:
+    """FedALT-style dual adapters on every target projection: the shared
+    pair {lora_A, lora_B} (``add_lora``'s raw init) is aggregated, the
+    individual pair {local_A, local_B} never leaves the client (the
+    method's keep-local regex).  local_A ~ N(0, 1/r), local_B = 0, so
+    the personal delta is 0 at init."""
+    r = rank or cfg.lora_rank
+    overlay = add_lora(base, cfg, generator, decomposed=False, rank=r)
+    for path, kern in _target_kernels(base, cfg.lora_targets):
+        *lead, d_in, d_out = kern.shape
+        prefix = path.rsplit("/", 1)[0]
+        pt.set_leaf(overlay, f"{prefix}/local_A",
+                    _randn(generator, (*lead, d_in, r), kern.device)
+                    / math.sqrt(r))
+        pt.set_leaf(overlay, f"{prefix}/local_B",
+                    torch.zeros((*lead, r, d_out), device=kern.device))
+    return overlay
+
+
+def add_prompt_tuning(base: Params, cfg: ArchConfig,
+                      generator: torch.Generator,
+                      n_prompt: int = 16) -> Params:
+    """Prompt tuning (Lester et al.): ``n_prompt`` trained embeddings,
+    N(0, 0.02²), prepended to every sequence by ``model.forward``."""
+    emb = base["embed"]["embedding"]
+    return {"prompt_embed": _randn(generator, (n_prompt, cfg.d_model),
+                                   emb.device) * 0.02}
+
+
+def add_adapter_tuning(base: Params, cfg: ArchConfig,
+                       generator: torch.Generator,
+                       bottleneck: int = 16) -> Params:
+    """Houlsby bottleneck after each dense FFN (``mlp`` dicts):
+    adapter_down (..., d, bottleneck) ~ N(0, 0.02²), adapter_up = 0, so
+    the adapter is the identity at init."""
+    overlay: dict = {}
+    for path in pt.tree_paths(base):
+        m = re.search(r"(.*mlp)/down_proj/kernel$", path)
+        if not m:
+            continue
+        kern = pt.tree_get(base, path)
+        *lead, _, d_out = kern.shape
+        pt.set_leaf(overlay, f"{m.group(1)}/adapter_down",
+                    _randn(generator, (*lead, d_out, bottleneck),
+                           kern.device) * 0.02)
+        pt.set_leaf(overlay, f"{m.group(1)}/adapter_up",
+                    torch.zeros((*lead, bottleneck, d_out),
+                                device=kern.device))
+    return overlay
+
+
+def validate_client_weights(client_weights, n_clients: int) -> None:
+    """Per-client aggregation weights: one per client, each > 0."""
+    if len(client_weights) != n_clients:
+        raise ValueError(
+            f"client_weights has {len(client_weights)} entries for "
+            f"{n_clients} clients")
+    if min(client_weights) <= 0:
+        raise ValueError(
+            f"client weights must be > 0, got {tuple(client_weights)}")
 
 
 # ---------------------------------------------------------------------------
@@ -97,6 +170,11 @@ def mask_stage_global(adapters: Params) -> Params:
 def mask_stage_local(adapters: Params) -> Params:
     """Stage 3, local optimizer: ΔB_M only (paper Eqs. 10-11)."""
     return pt.path_mask(adapters, lambda p: p.endswith("dB_mag"))
+
+
+def mask_ffa(adapters: Params) -> Params:
+    """FFA-LoRA (Sun et al.): A frozen, B trains."""
+    return pt.path_mask(adapters, lambda p: p.endswith("lora_B"))
 
 
 def reg_mask_dB(adapters: Params) -> Params:

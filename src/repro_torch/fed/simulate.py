@@ -20,8 +20,13 @@ is given (on the engine's device), in order: client by client, layer by
 layer, q then k then v.  The JAX key chain cannot be reproduced, so
 parity with the reference holds at ``lora_dropout = 0``.
 
-Not ported yet: heterogeneous ranks, client weights and the FedProx term
-(ROADMAP A8); cohort rounds, checkpoints and obs spans (ROADMAP A10).
+FedProx: a ``prox`` method's stage-1 loss adds ½µ‖θ − θ_ref‖² over every
+adapter leaf, θ_ref the round reference: the client adapters as the
+first round found them, then the rebroadcast after each ``aggregate``.
+Stages 2 and 3 have no prox term.
+
+Not ported yet: heterogeneous ranks (ROADMAP A8b); cohort rounds,
+checkpoints and obs spans (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ import torch
 
 from repro_torch import optim
 from repro_torch.core import aggregation as agg
+from repro_torch.core import peft
 from repro_torch.core.methods import get_method
 from repro_torch.device import check_on, resolve_device
 from repro_torch.models import model as M
@@ -56,18 +62,28 @@ class FedHyper:
     global_steps: int = 5          # stage-2 ΔA_D steps per round (pipeline)
     personal_steps: int = 20       # stage-3 ΔB_M steps
     lam: float = 1e-3              # Eq. 11 Frobenius regularizer
-    prox_mu: float = 0.0           # FedProx proximal coefficient (A8)
+    prox_mu: float = 0.0           # FedProx proximal coefficient
     pipeline: bool = True          # global→local staging (Fig. 3 ablation)
     clip: float = 1.0
     seed: int = 0
-    client_ranks: tuple = None     # heterogeneous fleet (A8)
-    client_weights: tuple = None   # per-client aggregation weights (A8)
+    client_ranks: tuple = None     # heterogeneous fleet (A8b)
+    # per-client aggregation weights (len == n_clients); None → uniform
+    client_weights: tuple = None
 
     def __post_init__(self):
-        for name in ("client_ranks", "client_weights"):
-            v = getattr(self, name)
-            if v is not None:
-                object.__setattr__(self, name, tuple(v))
+        if self.client_ranks is not None:
+            object.__setattr__(self, "client_ranks",
+                               tuple(self.client_ranks))
+        if self.client_weights is not None:
+            weights = tuple(float(w) for w in self.client_weights)
+            object.__setattr__(self, "client_weights", weights)
+            peft.validate_client_weights(weights, self.n_clients)
+
+
+def prox_term(adapters: Params, ref: Params):
+    """‖θ − θ_ref‖² over every adapter leaf, summed in f32."""
+    return sum(torch.sum(torch.square(x.float() - pt.tree_get(ref, p).float()))
+               for p, x in pt.tree_leaves_with_path(adapters))
 
 
 def client(tree: Params, c: int) -> Params:
@@ -92,13 +108,9 @@ class FedSim:
                 "use_fused_dora is forward/serving-only (the kernel defines "
                 "no backward); training through FedSim requires the plain "
                 "adapter path: construct with use_fused_dora=False")
-        if hp.client_ranks is not None or hp.client_weights is not None:
-            raise NotImplementedError("heterogeneous-rank fleets and client "
-                                      "weights are not ported yet (ROADMAP "
-                                      "A8)")
-        if hp.prox_mu:
-            raise NotImplementedError("the FedProx proximal term is not "
-                                      "ported yet (ROADMAP A8)")
+        if hp.client_ranks is not None:
+            raise NotImplementedError("heterogeneous-rank fleets are not "
+                                      "ported yet (ROADMAP A8b)")
         self.cfg, self.hp = cfg, hp
         self.device = resolve_device(device)
         self.method = get_method(hp.method)
@@ -119,6 +131,10 @@ class FedSim:
         self._keep_rx = (re.compile(self.method.keep_local)
                          if self.method.keep_local else None)
         self._comm_class = agg.comm_class(self.method)
+        self._topk_ratio = agg.topk_ratio(self.method)
+        self._prox_mu = hp.prox_mu if self.method.prox else 0.0
+        self._base_weights = (torch.tensor(hp.client_weights)
+                              if hp.client_weights is not None else None)
 
         self.opt = optim.chain_clip(
             optim.masked(optim.adamw(hp.lr), self.train_mask), hp.clip)
@@ -132,13 +148,15 @@ class FedSim:
         self.opt_state = self._init_clients(self.opt)
         self._step = 0
         self.comm_bytes = 0
+        # FedProx round reference; None until the first round starts
+        self._round_ref = None
 
     # ------------------------------------------------------------------
     def _init_clients(self, opt) -> Params:
         return stack_clients([opt.init(client(self.client_adapters, c))
                               for c in range(self.hp.n_clients)])
 
-    def _loss(self, adapters, batch, gen, lam):
+    def _loss(self, adapters, batch, gen, lam, prox_ref):
         params = pt.merge_trees(self.base, adapters)
         loss, met = M.loss_and_metrics(params, batch, self.cfg, rng=gen)
         if lam:
@@ -146,16 +164,22 @@ class FedSim:
                       for p, x in pt.tree_leaves_with_path(adapters)
                       if pt.tree_get(self.reg_mask, p))
             loss = loss + 0.5 * lam * reg
+        if prox_ref is not None:
+            loss = loss + 0.5 * self._prox_mu * prox_term(adapters, prox_ref)
         return loss, met
 
     def loss_and_grad(self, adapters: Params, batch: dict, gen=None,
-                      lam: float = 0.0):
+                      lam: float = 0.0, prox_ref=None):
         """(loss, metrics, grads) of one adapter tree (no client axis) on
-        one (B, S) batch; ``grads`` has a leaf for every adapter leaf."""
+        one (B, S) batch; ``grads`` has a leaf for every adapter leaf.
+        ``prox_ref``: the FedProx reference of this client (a prox
+        method's stage 1), held constant."""
         leaves = pt.tree_map(lambda x: x.detach().requires_grad_(True),
                              adapters)
+        if prox_ref is not None:
+            prox_ref = pt.tree_map(torch.Tensor.detach, prox_ref)
         with torch.enable_grad():
-            loss, met = self._loss(leaves, batch, gen, lam)
+            loss, met = self._loss(leaves, batch, gen, lam, prox_ref)
             flat = pt.tree_leaves(leaves)
             grads = iter(torch.autograd.grad(loss, flat, allow_unused=True))
 
@@ -165,17 +189,22 @@ class FedSim:
         g = pt.tree_map(take, leaves)
         return loss.detach(), {k: v.detach() for k, v in met.items()}, g
 
-    def _step_one(self, adapters, opt_state, batch, gen, step, opt, lam):
-        _, met, g = self.loss_and_grad(adapters, batch, gen, lam)
+    def _step_one(self, adapters, opt_state, batch, gen, step, opt, lam,
+                  prox_ref=None):
+        _, met, g = self.loss_and_grad(adapters, batch, gen, lam, prox_ref)
         upd, opt_state = opt.update(g, opt_state, adapters, step)
         met["grad_norm"] = pt.global_norm(g)
         return optim.apply_updates(adapters, upd), opt_state, met
 
-    def _clients_step(self, adapters, opt_state, batch, gen, step, opt, lam):
+    def _clients_step(self, adapters, opt_state, batch, gen, step, opt, lam,
+                      prox_ref=None):
         """One step of every client, one after another, on a stacked
-        (C, B, S) batch → stacked adapters, state and (C,) metrics."""
+        (C, B, S) batch → stacked adapters, state and (C,) metrics;
+        ``prox_ref``: the stacked FedProx reference, or None."""
         outs = [self._step_one(client(adapters, c), client(opt_state, c),
-                               client(batch, c), gen, step, opt, lam)
+                               client(batch, c), gen, step, opt, lam,
+                               None if prox_ref is None
+                               else client(prox_ref, c))
                 for c in range(self.hp.n_clients)]
         return tuple(stack_clients([o[i] for o in outs]) for i in range(3))
 
@@ -184,32 +213,46 @@ class FedSim:
         """One round of stage-1 local training.  batches: one stacked
         (C, B, S) dict per local step; rng: the round's torch.Generator
         (adapter dropout).  Returns the last step's (C,) metrics."""
+        if self._prox_mu and self._round_ref is None:
+            self._round_ref = self.client_adapters
+        ref = self._round_ref if self._prox_mu else None
         mets = {}
         for b in batches:
             self.client_adapters, self.opt_state, mets = self._clients_step(
                 self.client_adapters, self.opt_state, b, rng, self._step,
-                self.opt, 0.0)
+                self.opt, 0.0, ref)
             self._step += 1
         return {k: v.cpu().numpy() for k, v in mets.items()}
 
     def aggregate(self, *, weights=None, staleness=None,
                   participation=None) -> Params:
-        """Method aggregation (Eqs. 5-8 for ours, FedAvg for the baseline)
-        and comm accounting; broadcasts the aggregate back with the
-        keep-local leaves (dB_mag) kept per client.  Returns the
-        aggregate (no client axis)."""
-        if weights is not None:
-            raise NotImplementedError("client weights are not ported yet "
-                                      "(ROADMAP A8)")
+        """Method aggregation (Eqs. 5-8 for ours, the baselines' own
+        otherwise) and comm accounting; broadcasts the aggregate back
+        with the keep-local leaves (dB_mag, FedALT's pair) kept per
+        client.  ``weights``: a per-call (C,) override of
+        ``hp.client_weights``.  A ``needs_step`` aggregate gets the round
+        counter, a ``needs_staleness`` one zero staleness (cohort
+        staleness is ROADMAP A10).  Returns the aggregate (no client
+        axis)."""
         if staleness is not None or participation is not None:
             raise NotImplementedError("cohort rounds are not ported yet "
                                       "(ROADMAP A10)")
         C = self.hp.n_clients
-        aggregated = self.method.aggregate(self.client_adapters)
+        w = weights if weights is not None else self._base_weights
+        kwargs = {}
+        if w is not None:
+            kwargs["weights"] = torch.as_tensor(w, dtype=torch.float32)
+        if getattr(self.method.aggregate, "needs_step", False):
+            kwargs["step"] = self._step
+        if getattr(self.method.aggregate, "needs_staleness", False):
+            kwargs["staleness"] = torch.zeros((C,), dtype=torch.float32)
+        aggregated = self.method.aggregate(self.client_adapters, **kwargs)
         self.comm_bytes += C * agg.comm_bytes_per_round(
             self.adapter_template, exclude_rx=self.method.keep_local,
-            comm=self._comm_class, n_clients=C)
+            comm=self._comm_class, n_clients=C, topk_ratio=self._topk_ratio)
         self.client_adapters = self._rebroadcast(aggregated)
+        if self._prox_mu:
+            self._round_ref = self.client_adapters
         return aggregated
 
     def _rebroadcast(self, aggregated):

@@ -5,6 +5,7 @@ understand adapter params living alongside their kernel:
 
   {kernel}                                  — plain frozen projection
   {kernel, lora_A, lora_B}                  — raw LoRA (baseline)
+  {kernel, lora_A, lora_B, local_A, local_B} — FedALT's dual pairs
   {kernel, A_dir, A_mag, B_dir, B_mag,
    dA_dir, dB_mag}                          — DoRA-decomposed LoRA
   {kernel, pool_A, pool_B[, pool_ranks]}    — pooled per-tenant pairs
@@ -89,12 +90,13 @@ def lora_delta(p: Params, x, scale: float, dropout_gen=None,
     dropout at rate ``dropout`` when ``dropout_gen`` is given."""
     if dropout_gen is not None and dropout > 0.0:
         x = adapter_dropout(x, dropout_gen, dropout)
-    if "local_A" in p:
-        raise NotImplementedError("FedALT dual adapters are not ported yet "
-                                  "(ROADMAP A8)")
     if "lora_A" in p:                                    # raw LoRA
         h = x @ p["lora_A"].to(x.dtype)
-        return (h @ p["lora_B"].to(x.dtype)) * scale
+        y = (h @ p["lora_B"].to(x.dtype)) * scale
+        if "local_A" in p:           # FedALT dual pair, on the same x
+            hl = x @ p["local_A"].to(x.dtype)
+            y = y + (hl @ p["local_B"].to(x.dtype)) * scale
+        return y
     # DoRA-decomposed LoRA (the paper's form):
     #   A = (A_dir + dA_dir) * A_mag[:, None]
     #   B = B_dir * (B_mag + dB_mag)[:, None]
@@ -294,9 +296,12 @@ def init_attn_cache(cfg, batch, seq_len: int, dtype, device):
 
 def dense_ffn(p: Params, x, cfg, lora_scale: float = 0.0, adapter_idx=None,
               kernel_impl=None):
-    if "adapter_down" in p:
-        raise NotImplementedError("bottleneck adapters are not ported yet "
-                                  "(ROADMAP A8)")
+    """SwiGLU FFN; with {adapter_down, adapter_up} in ``p``, a Houlsby
+    adapter after down_proj: y + gelu(y @ down) @ up, gelu in its tanh
+    form (``jax.nn.gelu``'s default) computed in f32.  The adapter's
+    factors are cast to the activation dtype, as ``lora_delta`` casts
+    its own, so a bf16 model stays bf16 (the reference's f32
+    ``adapter_up`` promotes a bf16 block to f32: ROADMAP C, caveat 3)."""
     kw = dict(fused=cfg.use_fused_dora, adapter_idx=adapter_idx,
               kernel_impl=kernel_impl)
     g = linear(p["gate_proj"], x,
@@ -304,6 +309,10 @@ def dense_ffn(p: Params, x, cfg, lora_scale: float = 0.0, adapter_idx=None,
     u = linear(p["up_proj"], x,
                lora_scale=_target_scale(cfg, "up_proj", lora_scale), **kw)
     h = F.silu(g.float()).to(x.dtype) * u
-    return linear(p["down_proj"], h,
-                  lora_scale=_target_scale(cfg, "down_proj", lora_scale),
-                  **kw)
+    y = linear(p["down_proj"], h,
+               lora_scale=_target_scale(cfg, "down_proj", lora_scale), **kw)
+    if "adapter_down" in p:                              # Houlsby adapter
+        a = F.gelu((y @ p["adapter_down"].to(y.dtype)).float(),
+                   approximate="tanh").to(y.dtype)
+        y = y + a @ p["adapter_up"].to(y.dtype)
+    return y

@@ -185,23 +185,30 @@ def forward(params, batch, cfg: ArchConfig, *, rng=None,
     ``batch`` holds ``tokens`` (B, S) and optionally ``positions`` and
     ``adapter_idx``.  ``rng``: a torch.Generator on the params' device
     for adapter dropout at cfg.lora_dropout (training); its draws run on
-    through the layers, so each projection's mask is its own."""
+    through the layers, so each projection's mask is its own.  A
+    ``prompt_embed`` leaf (n_p, D) is prepended to every sequence, the
+    positions run over S + n_p, and the prompt rows are dropped before
+    the final norm."""
     check_supported(cfg)
-    if "prompt_embed" in params:
-        raise NotImplementedError("prompt tuning is not ported yet "
-                                  "(ROADMAP A8)")
     tokens = batch["tokens"]
     x = params["embed"]["embedding"][tokens.to(torch.int64)]
     B, S = x.shape[0], x.shape[1]
+    n_p = 0
+    if "prompt_embed" in params:                 # prompt-tuning baseline
+        pe = params["prompt_embed"]
+        n_p = pe.shape[0]
+        x = torch.cat([pe[None].to(x.dtype).expand(B, n_p, x.shape[-1]), x],
+                      dim=1)
     positions = batch.get("positions")
     if positions is None:
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        positions = torch.arange(S + n_p, device=x.device)[None].expand(
+            B, S + n_p)
     x, cache = _run_blocks(
         params["blocks"], x, cfg.pattern(), cfg,
         positions=positions, dropout_gen=rng, return_cache=return_cache,
         cache_len=cache_len, adapter_idx=batch.get("adapter_idx"),
         kernel_impl=kernel_impl)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = L.rms_norm(x[:, n_p:], params["final_norm"], cfg.norm_eps)
     return x, cache, torch.zeros((), device=x.device)
 
 
@@ -288,6 +295,7 @@ def decode_step(params, new_token, cache, cache_index, cfg: ArchConfig, *,
     shared position or (B,) int per-row positions (mixed batching).
     Writes the cache in place.  Returns (logits (B,V) f32, cache)."""
     check_supported(cfg)
+    _refuse_prompt(params, "decode_step")
     x = params["embed"]["embedding"][new_token.to(torch.int64)[:, None]]
     B = x.shape[0]
     if torch.is_tensor(cache_index) and cache_index.dim() == 1:
@@ -304,9 +312,21 @@ def decode_step(params, new_token, cache, cache_index, cfg: ArchConfig, *,
     return logits, new_cache
 
 
+def _refuse_prompt(params, what):
+    """A prompt-tuned model cannot be served coherently: the reference's
+    ``decode_step`` ignores ``prompt_embed`` while its ``prefill`` leaves
+    the cache offset by the prompt's length (ROADMAP C)."""
+    if "prompt_embed" in params:
+        raise ValueError(
+            f"{what}: a prompt-tuned model (prompt_embed) cannot be served: "
+            "the reference's decode_step ignores the prompt while its "
+            "prefill offsets the cache by it")
+
+
 def prefill(params, batch, cfg: ArchConfig, *, cache_len=0):
     """Process a prompt, returning (last_logits, cache).  cache_len pads
     the caches with headroom for subsequent decode steps."""
+    _refuse_prompt(params, "prefill")
     hidden, cache, _ = forward(params, batch, cfg, return_cache=True,
                                cache_len=cache_len)
     logits = (hidden[:, -1] @ _head_kernel(params, cfg).to(hidden.dtype)

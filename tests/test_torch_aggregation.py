@@ -119,9 +119,9 @@ def test_registered_methods_match_reference(world, method):
     j, t = jmeth.get_method(method), tmeth.get_method(method)
     assert tagg.comm_class(t) == jagg.comm_class(j) == "psum"
     t_fields = {f.name for f in dataclasses.fields(tmeth.FedMethod)}
-    # the reference's fields for FedProx and mixed-rank fleets (ROADMAP A8)
+    # the reference's fields for mixed-rank fleets (ROADMAP A8b)
     assert ({f.name for f in dataclasses.fields(jmeth.FedMethod)} - t_fields
-            == {"prox", "het_ranks", "rank_aware", "server_zero_rx"})
+            == {"het_ranks", "rank_aware"})
     for name in sorted(t_fields - {"make_adapter", "aggregate", "train_mask",
                                    "global_mask", "local_mask",
                                    "personal_reg"}):
@@ -142,11 +142,14 @@ def flat_mask(m):
 
 
 def test_unported_methods_raise_naming_a8():
-    assert tmeth.available_methods() == ["fedlora_opt", "lora"]
-    assert (set(tmeth.UNPORTED) | {"fedlora_opt", "lora"}
+    """Only the rank-aware methods of mixed-rank fleets are left, and
+    they name A8b."""
+    assert tmeth.UNPORTED == ("lora_zeropad", "lora_replication",
+                              "lora_exact")
+    assert (set(tmeth.UNPORTED) | set(tmeth.available_methods())
             == set(jmeth.available_methods()))
     for name in tmeth.UNPORTED:
-        with pytest.raises(NotImplementedError, match="A8"):
+        with pytest.raises(NotImplementedError, match="A8b"):
             tmeth.get_method(name)
     with pytest.raises(ValueError, match="unknown"):
         tmeth.get_method("no_such_method")

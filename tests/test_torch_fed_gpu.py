@@ -6,7 +6,9 @@ card's arithmetic).  Config: 2 layers, d 64, 4 heads over 2 kv heads,
 f32, rank 4; TF32 off.  Tolerance: every client adapter leaf after
 ``run_federated`` within 1e-4 of the leaf's max |value| (f32 sums in
 another order, through AdamW's eps regime: ``tests/test_torch_fed.py``),
-the history's CE within 1e-5 relative, comm bytes exactly.
+the history's CE within 1e-5 relative, comm bytes exactly; one step's
+loss within 1e-5 relative and the gradients of each new adapter kind
+(FedALT's dual pair, Houlsby, prompt) within 1e-4 of each leaf's max |g|.
 """
 import dataclasses
 
@@ -18,7 +20,7 @@ from repro_torch.core import aggregation as agg
 from repro_torch.core import fedlora
 from repro_torch.data import (SyntheticInstructionDataset, client_batch,
                               eval_batches, make_dataset_family,
-                              specialist_partition)
+                              specialist_partition, to_device)
 from repro_torch.fed import simulate
 from repro_torch.fed.simulate import FedHyper
 from repro_torch.models import model as M
@@ -100,3 +102,36 @@ def test_dropout_runs_on_the_card(cuda, monkeypatch):
     res = run(monkeypatch, "cuda", cfg=cfg,
               hp=dataclasses.replace(HP, rounds=1))
     assert np.isfinite(res.history[0]["train_ce"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method,zero_init", [
+    ("fedalt", "local_B"), ("adapter", "adapter_up"), ("prompt", None)])
+def test_adapter_kind_grads_on_the_card_match_the_cpu(cuda, method,
+                                                      zero_init):
+    """One stage-1 loss and the gradients of every adapter leaf of each
+    new adapter kind (dual pair, Houlsby, prompt) on the card against the
+    CPU, within 1e-4 of each leaf's max |g|; the zero-initialized factor
+    is drawn nonzero, so every leaf has a gradient."""
+    hp = dataclasses.replace(HP, method=method, n_clients=1)
+    base = M.init_params(torch.Generator().manual_seed(0), CFG, device="cpu")
+    sims = {dev: simulate.FedSim(CFG, hp, base=pt.tree_map(
+        lambda t: t.to(dev), base), device=dev) for dev in ("cpu", "cuda")}
+    g = torch.Generator().manual_seed(1)
+    ad = pt.tree_map_with_path(
+        lambda p, x: (0.1 * torch.randn(x.shape, generator=g)
+                      if zero_init and p.endswith(zero_init) else x),
+        sims["cpu"].adapter_template)
+    fam = make_dataset_family("dolly", vocab_size=CFG.vocab_size)
+    ds = SyntheticInstructionDataset(fam, specialist_partition(1, 4)[0])
+    batch = ds.sample_batch(np.random.default_rng(1), 2, 24)
+    out = {dev: sim.loss_and_grad(pt.tree_map(lambda t: t.to(dev), ad),
+                                  to_device(batch, dev))
+           for dev, sim in sims.items()}
+    (l_cpu, _, g_cpu), (l_gpu, _, g_gpu) = out["cpu"], out["cuda"]
+    assert float(l_gpu) == pytest.approx(float(l_cpu), rel=1e-5)
+    for p, want in pt.tree_leaves_with_path(g_cpu):
+        got = pt.tree_get(g_gpu, p).cpu()
+        assert float(want.abs().max()) > 0, p
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err <= 1e-4, (p, err)

@@ -223,14 +223,35 @@ def test_linear_branches_match_reference(branch):
 
 
 def test_linear_refuses_unported_paths():
-    z = torch.zeros(4, 4)
-    dual = {"kernel": z, "lora_A": z, "lora_B": z, "local_A": z,
-            "local_B": z}
+    """FedALT's dual pair and the Houlsby adapter, which these layers
+    refused until ROADMAP A8a, now run and match the reference (the
+    fused flag leaves a raw pair on the plain path); what they still
+    refuse (qk-norm, sliding windows) is held by the A12 tests."""
+    rng = np.random.default_rng(6)
+
+    def draw(shapes):                # N(0, 1 / fan_in), O(1) activations
+        return {k: (rng.normal(size=v) / np.sqrt(v[0])).astype(np.float32)
+                if isinstance(v, tuple) else draw(v)
+                for k, v in shapes.items()}
+    dual = draw({"kernel": (4, 4), "lora_A": (4, 2), "lora_B": (2, 4),
+                 "local_A": (4, 2), "local_B": (2, 4)})
+    x = rng.normal(size=(3, 4)).astype(np.float32)
+    want = JL.linear(jax.tree.map(jnp.asarray, dual), jnp.asarray(x),
+                     lora_scale=2.0)
     for fused in (False, True):
-        with pytest.raises(NotImplementedError, match="A8"):
-            TL.linear(dual, torch.zeros(1, 4), lora_scale=2.0, fused=fused)
-    with pytest.raises(NotImplementedError, match="A8"):
-        TL.dense_ffn({"adapter_down": z}, torch.zeros(1, 1, 4), T_GQA)
+        close(TL.linear(params_from_numpy(dual, "cpu"), torch.from_numpy(x),
+                        lora_scale=2.0, fused=fused), want)
+    ffn = draw({"gate_proj": {"kernel": (64, 16)},
+                "up_proj": {"kernel": (64, 16)},
+                "down_proj": {"kernel": (16, 64)},
+                "adapter_down": (64, 3), "adapter_up": (3, 64)})
+    # gelu's inputs of a few units, where its tanh form (jax.nn.gelu's
+    # default) and the exact one differ by up to 5e-4
+    ffn["adapter_down"] *= 6.0
+    h = rng.normal(size=(1, 2, 64)).astype(np.float32)
+    close(TL.dense_ffn(params_from_numpy(ffn, "cpu"), torch.from_numpy(h),
+                       T_GQA),
+          JL.dense_ffn(jax.tree.map(jnp.asarray, ffn), jnp.asarray(h), J_GQA))
 
 
 def test_attention_prefill_with_cache_matches_reference(gqa):
