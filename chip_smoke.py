@@ -133,6 +133,39 @@ Phase 8  the baselines, run after phase 7 on phase 3's backbone: first the
          Prints each method's stage walls, stage-1 steps' wall and CPU
          ms, train CE, comm bytes and peak memory, and the serving
          tokens/s.  Each sim is freed before the next.
+Phase 9  mixed-rank fleets, run after phase 8 on phase 3's backbone:
+         run_federated at client ranks 2/4/8/16 (allocated rank 16) for
+         fedlora_opt, lora_zeropad, lora_replication and lora_exact, and
+         lora_exact again at server_rank 32 (>= the ranks' sum, 30), with
+         phase 8's cuts (1 round of 2 steps of 4 x 128 tokens, 1 stage-2
+         and 1 stage-3 step), through phase 7's checking FedSim: after
+         every stage each rank-axis leaf is exactly 0 above each client's
+         rank (the axes written out in RANK_AXIS, not read from the
+         port), the stages change the leaves EXPECT gives, each
+         rebroadcast hands every client the aggregate cut to its rank;
+         lora_zeropad's aggregate is the plain mean and
+         lora_replication's the per-row coverage mean, both computed in
+         f64 here, within 1e-6 of max |x|; lora_exact's residual
+         ‖ΣwᵢAᵢBᵢ − A'B'‖_F over the first CHECK_DEPTH layers is within
+         1e-5 of ‖ΣwᵢAᵢBᵢ‖_F at server rank 32 and equals the
+         Eckart-Young tail of its singular values (torch.linalg.svdvals,
+         f64, on the card) within 1e-4 of it at 16, and the card's exact_fedavg agrees
+         with the CPU's on the same client stacks (products within
+         1e-5); comm bytes equal the formula with each client billed at
+         its own rank (125,829,120 for the psum methods, 314,572,800 for
+         lora_exact's all_gather); no hand-written kernel launched;
+         every loss and metric finite.  Then fedlora_opt's clients serve
+         as dora_mag tenants at their own ranks in a rank-16 pool over
+         the stage-2 server model (whose rows above a tenant's rank are
+         nonzero, so bgmv_mag's per-slot rank decides them) and
+         lora_exact's as pairs tenants in a rank-16 pool, each with the
+         null tenant: the store reads back each tenant's rank, bgmv_mag
+         and bgmv launch 2 x 32 x (prefills + decode steps) times, and
+         the prefill logits are held as phase 3's and, beside that,
+         against each client's own adapter through the plain path.
+         Prints each run's stage walls, stage-1 steps' wall and CPU ms,
+         peak memory, comm bytes, lora_exact's residuals and the serving
+         tokens/s.
 Every run starts with every launch count at 0.  Each path's prefill
 logits, kernels against plain versions, relative to max |logit|: bf16
 weights through the first CHECK_DEPTH layers within 2e-2, f32 weights
@@ -1330,7 +1363,7 @@ def to_f32(tree):
 
 
 def logits_checks(torch, label, tree, cfg, logits, extra=None,
-                  depth=CHECK_DEPTH):
+                  depth=CHECK_DEPTH, depths=DEPTHS):
     """Prefill logits with the kernels against the plain versions
     (``kernel_impl="torch"``), relative to max |logit|.
 
@@ -1339,12 +1372,12 @@ def logits_checks(torch, label, tree, cfg, logits, extra=None,
     held at LOGITS_F32_TOL.  The kernels round at other points than the
     plain versions (PERF.md), and a random bf16 network amplifies a
     rounding difference with depth as it amplifies bf16 arithmetic
-    itself, so the bf16 readings at each depth in DEPTHS are printed
+    itself, so the bf16 readings at each depth in ``depths`` are printed
     beside plain bf16 against plain f32.  ``extra(f32_tree)`` returns
     further f32 readings {name: (value, tolerance)}."""
     f32 = to_f32(tree)
     by_depth = {}
-    for d in DEPTHS:
+    for d in depths:
         plain = logits(tree, cfg, d, "torch")
         by_depth[d] = {
             "kernel_vs_plain_bf16": rel_err(logits(tree, cfg, d, None),
@@ -1680,7 +1713,24 @@ EXPECT = {
     "fedalt": {"leaves": r"/(lora|local)_[AB]$", "stage1": ".",
                "stage3": ".", "keep": r"/local_[AB]$",
                "zero": r"/local_[AB]$"},
+    "lora_zeropad": _LORA, "lora_replication": _LORA, "lora_exact": _LORA,
 }
+# The axis of each adapter leaf that indexes LoRA rank, by leaf name,
+# written out here from the factors' shapes (A (d_in, r), B (r, d_out),
+# the B magnitudes (r,)); A_mag (d_in,) has none.
+RANK_AXIS = {"lora_A": -1, "A_dir": -1, "dA_dir": -1, "lora_B": -2,
+             "B_dir": -2, "B_mag": -1, "dB_mag": -1}
+
+
+def rank_rows(path, x, r):
+    """One client's leaf ``x`` at ``path`` with its rows from ``r`` on,
+    along its RANK_AXIS, set to 0 (``x`` itself when it has none)."""
+    ax = RANK_AXIS.get(path.rsplit("/", 1)[-1])
+    if ax is None:
+        return x
+    out = x.clone()
+    out.narrow(ax, r, x.shape[ax] - r).zero_()
+    return out
 
 
 def select(tree, rx):
@@ -1702,10 +1752,12 @@ def checked_sim(torch, log, hooks=None):
     (also on a copy of the clients whose keep-local leaves are nonzero);
     and each stage's wall time, host clock around work that ends in a
     sync (stage 1 timed step by step, with the process's CPU time beside
-    each step's wall time).  ``hooks``: {"round": fn(sim, batches),
-    "aggregate": fn(sim, clients, aggregated)}, a method's own checks
-    after stage 1 and after the aggregation (the client adapters it was
-    given, cloned)."""
+    each step's wall time).  On a mixed-rank fleet each client's
+    rebroadcast leaf is the aggregate (or its own keep-local leaf) cut
+    to its rank (``rank_rows``).  ``hooks``: {"round": fn(sim, batches),
+    "aggregate": fn(sim, clients, aggregated), "stage": fn(sim, what)},
+    a method's own checks after stage 1, after the aggregation (the
+    client adapters it was given, cloned) and after every stage."""
     from repro_torch.core import aggregation as agg
     from repro_torch.fed.simulate import FedSim
     from repro_torch.utils import pytree as pt
@@ -1772,15 +1824,21 @@ def checked_sim(torch, log, hooks=None):
         def check_rebroadcast(self, tree, aggregated, personal_before, what):
             what = f"{self.hp.method} {what}"
             keep = set(self.want("keep"))
+            ranks = self.hp.client_ranks
             for p, x in pt.tree_leaves_with_path(tree):
-                if p in keep:
-                    if not torch.equal(x, pt.tree_get(personal_before, p)):
-                        raise CheckFailed(f"{what}: {p} not kept per client")
-                elif not all(torch.equal(x[c], pt.tree_get(aggregated, p))
-                             for c in range(x.shape[0])):
-                    raise CheckFailed(f"{what}: shared leaf {p} differs "
-                                      f"across clients")
-            print(f"ok: {what}: every shared leaf equal across clients"
+                for c in range(x.shape[0]):
+                    src = (pt.tree_get(personal_before, p)[c] if p in keep
+                           else pt.tree_get(aggregated, p))
+                    if not torch.equal(x[c], src if ranks is None
+                                       else rank_rows(p, src, ranks[c])):
+                        raise CheckFailed(
+                            f"{what}: client {c}'s {p} is not "
+                            + ("its own" if p in keep else "the aggregate")
+                            + ("" if ranks is None else
+                               f" cut to its rank {ranks[c]}"))
+            print(f"ok: {what}: every shared leaf "
+                  + ("equal across clients" if ranks is None else
+                     f"the aggregate cut to each client's rank {ranks}")
                   + (f", every {self.expect['keep']} leaf kept per client"
                      if keep else ""))
 
@@ -1804,6 +1862,8 @@ def checked_sim(torch, log, hooks=None):
                       f"{self.expect['zero_in_stage1']} leaf still exactly 0")
             if "round" in hooks:
                 hooks["round"](self, batches)
+            if "stage" in hooks:
+                hooks["stage"](self, what)
             return mets
 
         def probe_rebroadcast(self, aggregated, what):
@@ -1844,6 +1904,8 @@ def checked_sim(torch, log, hooks=None):
             self.aggregated = out
             if "aggregate" in hooks:
                 hooks["aggregate"](self, clients, out)
+            if "stage" in hooks:
+                hooks["stage"](self, "aggregate")
             return out
 
         def global_stage(self, aggregated, server_batches, rng=None):
@@ -1857,6 +1919,8 @@ def checked_sim(torch, log, hooks=None):
                                    "stage 2 rebroadcast")
             self.probe_rebroadcast(out, "stage 2 rebroadcast")
             self.server_model = out
+            if "stage" in hooks:
+                hooks["stage"](self, "stage 2")
             return out
 
         def personalize(self, batches, rng=None):
@@ -1865,6 +1929,8 @@ def checked_sim(torch, log, hooks=None):
                   .personalize(batches, rng))
             self.check_changed(before, self.client_adapters, "stage3",
                                "stage 3")
+            if "stage" in hooks:
+                hooks["stage"](self, "stage 3")
 
         def eval_global(self, aggregated, batches):
             return timed("eval", lambda: super(CheckedSim, self)
@@ -2051,18 +2117,22 @@ TOPK_TOL = 1e-6         # relative to max |value|, top-k mean vs the hook's
 Q8_MIN = 0.1            # q8: some coordinate at least this many steps off
 
 
-def comm_formula(template, keep_local, comm, C, ratio):
+def comm_formula(template, keep_local, comm, C, ratio, rank=None):
     """One client's wire bytes a round by comm class, written out from
     ``aggregation.comm_bytes_per_round``'s docstring: psum 2·n·s,
     all_gather (C+1)·n·s, q8 n + 4 + n·s, topk ⌈ratio·n⌉·(s + 4) + n·s,
-    over the leaves that are not kept local."""
+    over the leaves that are not kept local; with ``rank`` (a mixed-rank
+    fleet's client), n counts only the client's own rank rows."""
     from repro_torch.utils import pytree as pt
     rx = re.compile(keep_local) if keep_local else None
     total = 0
     for p, x in pt.tree_leaves_with_path(template):
         if rx is not None and rx.search(p):
             continue
-        n, sz = x.numel(), x.element_size()
+        ax = RANK_AXIS.get(p.rsplit("/", 1)[-1])
+        n = x.numel() if rank is None or ax is None else (
+            x.numel() // x.shape[ax] * min(rank, x.shape[ax]))
+        sz = x.element_size()
         total += {"psum": 2 * n * sz, "all_gather": (C + 1) * n * sz,
                   "q8": n + 4 + n * sz,
                   "topk": max(1, math.ceil(ratio * n)) * (sz + 4) + n * sz
@@ -2248,6 +2318,294 @@ def phase_baselines(torch, ctx):
         prefill_logits(torch, batch, last))
     del store
     return report, counts["bgmv"]
+
+
+# --- phase 9: mixed-rank fleets (run after phase 8) ------------------------
+
+FLEET_RANKS = (2, 4, 8, 16)
+FLEET_HP = dict(BASELINE_HP, global_steps=1, client_ranks=FLEET_RANKS)
+# (method, server_rank): the paper's pipeline and the three rank-aware
+# aggregators at the fleet's largest rank, lora_exact also at a server
+# rank at least the ranks' sum, 30, where its aggregate is exact
+FLEET_RUNS = (("fedlora_opt", 0), ("lora_zeropad", 0),
+              ("lora_replication", 0), ("lora_exact", 0), ("lora_exact", 32))
+# one client's bytes a round summed over the fleet, from the arithmetic:
+# 524,288 elements a unit of rank (q/v x 32 layers x (4096 + 4096)) x
+# Σrᵢ = 30 x 4 bytes, x 2 copies (psum) or x (C + 1) = 5 (all_gather)
+FLEET_COMM_BYTES = {"lora_zeropad": 125_829_120,
+                    "lora_replication": 125_829_120,
+                    "lora_exact": 314_572_800}
+FLEET_MEAN_TOL = 1e-6   # zero-pad / replication vs f64 here, of max |x|
+EXACT_TOL = 1e-5        # server rank >= Σrᵢ: residual over ‖ΣwAB‖_F
+EY_TOL = 1e-4           # |residual - Eckart-Young tail| over ‖ΣwAB‖_F
+EXACT_DEVICE_TOL = 1e-5  # card vs CPU exact_fedavg products, Frobenius
+
+
+def fleet_hooks(torch, name, checks):
+    """Phase 9's checks for method ``name`` (``checked_sim`` hooks): the
+    zero rows after every stage, and the method's aggregate against its
+    definition computed here; readings go to ``checks``."""
+    from repro_torch.core import aggregation as agg
+    from repro_torch.utils import pytree as pt
+
+    def zero_rows(sim, what):
+        """Every rank-axis leaf exactly 0 above each client's rank."""
+        n = 0
+        for p, x in pt.tree_leaves_with_path(sim.client_adapters):
+            ax = RANK_AXIS.get(p.rsplit("/", 1)[-1])
+            for c, r in enumerate(FLEET_RANKS if ax is not None else ()):
+                rows = x[c].narrow(ax, r, x.shape[ax] - r)
+                if torch.count_nonzero(rows):
+                    raise CheckFailed(f"{name} {what}: client {c}'s {p} is "
+                                      f"nonzero above its rank {r}")
+                n += 1
+        check(n > 0, f"{name} {what}: {n} (leaf, client) pairs exactly 0 "
+              f"above the client's rank {FLEET_RANKS}")
+
+    def mean_err(out, p, want):
+        got = pt.tree_get(out, p).double()
+        return float((got - want).abs().max() / want.abs().max())
+
+    def zeropad(sim, clients, out):
+        worst = max(mean_err(out, p, x.double().mean(0))
+                    for p, x in pt.tree_leaves_with_path(clients))
+        check(worst <= FLEET_MEAN_TOL, f"lora_zeropad: the aggregate is the "
+              f"plain mean (f64 here) within {FLEET_MEAN_TOL} ({worst:.2e})")
+        checks["zeropad_rel_err"] = worst
+
+    def replication(sim, clients, out):
+        worst, off_mean = 0.0, 0.0
+        for p, x in pt.tree_leaves_with_path(clients):
+            x = x.double()
+            cover = torch.stack([rank_rows(p, torch.ones_like(x[0]), r)
+                                 for r in FLEET_RANKS])
+            den = cover.sum(0)
+            want = torch.where(den > 0, (x * cover).sum(0) / den.clamp(min=1),
+                               torch.zeros_like(den))
+            worst = max(worst, mean_err(out, p, want))
+            off_mean = max(off_mean, mean_err(out, p, x.mean(0)))
+        check(worst <= FLEET_MEAN_TOL, f"lora_replication: the aggregate is "
+              f"each row's mean over the clients that own it (f64 here) "
+              f"within {FLEET_MEAN_TOL} ({worst:.2e}; {off_mean:.2e} off "
+              f"the plain mean)")
+        checks.update(replication_rel_err=worst,
+                      replication_off_plain_mean=off_mean)
+
+    def exact(sim, clients, out):
+        """On the first CHECK_DEPTH layers, Σwᵢ·AᵢBᵢ formed here in f64
+        against A'·B' of the aggregate: exact at a server rank >= Σrᵢ,
+        else off it by the Eckart-Young tail of its singular values;
+        and the CPU's exact_fedavg of the same client stacks.  The
+        singular values: torch.linalg.svdvals in f64 on the card of the
+        core R_a·R_bᵀ of f64 QRs of the stacked factors (Σwᵢ·AᵢBᵢ =
+        Q_a·R_a·R_bᵀ·Q_bᵀ has rank ≤ Σrᵢ; an SVD of the 4096² product
+        itself takes ≈ 12 s a pair of layers)."""
+        r_out, D, C = sim.alloc_rank, CHECK_DEPTH, len(FLEET_RANKS)
+        cpu = agg.exact_fedavg(pt.tree_map(lambda t: t.cpu(), clients),
+                               ranks=FLEET_RANKS)
+        rows = {}
+        for pa in sorted(p for p, _ in pt.tree_leaves_with_path(out)
+                         if p.endswith("/lora_A")):
+            pb = pa[:-1] + "B"
+            A = pt.tree_get(clients, pa)[:, :D].double() / C   # uniform w
+            B = pt.tree_get(clients, pb)[:, :D].double()
+            a_cat, b_cat = torch.cat(list(A), dim=-1), torch.cat(list(B), -2)
+            want = a_cat @ b_cat
+            got = (pt.tree_get(out, pa)[:D].double()
+                   @ pt.tree_get(out, pb)[:D].double())
+            host = (pt.tree_get(cpu, pa)[:D].double()
+                    @ pt.tree_get(cpu, pb)[:D].double()).cuda()
+            norm = torch.linalg.matrix_norm(want)
+            resid = torch.linalg.matrix_norm(want - got)
+            dev = float((torch.linalg.matrix_norm(got - host)
+                         / torch.linalg.matrix_norm(host)).max())
+            row = {"residual_over_norm": (resid / norm).tolist(),
+                   "card_vs_cpu": dev}
+            if r_out >= sum(FLEET_RANKS):
+                err = float((resid / norm).max())
+                check(err <= EXACT_TOL, f"lora_exact at server rank {r_out}: "
+                      f"{pa[:-7]} over {D} layers, ‖ΣwAB − A'B'‖_F within "
+                      f"{EXACT_TOL} of ‖ΣwAB‖_F ({err:.2e})")
+            else:
+                _, ra = torch.linalg.qr(a_cat)
+                _, rb = torch.linalg.qr(b_cat.transpose(-1, -2))
+                s = torch.linalg.svdvals(ra @ rb.transpose(-1, -2))
+                tail = torch.sqrt(torch.sum(s[..., r_out:] ** 2, dim=-1))
+                err = float(((resid - tail).abs() / norm).max())
+                row.update(tail_over_norm=(tail / norm).tolist(),
+                           gap=(s[..., r_out - 1] / s[..., r_out]).tolist())
+                check(err <= EY_TOL and bool((tail > 0).all()),
+                      f"lora_exact at rank {r_out}: {pa[:-7]} over {D} "
+                      f"layers, ‖ΣwAB − A'B'‖_F the Eckart-Young tail "
+                      f"√Σ_(j>{r_out}) σ_j² within {EY_TOL} of ‖ΣwAB‖_F "
+                      f"({err:.2e}; tail {row['tail_over_norm']})")
+            check(dev <= EXACT_DEVICE_TOL, f"lora_exact at rank {r_out}: "
+                  f"{pa[:-7]}'s A'B' on the card within {EXACT_DEVICE_TOL} "
+                  f"of the CPU's exact_fedavg of the same stacks ({dev:.2e})")
+            rows[pa[:-7]] = row
+        checks[f"exact_r{r_out}"] = rows
+
+    hooks = {"stage": zero_rows}
+    aggregate = {"lora_zeropad": zeropad, "lora_replication": replication,
+                 "lora_exact": exact}.get(name)
+    if aggregate is not None:
+        hooks["aggregate"] = aggregate
+    return hooks
+
+
+def fleet_serve(torch, ctx, label, store, own, kernel):
+    """Serve 8 requests (7 over the fleet's tenants and the null tenant)
+    from ``store``, whose tenants ``client0..3`` were registered at
+    their ranks; the prefill logits held as phase 3's and, beside that,
+    against each client's own adapter ``own[c]`` through the plain path
+    (bf16 through CHECK_DEPTH layers, f32 through all).  Returns the
+    report and the kernel's launches."""
+    from repro_torch.utils import pytree as pt
+    cfg, params = ctx["cfg"], ctx["params"]
+    C = len(FLEET_RANKS)
+    tenants = [f"client{c}" for c in range(C)]
+    for c, t in enumerate(tenants):
+        check(store.rank_of(t) == FLEET_RANKS[c], f"{label}: the store "
+              f"reads back {t}'s rank {FLEET_RANKS[c]}")
+    rng = np.random.default_rng(9)
+    reqs = [(t, rng.integers(0, cfg.vocab_size,
+                             size=int(rng.integers(16, PAD_W + 1))
+                             ).astype(np.int32))
+            for t in [tenants[i % C] for i in range(7)] + [None]]
+    torch.cuda.reset_peak_memory_stats()
+    _, st, counts = serve(torch, engine(params, cfg, store), reqs, label,
+                          expect={kernel: 2})
+    report = engine_report(label, st, len(reqs),
+                           torch.cuda.max_memory_allocated())
+    batch, last = admitted_batch(torch, store, reqs)
+    logits = prefill_logits(torch, batch, last)
+    owners = [None if t is None else tenants.index(t) for t, _ in reqs[:ROWS]]
+
+    def own_logits(base, depth):
+        """Each row's logits from its own client's adapter (the bare
+        backbone for the null tenant), plain path."""
+        out = None
+        for c in set(owners):
+            tree = base if c is None else pt.merge_trees(base, own[c])
+            y = logits(tree, cfg, depth, "torch")
+            sel = torch.tensor([o == c for o in owners], device="cuda")
+            out = y if out is None else torch.where(sel[:, None], y, out)
+        return out
+
+    def extra(f32):
+        base = pt.filter_tree(f32, lambda p: not re.search(
+            r"/(pool_|bgmv_)\w+$", p))
+        own_f32 = own_logits(base, cfg.n_layers)
+        # how far the adapters move the logits, printed beside the check
+        report["adapter_effect_f32"] = rel_err(
+            own_f32, logits(base, cfg, cfg.n_layers, "torch"))[0]
+        return {"kernel_vs_own_adapter_f32": (rel_err(
+            logits(f32, cfg, cfg.n_layers, None), own_f32)[0],
+            LOGITS_F32_TOL)}
+    tree = pt.merge_trees(params, store.overlay())
+    report["prefill_logits"] = logits_checks(
+        torch, label, tree, cfg, logits, extra, depths=(CHECK_DEPTH,))
+    err = rel_err(logits(tree, cfg, CHECK_DEPTH, None),
+                  own_logits(params, CHECK_DEPTH))[0]
+    check(err <= TOL["bfloat16"], f"{label} prefill logits, {CHECK_DEPTH} "
+          f"layers, bf16 weights, kernel vs each client's own adapter "
+          f"(plain): {err:.3e} <= {TOL['bfloat16']}")
+    report["prefill_logits"]["kernel_vs_own_adapter_bf16"] = err
+    print(f"{label}: the clients' adapters move the f32 logits by "
+          f"{report['adapter_effect_f32']:.3e} of max |logit|")
+    return report, counts[kernel]
+
+
+def phase_fleet(torch, ctx):
+    """Phase 9: mixed-rank fleets (ranks 2/4/8/16) through
+    ``run_federated`` at llama2-7b full width on phase 3's backbone for
+    fedlora_opt and the three rank-aware methods, each with its own
+    checks; fedlora_opt's clients served through ``bgmv_mag`` and
+    lora_exact's through ``bgmv``, each at its own rank."""
+    from repro_torch.core import aggregation as agg
+    from repro_torch.fed.simulate import FedHyper, client
+    from repro_torch.serve import AdapterStore
+    from repro_torch.utils import pytree as pt
+
+    cfg, params = ctx["cfg"], ctx["params"]
+    C = len(FLEET_RANKS)
+    runs, keep = {}, {}
+    for name, server_rank in FLEET_RUNS:
+        label = name + (f"@{server_rank}" if server_rank else "")
+        hp = FedHyper(method=name, server_rank=server_rank, **FLEET_HP)
+        checks = {}
+        res, sim, log, wall, peak = run_checked(
+            torch, cfg, params, hp, ctx["fed_data"],
+            fleet_hooks(torch, name, checks))
+        alloc = server_rank or max(FLEET_RANKS)
+        check(sim.alloc_rank == alloc and all(
+            x.shape[-1] == alloc for p, x in pt.tree_leaves_with_path(
+                sim.adapter_template) if p.endswith(("/lora_A", "/A_dir"))),
+              f"{label}: adapters allocated at rank {alloc}")
+        comm = "all_gather" if name == "lora_exact" else "psum"
+        check(agg.comm_class(sim.method) == comm, f"{label}: billed as {comm}")
+        want = hp.rounds * sum(comm_formula(
+            sim.adapter_template, EXPECT[name].get("keep"), comm, C, 0.0, r)
+            for r in FLEET_RANKS)
+        check(res.comm_bytes == want == FLEET_COMM_BYTES.get(name, want),
+              f"{label}: comm bytes {res.comm_bytes} = the {comm} formula "
+              f"with each client at its own rank ({want})")
+        steps = [1e3 * t for t in log["stage1_step"]]
+        runs[label] = {
+            "comm": comm, "alloc_rank": alloc, "wall_s": wall,
+            "peak_bytes": peak,
+            "stage_wall_s": {k: v for k, v in log.items() if k != "rounds"},
+            "stage1_step_ms": steps,
+            "stage1_step_cpu_ms": [1e3 * t for t in log["stage1_step_cpu"]],
+            "warm_step_ms": steps[-1],       # the first step warms up
+            "train_ce": res.history[0]["train_ce"],
+            "global_acc": res.global_acc, "local_acc": res.local_acc,
+            "comm_bytes": res.comm_bytes, "checks": checks}
+        print(f"fleet {label}: " + json.dumps(runs[label]))
+        if label in ("fedlora_opt", "lora_exact"):
+            keep[label] = (sim.server_model if name == "fedlora_opt"
+                           else None,
+                           [client(sim.client_adapters, c) for c in range(C)])
+        del res, sim
+        gc.collect()
+        torch.cuda.empty_cache()
+    report = {"runs": runs}
+
+    # --- fedlora_opt's clients as dora_mag tenants at their own ranks -----
+    server, own = keep.pop("fedlora_opt")
+    for c, r in enumerate(FLEET_RANKS):
+        for p, x in pt.tree_leaves_with_path(own[c]):
+            if not p.endswith("/dB_mag") and not torch.equal(
+                    x, rank_rows(p, pt.tree_get(server, p), r)):
+                raise CheckFailed(f"fleet client {c}: {p} is not the server "
+                                  f"model cut to its rank {r}")
+    above = int(sum(torch.count_nonzero(x[..., min(FLEET_RANKS):])
+                    for p, x in pt.tree_leaves_with_path(server)
+                    if p.endswith("/dA_dir")))
+    check(above > 0, f"fleet: the stage-2 server model's dA_dir is nonzero "
+          f"above rank {min(FLEET_RANKS)} ({above} elements), so the pool's "
+          f"per-slot rank decides what a tenant reads")
+    mag = AdapterStore(params, cfg, n_slots=8, kind="dora_mag", shared=server,
+                       device="cuda")
+    check(mag.rank == max(FLEET_RANKS), f"fleet: dora_mag pool at the server "
+          f"model's rank {max(FLEET_RANKS)}")
+    for c, r in enumerate(FLEET_RANKS):
+        mag.register(f"client{c}", pt.filter_tree(
+            own[c], lambda p: p.endswith("/dB_mag")), rank=r)
+    report["serve_dora_mag"], n_mag = fleet_serve(
+        torch, ctx, "fleet dora_mag", mag, own, "bgmv_mag")
+    del mag, server, own
+
+    # --- lora_exact's clients as pairs tenants at their own ranks ---------
+    _, own = keep.pop("lora_exact")
+    pairs = AdapterStore(params, cfg, n_slots=8, kind="pairs",
+                         rank=max(FLEET_RANKS), device="cuda")
+    for c, r in enumerate(FLEET_RANKS):
+        pairs.register(f"client{c}", own[c], rank=r)
+    report["serve_pairs"], n_pairs = fleet_serve(
+        torch, ctx, "fleet pairs", pairs, own, "bgmv")
+    del pairs, own
+    return report, {"bgmv_mag": n_mag, "bgmv": n_pairs}
 
 
 def quant_bytes(tree):
@@ -2519,6 +2877,12 @@ def main():
         report["baselines"], baseline_launches = phase_baselines(torch, ctx)
         launches["bgmv"] += baseline_launches
         print(f"phase 8 (baselines) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        report["fleet"], fleet_launches = phase_fleet(torch, ctx)
+        for name, n in fleet_launches.items():
+            launches[name] += n
+        print(f"phase 9 (mixed-rank fleets) took "
+              f"{time.perf_counter() - t0:.1f} s")
         del ctx["params"]
         gc.collect()
         torch.cuda.empty_cache()
@@ -2552,6 +2916,7 @@ def main():
                           "bound_ms", "eager_ms", "bound_ratio",
                           "factor_gbps")},
              "build": bgmv_build,
+             "launches_phase9_fleet_serve": fleet_launches[name],
              **({"launches_phase7_training_serve": train_launches}
                 if name == "bgmv_mag" else
                 {"launches_phase8_baselines_serve": baseline_launches})}))

@@ -1,17 +1,17 @@
 """Federated aggregation (paper Eqs. 5-8), the baselines' aggregators and
-their comm accounting (port of ``repro/core/aggregation.py`` for
-uniform-rank fleets).
+their comm accounting (port of ``repro/core/aggregation.py``).
 
 Client adapter trees carry a leading client axis C on every leaf.  The
 decomposed aggregation of Eqs. 5-8 is "mean every leaf over the client
 axis" on the decomposed representation, and the raw-LoRA baseline is
 the same mean on {lora_A, lora_B}.  Beside the mean: the trimmed mean,
 FedALT's mean with the personal pair zeroed, the FedBuff staleness
-discount and the compressed uplinks (stochastic int8, top-k).  The
-rank-aware family of mixed-rank fleets is ROADMAP A8b.
+discount, the compressed uplinks (stochastic int8, top-k) and the
+rank-aware family of mixed-rank fleets (zero-pad, replication, exact).
 
-Every aggregator takes the client-stacked tree (plus optional weights)
-and returns the aggregate without the client axis.  ``CollectiveAgg``
+Every aggregator takes the client-stacked tree (plus optional weights,
+plus ``ranks`` for the rank-aware family) and returns the aggregate
+without the client axis.  ``CollectiveAgg``
 records only what the comm accounting reads of the reference's
 collective forms (the comm class and the top-k ratio); the shard_map
 collectives of the production round engine themselves are ROADMAP A11.
@@ -25,7 +25,9 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from repro_torch.core import peft
 from repro_torch.utils import pytree as pt
 
 Params = Any
@@ -105,6 +107,133 @@ def aggregate_zero_rx(method) -> str | None:
     ``fedavg_excluding`` partial when that field is unset; every
     registered method that excludes leaves sets it."""
     return getattr(method, "server_zero_rx", None)
+
+
+# ---------------------------------------------------------------------------
+# rank-aware aggregation (mixed-rank fleets)
+# ---------------------------------------------------------------------------
+#
+# Mixed-rank client adapters live zero-padded at r_max (see
+# peft.client_rank_masks).  Three policies over that layout:
+#
+#   zeropad_fedavg      the plain weighted mean, which IS zero-pad
+#                       averaging on padded trees (it dilutes high-rank
+#                       rows, Koo et al.);
+#   replication_fedavg  rank row j averages only the clients that own it;
+#   exact_fedavg        Σ wᵢ·AᵢBᵢ exactly, from the weighted pairs stacked
+#                       along the rank axis, re-factored to the server
+#                       rank by truncated SVD (Nguyen et al.).
+
+
+def zeropad_fedavg(client_adapters: Params, weights=None, *,
+                   ranks=None) -> Params:
+    """The naive mixed-rank baseline.  ``ranks`` is accepted for the
+    family's signature and unused: the zero padding above each client's
+    rank does the zero-pad averaging by construction."""
+    del ranks
+    return fedavg(client_adapters, weights)
+
+
+def _client_weights(x0, weights):
+    """Normalized (C,) f32 client weights on ``x0``'s device (uniform
+    for None)."""
+    C = x0.shape[0]
+    if weights is None:
+        return torch.full((C,), 1.0 / C, device=x0.device)
+    w = torch.as_tensor(weights, dtype=torch.float32).to(x0.device)
+    return w / torch.sum(w)
+
+
+def replication_fedavg(client_adapters: Params, weights=None, *,
+                       ranks) -> Params:
+    """Coverage-weighted mean over the client axis: rank row j of a
+    rank-axis leaf averages only the clients with rank > j, so low-rank
+    clients never dilute the rows they do not own; a row no client owns
+    is 0.  Leaves without a rank axis get the plain weighted mean, and
+    on a uniform fleet this is ``fedavg``."""
+    leaves = pt.tree_leaves(client_adapters)
+    w = _client_weights(leaves[0], weights)
+    covers = peft.client_rank_masks(
+        pt.tree_map(lambda x: x[0], client_adapters), ranks)
+
+    def one(path, x):
+        cover = pt.tree_get(covers, path)
+        wb = w.reshape((-1,) + (1,) * (x.dim() - 1))
+        num = torch.sum(x * cover * wb, dim=0)
+        den = torch.sum(cover * wb, dim=0)
+        return torch.where(den > 0, num / torch.clamp(den, min=1e-12),
+                           torch.zeros((), dtype=num.dtype,
+                                       device=num.device))
+
+    return pt.tree_map_with_path(one, client_adapters)
+
+
+def _refactor_pair(a_cat, b_cat, r_out: int):
+    """Best rank-``r_out`` factorization of ``a_cat @ b_cat`` through a
+    QR-reduced SVD.  a_cat (..., d_in, K), b_cat (..., K, d_out) with
+    K = Σ rᵢ; exact whenever rank(a_cat @ b_cat) ≤ r_out.  The singular
+    values split as √s into each factor; the result is zero-padded back
+    to ``r_out`` columns / rows when the core has fewer."""
+    qa, ra = torch.linalg.qr(a_cat)                    # (.., d_in, k)(k, K)
+    qb, rb = torch.linalg.qr(b_cat.transpose(-1, -2))  # (.., d_out, k')
+    m = ra @ rb.transpose(-1, -2)                      # (.., k, k')
+    # on the card, cuSOLVER's QR-iteration SVD (gesvd): its default, the
+    # Jacobi gesvdj, leaves the products ~1e-5 off an f64 SVD in f32,
+    # gesvd ~1e-6 as LAPACK on the CPU (scripts/exact_fedavg_accuracy.py)
+    u, s, vt = torch.linalg.svd(m, full_matrices=False,
+                                driver="gesvd" if m.is_cuda else None)
+    take = min(r_out, s.shape[-1])
+    root = torch.sqrt(s[..., :take])
+    a_new = (qa @ u[..., :, :take]) * root[..., None, :]
+    b_new = root[..., :, None] * (vt[..., :take, :] @ qb.transpose(-1, -2))
+    if take < r_out:                                   # pad back to r_out
+        a_new = F.pad(a_new, (0, r_out - take))
+        b_new = F.pad(b_new, (0, 0, 0, r_out - take))
+    return a_new, b_new
+
+
+def exact_fedavg(client_adapters: Params, weights=None, *, ranks=None,
+                 r_out: int | None = None) -> Params:
+    """Exact product aggregation for raw-LoRA pairs.
+
+    Σ wᵢ·AᵢBᵢ is the product of the client-concatenated factors
+    [w₁A₁ | w₂A₂ | ...] @ [B₁; B₂; ...], client-major along the rank
+    axis; that stacked pair (rank Σ rᵢ) is re-factored to ``r_out``
+    (default: the allocated rank) by truncated SVD, so the aggregate
+    keeps the fleet's leaf shapes.  It is the best rank-``r_out``
+    approximation of the exact mean, and the exact mean whenever
+    rank(Σ wᵢ·AᵢBᵢ) ≤ r_out.  The factors are fixed only up to one sign
+    per rank column.  QR and SVD run on the adapters' own device in
+    (at least) f32.  ``ranks`` is accepted for the family's signature:
+    the padded columns are zero and only add zero singular values."""
+    del ranks
+    leaves = pt.tree_leaves(client_adapters)
+    w = _client_weights(leaves[0], weights)
+    paths = set(pt.tree_paths(client_adapters))
+    a_paths = sorted(p for p in paths if p.endswith("lora_A"))
+    if not a_paths or any(p.rsplit("/", 1)[0] + "/lora_B" not in paths
+                          for p in a_paths):
+        raise ValueError("exact_fedavg needs raw-LoRA {lora_A, lora_B} "
+                         "pairs (decomposed/dual trees have no exact "
+                         "product aggregation)")
+
+    out = fedavg(client_adapters, w)              # non-pair leaves: mean
+    for pa in a_paths:
+        prefix = pa.rsplit("/", 1)[0]
+        A = pt.tree_get(client_adapters, pa)       # (C, *lead, d_in, r)
+        B = pt.tree_get(client_adapters, f"{prefix}/lora_B")
+        C = A.shape[0]
+        dt = torch.promote_types(A.dtype, torch.float32)
+        Aw = A.to(dt) * w.to(dt).reshape((C,) + (1,) * (A.dim() - 1))
+        # client-major concat along the rank axis
+        a_cat = torch.movedim(Aw, 0, -2).reshape(
+            *A.shape[1:-1], C * A.shape[-1])       # (*lead, d_in, C·r)
+        b_cat = torch.movedim(B.to(dt), 0, -3).reshape(
+            *B.shape[1:-2], C * B.shape[-2], B.shape[-1])
+        a_new, b_new = _refactor_pair(a_cat, b_cat, r_out or A.shape[-1])
+        pt.set_leaf(out, pa, a_new.to(A.dtype))
+        pt.set_leaf(out, f"{prefix}/lora_B", b_new.to(B.dtype))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -227,40 +356,49 @@ def broadcast_to_clients(agg: Params, n_clients: int) -> Params:
 
 
 def client_rebroadcast(aggregated: Params, own_adapters: Params,
-                       keep_rx=None) -> Params:
+                       keep_rx=None, cover: Params | None = None) -> Params:
     """One client's view of the rebroadcast aggregate: leaves matching the
     keep-local regex keep the client's ``own_adapters`` values (personal
-    state never leaves the client).  ``keep_rx``: compiled pattern, regex
-    string or None.  (The reference's rank re-mask, ``cover``, belongs to
-    mixed-rank fleets: ROADMAP A8b.)"""
-    if keep_rx is None:
-        return aggregated
-    rx = re.compile(keep_rx) if isinstance(keep_rx, str) else keep_rx
-    return pt.tree_map_with_path(
-        lambda p, leaf: pt.tree_get(own_adapters, p)
-        if rx.search(p) else leaf, aggregated)
+    state never leaves the client), and on a mixed-rank fleet the result
+    is re-masked by the client's rank ``cover``: a rank-r client
+    receives the first r rank rows of the server model.  ``keep_rx``:
+    compiled pattern, regex string or None."""
+    out = aggregated
+    if keep_rx is not None:
+        rx = re.compile(keep_rx) if isinstance(keep_rx, str) else keep_rx
+        out = pt.tree_map_with_path(
+            lambda p, leaf: pt.tree_get(own_adapters, p)
+            if rx.search(p) else leaf, out)
+    if cover is not None:
+        out = peft.apply_rank_masks(out, cover)
+    return out
 
 
 def rebroadcast_keep_personal(aggregated: Params, client_adapters: Params,
-                              keep_rx=None) -> Params:
+                              keep_rx=None,
+                              rank_masks: Params | None = None) -> Params:
     """Broadcast the aggregate to every client of a client-stacked tree;
-    leaves matching ``keep_rx`` keep each client's own value."""
+    leaves matching ``keep_rx`` keep each client's own value, and with
+    ``rank_masks`` (``peft.client_rank_masks``) each client is re-masked
+    to its own rank."""
     C = pt.tree_leaves(client_adapters)[0].shape[0]
     return client_rebroadcast(broadcast_to_clients(aggregated, C),
-                              client_adapters, keep_rx)
+                              client_adapters, keep_rx, rank_masks)
 
 
 def comm_bytes_per_round(adapters_one_client: Params,
                          exclude_rx: str | None = None,
+                         rank: int | None = None,
                          comm: str = "psum",
                          n_clients: int | None = None,
                          topk_ratio: float = 0.01) -> int:
     """Per-client bytes for one round's aggregation: adapter leaves only
     (the frozen backbone never moves).  Leaves matching ``exclude_rx``
-    stay client-local and are not billed.  (Billing a mixed-rank fleet's
-    client at its own rank, the reference's ``rank``, is ROADMAP A8b.)
-    Per transmitted leaf of n elements of ``itemsize`` bytes, by comm
-    class:
+    stay client-local and are not billed.  ``rank``: the client's own
+    rank in a mixed-rank fleet; a rank-axis leaf is billed at
+    min(rank, allocated rank), since the padding rows are zero and never
+    leave the client.  Per transmitted leaf of n elements of
+    ``itemsize`` bytes, by comm class:
 
       psum        2·n·itemsize (updates up, aggregate down)
       all_gather  (C+1)·n·itemsize (needs ``n_clients``)
@@ -279,8 +417,12 @@ def comm_bytes_per_round(adapters_one_client: Params,
         raise ValueError(f"unknown comm class {comm!r} "
                          "(psum | all_gather | q8 | topk)")
     total = 0
-    for leaf in pt.tree_leaves(tree):
-        n, sz = leaf.numel(), leaf.element_size()
+    for path, leaf in pt.tree_leaves_with_path(tree):
+        shape = list(leaf.shape)
+        ax = peft.rank_axis(path) if rank is not None else None
+        if ax is not None:
+            shape[ax] = min(rank, shape[ax])
+        n, sz = math.prod(shape), leaf.element_size()
         if comm == "psum":
             total += 2 * n * sz
         elif comm == "all_gather":

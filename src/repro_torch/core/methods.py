@@ -7,8 +7,7 @@ regularizer) and which leaves stay client-local when the aggregate is
 rebroadcast.  ``fed/simulate.py`` and ``core/fedlora.py`` consume only
 this interface.
 
-Ported entries (every method of the reference that runs on a
-uniform-rank fleet):
+Registered (every method of the reference):
 
   fedlora_opt       the paper's pipeline: decomposed adapters, Eqs. 5-8
                     aggregation, stage masks, dB_mag kept client-local
@@ -23,9 +22,13 @@ uniform-rank fleet):
   lora_fedavg_q8    raw LoRA + FedAvg over a stochastic int8 uplink
   lora_fedavg_topk  raw LoRA + FedAvg over a top-k (5%) uplink
 
-The reference's three rank-aware methods of mixed-rank fleets are
-ROADMAP A8b: ``get_method`` raises NotImplementedError naming it, and
-``FedMethod`` has no ``het_ranks`` / ``rank_aware`` fields yet.
+Mixed-rank fleets (adapters allocated at r_max, per-client rank masks):
+``het_ranks`` methods accept ``FedHyper.client_ranks``, and three
+rank-aware aggregators take the fleet's ranks:
+
+  lora_zeropad      naive zero-pad averaging (degradation baseline)
+  lora_replication  coverage-weighted averaging (replication-style)
+  lora_exact        exact Σw·AB via stacked factors + truncated SVD
 """
 from __future__ import annotations
 
@@ -38,9 +41,6 @@ from repro_torch.core import peft
 
 Params = Any
 MaskFn = Callable[[Params], Params]
-
-# registered in the reference, not ported yet (ROADMAP A8b)
-UNPORTED = ("lora_zeropad", "lora_replication", "lora_exact")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +65,12 @@ class FedMethod:
     # True → the paper's staged pipeline (aggregate → global stage on the
     # server mixture → final per-client stage)
     pipeline: bool = False
+    # True → the adapter factory accepts rank= and its leaves follow
+    # peft.rank_axis, so the engine can run a mixed-rank fleet
+    het_ranks: bool = False
+    # True → ``aggregate`` accepts ranks=(C,) (the rank-aware family);
+    # the engine passes the fleet's ranks
+    rank_aware: bool = False
     # the collective form's billing record (aggregation.CollectiveAgg;
     # the collective itself is ROADMAP A11); None → a mean, billed at
     # the psum rate
@@ -107,10 +113,6 @@ def get_method(name: str) -> FedMethod:
     try:
         return _REGISTRY[name]
     except KeyError:
-        if name in UNPORTED:
-            raise NotImplementedError(
-                f"federated method {name!r} is not ported yet "
-                f"(ROADMAP A8b)") from None
         raise ValueError(
             f"unknown federated method {name!r}; available: "
             f"{', '.join(available_methods())}") from None
@@ -122,6 +124,7 @@ def available_methods() -> list[str]:
 
 register(FedMethod(
     name="fedlora_opt",
+    het_ranks=True,
     make_adapter=partial(peft.add_lora, decomposed=True),
     train_mask=peft.mask_stage_local_pretrain,
     global_mask=peft.mask_stage_global,
@@ -135,6 +138,7 @@ register(FedMethod(
 
 register(FedMethod(
     name="lora",
+    het_ranks=True,
     make_adapter=partial(peft.add_lora, decomposed=False),
     train_mask=peft.mask_all,
     description="raw LoRA + FedAvg (FedIT-style baseline)",
@@ -142,6 +146,7 @@ register(FedMethod(
 
 register(FedMethod(
     name="ffa_lora",
+    het_ranks=True,
     make_adapter=partial(peft.add_lora, decomposed=False),
     train_mask=peft.mask_ffa,
     description="LoRA with A frozen (FFA-LoRA, Sun et al.)",
@@ -149,6 +154,7 @@ register(FedMethod(
 
 register(FedMethod(
     name="fedprox",
+    het_ranks=True,
     make_adapter=partial(peft.add_lora, decomposed=False),
     train_mask=peft.mask_all,
     prox=True,
@@ -175,6 +181,7 @@ _FEDALT_LOCAL = r"local_[AB]$"
 
 register(FedMethod(
     name="fedalt",
+    het_ranks=True,
     make_adapter=peft.add_dual_lora,
     train_mask=peft.mask_all,
     # the individual pair never reaches the server: zeroed in the
@@ -190,6 +197,7 @@ register(FedMethod(
 
 register(FedMethod(
     name="lora_trimmed",
+    het_ranks=True,
     make_adapter=partial(peft.add_lora, decomposed=False),
     train_mask=peft.mask_all,
     aggregate=partial(agg.trimmed_fedavg, trim_ratio=0.25),
@@ -200,6 +208,7 @@ register(FedMethod(
 
 register(FedMethod(
     name="lora_fedbuff",
+    het_ranks=True,
     make_adapter=partial(peft.add_lora, decomposed=False),
     train_mask=peft.mask_all,
     aggregate=agg.StalenessFedAvg(alpha=0.5),
@@ -211,6 +220,7 @@ register(FedMethod(
 
 register(FedMethod(
     name="lora_fedavg_q8",
+    het_ranks=True,
     make_adapter=partial(peft.add_lora, decomposed=False),
     train_mask=peft.mask_all,
     aggregate=agg.CompressedFedAvg(mode="q8"),
@@ -225,6 +235,7 @@ _TOPK_UPLINK = agg.CompressedFedAvg(mode="topk", topk_ratio=0.05)
 
 register(FedMethod(
     name="lora_fedavg_topk",
+    het_ranks=True,
     make_adapter=partial(peft.add_lora, decomposed=False),
     train_mask=peft.mask_all,
     aggregate=_TOPK_UPLINK,
@@ -232,4 +243,41 @@ register(FedMethod(
     description=("raw LoRA + FedAvg over a magnitude top-k sparsified "
                  "uplink (5% density, deterministic; COMPRESSED comm "
                  "class)"),
+))
+
+register(FedMethod(
+    name="lora_zeropad",
+    het_ranks=True,
+    rank_aware=True,
+    make_adapter=partial(peft.add_lora, decomposed=False),
+    train_mask=peft.mask_all,
+    aggregate=agg.zeropad_fedavg,
+    description=("raw LoRA, mixed-rank fleet, naive zero-pad averaging "
+                 "(the degradation baseline of Koo et al.)"),
+))
+
+register(FedMethod(
+    name="lora_replication",
+    het_ranks=True,
+    rank_aware=True,
+    make_adapter=partial(peft.add_lora, decomposed=False),
+    train_mask=peft.mask_all,
+    aggregate=agg.replication_fedavg,
+    collective=agg.CollectiveAgg("psum"),
+    description=("raw LoRA, mixed-rank fleet, coverage-weighted "
+                 "(replication-style) averaging — rank row j averages "
+                 "only the clients that own it (cf. Koo et al.)"),
+))
+
+register(FedMethod(
+    name="lora_exact",
+    het_ranks=True,
+    rank_aware=True,
+    make_adapter=partial(peft.add_lora, decomposed=False),
+    train_mask=peft.mask_all,
+    aggregate=agg.exact_fedavg,
+    collective=agg.CollectiveAgg("all_gather"),
+    description=("raw LoRA, mixed-rank fleet, exact Σw·AB aggregation "
+                 "via stacked factors + truncated-SVD re-factorization "
+                 "(cf. Nguyen et al.)"),
 ))

@@ -11,8 +11,8 @@ full forward params.  The zoo:
   add_adapter_tuning  Houlsby bottleneck adapters after each dense FFN
 
 with the trainable masks that drive ``optim.masked`` (FFA-LoRA's is
-``mask_ffa``).  The per-client rank masks of mixed-rank fleets are
-ROADMAP A8b.
+``mask_ffa``) and the per-client rank masks of mixed-rank fleets
+(``client_rank_masks``, over the axis ``rank_axis`` names).
 
 Random draws come from an explicit ``torch.Generator`` and differ from
 the reference's threefry streams, so parity tests carry the JAX
@@ -134,6 +134,81 @@ def add_adapter_tuning(base: Params, cfg: ArchConfig,
                     torch.zeros((*lead, bottleneck, d_out),
                                 device=kern.device))
     return overlay
+
+
+# ---------------------------------------------------------------------------
+# heterogeneous ranks (per-client adapter capacity)
+# ---------------------------------------------------------------------------
+#
+# A mixed-rank fleet keeps every adapter tree allocated at r_max, so the
+# client axis stays stackable; a per-leaf rank mask zeroes the rows /
+# columns above each client's own rank.  This table is the one source of
+# truth for which axis of each adapter leaf is the rank axis.
+
+_RANK_AXIS = {
+    "lora_A": -1, "local_A": -1, "A_dir": -1, "dA_dir": -1,
+    "lora_B": -2, "local_B": -2, "B_dir": -2,
+    "B_mag": -1, "dB_mag": -1,
+}
+
+
+def rank_axis(path: str) -> int | None:
+    """The axis of the adapter leaf at ``path`` that indexes LoRA rank
+    (negative, relative to the per-client leaf), or None for leaves with
+    no rank dimension (A_mag, prompt embeddings, Houlsby adapters)."""
+    return _RANK_AXIS.get(path.rsplit("/", 1)[-1])
+
+
+def fleet_alloc_rank(client_ranks, n_clients: int,
+                     server_rank: int = 0) -> int:
+    """Validate a mixed-rank fleet's per-client ranks and return the
+    allocation rank: ``server_rank``, or the fleet's largest rank when
+    it is 0."""
+    client_ranks = tuple(int(r) for r in client_ranks)
+    if len(client_ranks) != n_clients:
+        raise ValueError(
+            f"client_ranks has {len(client_ranks)} entries for "
+            f"{n_clients} clients")
+    if min(client_ranks) < 1:
+        raise ValueError(f"client ranks must be >= 1, got {client_ranks}")
+    alloc = int(server_rank or max(client_ranks))
+    if alloc < max(client_ranks):
+        raise ValueError(
+            f"server_rank {server_rank} is below the fleet max "
+            f"{max(client_ranks)}")
+    return alloc
+
+
+def client_rank_masks(adapters: Params, ranks) -> Params:
+    """Per-client 0/1 f32 masks over the rank axis of every adapter leaf.
+
+    ``ranks``: the C per-client ranks.  Each mask leaf has shape
+    (C, 1, ..., r, ..., 1), broadcasting against the client-stacked
+    leaf: 1 where the rank index is below the client's rank, 0 above.
+    A leaf with no rank axis gets all-ones (C, 1, ..., 1).  Masks land
+    on each leaf's device."""
+    ranks = torch.as_tensor(ranks, dtype=torch.int64).reshape(-1)
+    C = ranks.shape[0]
+
+    def one(path, x):
+        ax = rank_axis(path)
+        if ax is None:
+            return torch.ones((C,) + (1,) * x.dim(), device=x.device)
+        ax_abs = x.dim() + ax                  # absolute, per-client leaf
+        shape = [1] * (x.dim() + 1)
+        shape[ax_abs + 1] = x.shape[ax_abs]
+        keep = (torch.arange(x.shape[ax_abs]).reshape(shape)
+                < ranks.reshape((C,) + (1,) * x.dim()))
+        return keep.to(device=x.device, dtype=torch.float32)
+
+    return pt.tree_map_with_path(one, adapters)
+
+
+def apply_rank_masks(client_adapters: Params, masks: Params) -> Params:
+    """Zero the rows above each client's rank (masks broadcast per leaf,
+    each leaf keeps its dtype)."""
+    return pt.tree_map2(lambda x, m: x * m.to(x.dtype), client_adapters,
+                        masks)
 
 
 def validate_client_weights(client_weights, n_clients: int) -> None:

@@ -25,8 +25,15 @@ adapter leaf, θ_ref the round reference: the client adapters as the
 first round found them, then the rebroadcast after each ``aggregate``.
 Stages 2 and 3 have no prox term.
 
-Not ported yet: heterogeneous ranks (ROADMAP A8b); cohort rounds,
-checkpoints and obs spans (ROADMAP A10).
+Mixed-rank fleets (``FedHyper.client_ranks``): adapters are allocated
+at ``server_rank`` or the fleet's largest rank, the client stack is
+masked to each client's rank, and each stage-1 / stage-3 update is
+masked after the clip and the masked AdamW, before it is applied.  The
+stage-2 server model trains at the full allocated rank, unmasked; each
+rebroadcast re-masks it to every client's rank.  Rank-aware aggregators
+get the fleet's ranks, and each client is billed at its own rank.
+
+Not ported yet: cohort rounds, checkpoints and obs spans (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -66,14 +73,21 @@ class FedHyper:
     pipeline: bool = True          # global→local staging (Fig. 3 ablation)
     clip: float = 1.0
     seed: int = 0
-    client_ranks: tuple = None     # heterogeneous fleet (A8b)
+    # mixed-rank fleet: one LoRA rank per client (len == n_clients);
+    # None → every client at cfg.lora_rank
+    client_ranks: tuple = None
+    # a mixed-rank fleet's allocated rank (0 → the fleet's max); at
+    # r_server ≥ Σ rᵢ exact_fedavg keeps Σ wᵢ·AᵢBᵢ exactly.  Ignored on
+    # uniform fleets
+    server_rank: int = 0
     # per-client aggregation weights (len == n_clients); None → uniform
     client_weights: tuple = None
 
     def __post_init__(self):
         if self.client_ranks is not None:
-            object.__setattr__(self, "client_ranks",
-                               tuple(self.client_ranks))
+            ranks = tuple(int(r) for r in self.client_ranks)
+            object.__setattr__(self, "client_ranks", ranks)
+            peft.fleet_alloc_rank(ranks, self.n_clients, self.server_rank)
         if self.client_weights is not None:
             weights = tuple(float(w) for w in self.client_weights)
             object.__setattr__(self, "client_weights", weights)
@@ -108,9 +122,6 @@ class FedSim:
                 "use_fused_dora is forward/serving-only (the kernel defines "
                 "no backward); training through FedSim requires the plain "
                 "adapter path: construct with use_fused_dora=False")
-        if hp.client_ranks is not None:
-            raise NotImplementedError("heterogeneous-rank fleets are not "
-                                      "ported yet (ROADMAP A8b)")
         self.cfg, self.hp = cfg, hp
         self.device = resolve_device(device)
         self.method = get_method(hp.method)
@@ -121,8 +132,24 @@ class FedSim:
             base = M.init_params(generator(hp.seed), cfg, device=self.device)
         check_on(pt.tree_leaves(base)[0], self.device, "base")
         self.base = base
-        ad = self.method.make_adapter(base, cfg, generator(hp.seed + 1))
+        gen_ad = generator(hp.seed + 1)
+        if hp.client_ranks is not None:
+            if not self.method.het_ranks:
+                raise ValueError(
+                    f"method {self.method.name!r} has no rank dimension "
+                    "(het_ranks=False); client_ranks requires a "
+                    "LoRA-family method")
+            self.alloc_rank = peft.fleet_alloc_rank(
+                hp.client_ranks, hp.n_clients, hp.server_rank)
+            ad = self.method.make_adapter(base, cfg, gen_ad,
+                                          rank=self.alloc_rank)
+        else:
+            self.alloc_rank = cfg.lora_rank
+            ad = self.method.make_adapter(base, cfg, gen_ad)
+        # the template stays unmasked; the client stack is masked
         self.adapter_template = ad
+        self.rank_mask = (peft.client_rank_masks(ad, hp.client_ranks)
+                          if hp.client_ranks is not None else None)
         self.train_mask = self.method.train_mask(ad)
         self.global_mask = self.method.stage_global_mask(ad)
         self.local_mask = self.method.stage_local_mask(ad)
@@ -144,6 +171,9 @@ class FedSim:
         self.opt_local = optim.chain_clip(
             optim.masked(optim.adamw(hp.lr), self.local_mask), hp.clip)
         self.client_adapters = agg.broadcast_to_clients(ad, hp.n_clients)
+        if self.rank_mask is not None:
+            self.client_adapters = peft.apply_rank_masks(
+                self.client_adapters, self.rank_mask)
         # stage 1's optimizer state and step counter carry across rounds
         self.opt_state = self._init_clients(self.opt)
         self._step = 0
@@ -190,9 +220,13 @@ class FedSim:
         return loss.detach(), {k: v.detach() for k, v in met.items()}, g
 
     def _step_one(self, adapters, opt_state, batch, gen, step, opt, lam,
-                  prox_ref=None):
+                  prox_ref=None, rmask=None):
+        """One step of one client; ``rmask``: its rank mask, applied to
+        the update (after the clip and AdamW, before it is applied)."""
         _, met, g = self.loss_and_grad(adapters, batch, gen, lam, prox_ref)
         upd, opt_state = opt.update(g, opt_state, adapters, step)
+        if rmask is not None:
+            upd = peft.apply_rank_masks(upd, rmask)
         met["grad_norm"] = pt.global_norm(g)
         return optim.apply_updates(adapters, upd), opt_state, met
 
@@ -200,11 +234,14 @@ class FedSim:
                       prox_ref=None):
         """One step of every client, one after another, on a stacked
         (C, B, S) batch → stacked adapters, state and (C,) metrics;
-        ``prox_ref``: the stacked FedProx reference, or None."""
+        ``prox_ref``: the stacked FedProx reference, or None.  A
+        mixed-rank fleet masks each client's update to its rank."""
+        rm = self.rank_mask
         outs = [self._step_one(client(adapters, c), client(opt_state, c),
                                client(batch, c), gen, step, opt, lam,
                                None if prox_ref is None
-                               else client(prox_ref, c))
+                               else client(prox_ref, c),
+                               None if rm is None else client(rm, c))
                 for c in range(self.hp.n_clients)]
         return tuple(stack_clients([o[i] for o in outs]) for i in range(3))
 
@@ -246,18 +283,27 @@ class FedSim:
             kwargs["step"] = self._step
         if getattr(self.method.aggregate, "needs_staleness", False):
             kwargs["staleness"] = torch.zeros((C,), dtype=torch.float32)
+        if self.method.rank_aware:
+            # a uniform fleet is the all-alloc_rank case
+            kwargs["ranks"] = self.hp.client_ranks or (self.alloc_rank,) * C
         aggregated = self.method.aggregate(self.client_adapters, **kwargs)
-        self.comm_bytes += C * agg.comm_bytes_per_round(
-            self.adapter_template, exclude_rx=self.method.keep_local,
-            comm=self._comm_class, n_clients=C, topk_ratio=self._topk_ratio)
+        # each client moves only its own rank rows (None: the allocation)
+        for r in self.hp.client_ranks or (None,) * C:
+            self.comm_bytes += agg.comm_bytes_per_round(
+                self.adapter_template, exclude_rx=self.method.keep_local,
+                rank=r, comm=self._comm_class, n_clients=C,
+                topk_ratio=self._topk_ratio)
         self.client_adapters = self._rebroadcast(aggregated)
         if self._prox_mu:
             self._round_ref = self.client_adapters
         return aggregated
 
     def _rebroadcast(self, aggregated):
+        """The aggregate to every client, keep-local leaves kept per
+        client, each client re-masked to its rank on a mixed-rank fleet
+        (a rank-r client receives the first r rank rows)."""
         return agg.rebroadcast_keep_personal(aggregated, self.client_adapters,
-                                             self._keep_rx)
+                                             self._keep_rx, self.rank_mask)
 
     def run_round(self, batches: list[dict], rng=None) -> dict:
         """Stage-1 local training, then the method's aggregation."""
@@ -273,7 +319,9 @@ class FedSim:
                      rng=None) -> Params:
         """Stage 2: train the global-stage leaves (ΔA_D for the paper,
         Eq. 9) on the server task mixture, from a fresh optimizer at step
-        0; rebroadcast the result (keep-local leaves stay) and return it."""
+        0, at the full allocated rank (no rank mask); rebroadcast the
+        result (keep-local leaves stay, each client re-masked to its
+        rank) and return it."""
         opt_state = self.opt_global.init(aggregated)
         for step, b in enumerate(server_batches):
             aggregated, opt_state, _ = self._step_one(

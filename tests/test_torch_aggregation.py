@@ -119,9 +119,7 @@ def test_registered_methods_match_reference(world, method):
     j, t = jmeth.get_method(method), tmeth.get_method(method)
     assert tagg.comm_class(t) == jagg.comm_class(j) == "psum"
     t_fields = {f.name for f in dataclasses.fields(tmeth.FedMethod)}
-    # the reference's fields for mixed-rank fleets (ROADMAP A8b)
-    assert ({f.name for f in dataclasses.fields(jmeth.FedMethod)} - t_fields
-            == {"het_ranks", "rank_aware"})
+    assert {f.name for f in dataclasses.fields(jmeth.FedMethod)} == t_fields
     for name in sorted(t_fields - {"make_adapter", "aggregate", "train_mask",
                                    "global_mask", "local_mask",
                                    "personal_reg"}):
@@ -142,15 +140,15 @@ def flat_mask(m):
 
 
 def test_unported_methods_raise_naming_a8():
-    """Only the rank-aware methods of mixed-rank fleets are left, and
-    they name A8b."""
-    assert tmeth.UNPORTED == ("lora_zeropad", "lora_replication",
-                              "lora_exact")
-    assert (set(tmeth.UNPORTED) | set(tmeth.available_methods())
-            == set(jmeth.available_methods()))
-    for name in tmeth.UNPORTED:
-        with pytest.raises(NotImplementedError, match="A8b"):
-            tmeth.get_method(name)
+    """No method is left unported: each of the reference's 14 resolves
+    to the port's method of that name (none raises naming A8b), and an
+    unknown name still raises."""
+    names = jmeth.available_methods()
+    assert len(names) == 14
+    assert tmeth.available_methods() == names
+    assert not hasattr(tmeth, "UNPORTED")
+    for name in names:
+        assert tmeth.get_method(name).name == name
     with pytest.raises(ValueError, match="unknown"):
         tmeth.get_method("no_such_method")
 

@@ -426,12 +426,12 @@ def test_local_round_matches_both_reference_loops():
 
 
 def test_unported_options_raise_naming_their_item():
-    """Mixed-rank fleets name A8b and cohort rounds and checkpoints A10;
-    client weights and the FedProx term now construct (held against the
-    reference by ``tests/test_torch_methods.py`` and
-    ``tests/test_torch_fed_methods.py``)."""
-    with pytest.raises(NotImplementedError, match="A8b"):
-        TSim(T_CFG, THyper(client_ranks=(2, 4, 4, 4)), device="cpu")
+    """Cohort rounds and checkpoints name A10; mixed-rank fleets, client
+    weights and the FedProx term construct (held against the reference
+    by ``tests/test_torch_het_ranks.py``, ``test_torch_het_fed.py``,
+    ``test_torch_methods.py`` and ``test_torch_fed_methods.py``)."""
+    ts = TSim(T_CFG, THyper(client_ranks=(2, 4, 4, 4)), device="cpu")
+    assert ts.alloc_rank == 4 and ts.rank_mask is not None
     ts = TSim(T_CFG, THyper(client_weights=(1, 1, 1, 2)), device="cpu")
     assert ts._base_weights.tolist() == [1.0, 1.0, 1.0, 2.0]
     ts = TSim(T_CFG, THyper(method="fedprox", prox_mu=0.1), device="cpu")

@@ -8,7 +8,11 @@ f32, rank 4; TF32 off.  Tolerance: every client adapter leaf after
 another order, through AdamW's eps regime: ``tests/test_torch_fed.py``),
 the history's CE within 1e-5 relative, comm bytes exactly; one step's
 loss within 1e-5 relative and the gradients of each new adapter kind
-(FedALT's dual pair, Houlsby, prompt) within 1e-4 of each leaf's max |g|.
+(FedALT's dual pair, Houlsby, prompt) within 1e-4 of each leaf's max |g|;
+a mixed-rank ``lora_exact`` round: one stage-1 step's leaves within
+1e-4 of each leaf's max |value|, the rows above each client's rank
+exactly 0, and the aggregate's products A·B within 1e-5 (Frobenius,
+relative) of the CPU's ``exact_fedavg`` of the same client stacks.
 """
 import dataclasses
 
@@ -135,3 +139,47 @@ def test_adapter_kind_grads_on_the_card_match_the_cpu(cuda, method,
         assert float(want.abs().max()) > 0, p
         err = float((got - want).abs().max() / want.abs().max())
         assert err <= 1e-4, (p, err)
+
+
+@pytest.mark.gpu
+def test_mixed_rank_exact_round_on_the_card_matches_the_cpu(cuda):
+    """One stage-1 step of a lora_exact fleet at ranks (1, 2, 3, 4) on the
+    card and on the CPU from one adapter and batch, then the card's
+    aggregate against the CPU's exact_fedavg of the card's client stack
+    (QR and SVD on each device; the factors' column signs may differ,
+    so the products are compared)."""
+    ranks = (1, 2, 3, 4)
+    hp = dataclasses.replace(HP, method="lora_exact", n_clients=4,
+                             client_ranks=ranks)
+    base = M.init_params(torch.Generator().manual_seed(0), CFG, device="cpu")
+    sims = {dev: simulate.FedSim(CFG, hp, base=pt.tree_map(
+        lambda t: t.to(dev), base), device=dev) for dev in ("cpu", "cuda")}
+    sims["cuda"].client_adapters = pt.tree_map(
+        lambda t: t.to("cuda"), sims["cpu"].client_adapters)
+    fam = make_dataset_family("dolly", vocab_size=CFG.vocab_size)
+    part = specialist_partition(4, 4)
+    cds = [SyntheticInstructionDataset(fam, part[c], client_seed=c)
+           for c in range(4)]
+    batch = client_batch(cds, np.random.default_rng(1), 2, 24, device="cpu")
+    for dev, sim in sims.items():
+        sim.local_round([to_device(batch, dev)])
+    for p, want in pt.tree_leaves_with_path(sims["cpu"].client_adapters):
+        got = pt.tree_get(sims["cuda"].client_adapters, p).cpu()
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err <= 1e-4, (p, err)
+    clients = sims["cuda"].client_adapters
+    aggregated = sims["cuda"].aggregate()
+    host = agg.exact_fedavg(pt.tree_map(lambda t: t.cpu(), clients),
+                            ranks=ranks)
+    for p, x in pt.tree_leaves_with_path(sims["cuda"].client_adapters):
+        ax = -1 if p.endswith("lora_A") else -2
+        for c, r in enumerate(ranks):
+            assert not torch.count_nonzero(x[c].movedim(ax, 0)[r:]), (p, c)
+        if p.endswith("lora_A"):
+            pb = p[:-1] + "B"
+            got = (pt.tree_get(aggregated, p) @ pt.tree_get(aggregated, pb)
+                   ).cpu().double()
+            want = (pt.tree_get(host, p) @ pt.tree_get(host, pb)).double()
+            err = float(torch.linalg.matrix_norm(got - want).max()
+                        / torch.linalg.matrix_norm(want).min())
+            assert err <= 1e-5, (p, err)

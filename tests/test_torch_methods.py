@@ -56,6 +56,7 @@ TINY = dict(name="tiny", family="dense", n_layers=2, d_model=64, n_heads=4,
 J_CFG, T_CFG = JArch(**TINY), TArch(**TINY)
 NEW = ("ffa_lora", "fedprox", "prompt", "adapter", "fedalt", "lora_trimmed",
        "lora_fedbuff", "lora_fedavg_q8", "lora_fedavg_topk")
+HET = ("lora_zeropad", "lora_replication", "lora_exact")     # rank-aware
 
 
 def to_port(tree):
@@ -226,11 +227,11 @@ def j_flat_mask(m):
     return dict(zip(jpt.tree_paths(m), map(bool, jax.tree.leaves(m))))
 
 
-@pytest.mark.parametrize("name", NEW)
+@pytest.mark.parametrize("name", NEW + HET)
 def test_registered_method_matches_reference(base, name):
     j, t = jmeth.get_method(name), tmeth.get_method(name)
     for f in ("keep_local", "prox", "pipeline", "server_zero_rx",
-              "description"):
+              "het_ranks", "rank_aware", "description"):
         assert getattr(t, f) == getattr(j, f), f
     assert tagg.comm_class(t) == jagg.comm_class(j)
     assert tagg.aggregate_zero_rx(t) == jagg.aggregate_zero_rx(j)
@@ -249,11 +250,9 @@ def test_registered_method_matches_reference(base, name):
 
 
 def test_registry_lists_the_ported_methods():
-    assert tmeth.available_methods() == sorted(NEW + ("fedlora_opt", "lora"))
-    assert (set(tmeth.available_methods()) | set(tmeth.UNPORTED)
-            == set(jmeth.available_methods()))
-    assert set(tmeth.UNPORTED) == {"lora_zeropad", "lora_replication",
-                                   "lora_exact"}
+    assert tmeth.available_methods() == sorted(
+        NEW + HET + ("fedlora_opt", "lora"))
+    assert tmeth.available_methods() == jmeth.available_methods()
 
 
 # ---------------------------------------------------------------------------
