@@ -166,6 +166,33 @@ Phase 9  mixed-rank fleets, run after phase 8 on phase 3's backbone:
          Prints each run's stage walls, stage-1 steps' wall and CPU ms,
          peak memory, comm bytes, lora_exact's residuals and the serving
          tokens/s.
+Phase 10 persistence, run after phase 9 on phase 3's backbone, in a work
+         directory under the checkout's build/ that it removes.  (a)
+         FedSim resume: fedlora_opt at client ranks 2/4/8/16 with phase
+         9's cuts; sim A runs round 1 (2 steps and the aggregate), saves,
+         runs round 2; a fresh sim B loads the file (round 1 returned,
+         every state leaf equal to A's at its save), runs round 2, and
+         every client adapter, moment, step and comm bytes equals A's bit
+         for bit; a sim at ranks 16/8/4/2 refuses the file (ValueError);
+         the file restored on the CPU and saved from there gives the same
+         bytes.  (b) Tiered serving: a TieredAdapterStore (dora_mag, 32
+         slots, a 256-entry host cache, shards on disk) over phase 9's
+         fedlora_opt stage-2 server model; 10,000 tenants registered, each
+         with its own seeded ΔB_M at a rank cycling 2/4/8/16, with no
+         device allocation, leaving 9,744 shards and 10,000 after flush;
+         ServeEngine(16 rows, prompts of 16, 16 new tokens, chunks of 8)
+         serves 32 requests over tenants 0-31 (warm) and 32 drawn
+         Zipf(1.1) over all 10,000 from seed 0, in two rounds of flat
+         warm, tiered warm, tiered Zipf, flat Zipf, through a checking store
+         that holds every promoted slot's rows to the tenant's ΔB_M
+         exactly: the warm tokens equal a flat 32-slot store's, the Zipf
+         tokens a flat store's holding its tenants, the Zipf tokens again
+         after a save and a load into a fresh store on the same shards,
+         and both schedules with prefetch a no-op; bgmv_mag 2 x 32 x
+         (prefills + decode steps) launches a run.  Prints the save and
+         load seconds and MB/s of (a), the registration seconds, the
+         shard counts, T0 hits, T1 hits and shard reads, and each run's
+         tokens/s.
 Every run starts with every launch count at 0.  Each path's prefill
 logits, kernels against plain versions, relative to max |logit|: bf16
 weights through the first CHECK_DEPTH layers within 2e-2, f32 weights
@@ -207,6 +234,7 @@ import gc
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2594,6 +2622,7 @@ def phase_fleet(torch, ctx):
             own[c], lambda p: p.endswith("/dB_mag")), rank=r)
     report["serve_dora_mag"], n_mag = fleet_serve(
         torch, ctx, "fleet dora_mag", mag, own, "bgmv_mag")
+    ctx["fleet_server"] = server            # phase 10 serves over it
     del mag, server, own
 
     # --- lora_exact's clients as pairs tenants at their own ranks ---------
@@ -2606,6 +2635,378 @@ def phase_fleet(torch, ctx):
         torch, ctx, "fleet pairs", pairs, own, "bgmv")
     del pairs, own
     return report, {"bgmv_mag": n_mag, "bgmv": n_pairs}
+
+
+# --- phase 10: persistence (run after phase 9) -----------------------------
+
+# (a) FedSim resume: phase 9's fedlora_opt fleet, 2 rounds of 2 steps and
+# the aggregate, saved after the first
+RESUME_HP = dict(FLEET_HP, method="fedlora_opt", rounds=2)
+# (b) the reference benchmark's churn constants
+# (benchmarks/serve_multitenant.py:38-44): 10k tenants, a 32-slot pool, a
+# 256-entry host cache, 16 rows, 32 requests of 16 + 16 tokens, Zipf 1.1
+TIER_TENANTS, TIER_SLOTS, TIER_T1 = 10_000, 32, 256
+TIER_ROWS, TIER_PROMPT, TIER_REQS, TIER_NEW = 16, 16, 32, 16
+TIER_ZIPF_S = 1.1
+TIER_DELTA = 0.1        # each tenant's ΔB_M: N(0, 1) x this, up to its rank
+TIER_REPS = 2           # rounds of flat warm, tiered warm, tiered / flat Zipf
+TIER_COUNTS = ("t0_hits", "t1_hits", "t2_reads", "prefetch_reads",
+               "installs", "rows")
+
+
+def resume_round(torch, sim, cds, hp, rnd):
+    """Round ``rnd`` as run_federated runs it (its steps, the round's
+    generator, the aggregate), on batches drawn from a numpy generator
+    seeded by the round, so two sims given one round see one batch."""
+    from repro_torch.data import client_batch
+    rng = np.random.default_rng(40_000 + rnd)
+    batches = [client_batch(cds, rng, hp.batch, hp.seq_len, device="cuda")
+               for _ in range(hp.local_steps)]
+    gen = torch.Generator(device="cuda").manual_seed(hp.seed * 1000 + rnd)
+    sim.local_round(batches, gen)
+    sim.aggregate()
+    torch.cuda.synchronize()
+
+
+def host_copy(torch, tree):
+    from repro_torch.utils import pytree as pt
+    return pt.tree_map(lambda x: x.detach().cpu().clone()
+                       if torch.is_tensor(x) else np.array(x), tree)
+
+
+def same_leaves(torch, got, want, what):
+    """Every leaf of ``got`` equal to ``want``'s bit for bit, dtype
+    included (tensors on any device, numpy arrays); returns the count."""
+    from repro_torch.utils import pytree as pt
+    check(pt.tree_paths(got) == pt.tree_paths(want),
+          f"{what}: the same {len(pt.tree_paths(want))} leaf paths")
+    for p, x in pt.tree_leaves_with_path(got):
+        x, w = (torch.as_tensor(v).detach().cpu()
+                for v in (x, pt.tree_get(want, p)))
+        if not (x.dtype == w.dtype and torch.equal(x, w)):
+            raise CheckFailed(f"{what}: {p} differs")
+    return len(pt.tree_paths(want))
+
+
+def phase_resume(torch, ctx, workdir):
+    """Phase 10 (a): a FedSim saved after round 1 and loaded into a fresh
+    sim resumes round 2 bit for bit; another fleet refuses the file; the
+    card's file restored on the CPU saves again to the same bytes."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.fed.simulate import FedHyper, FedSim
+    from repro_torch.utils import pytree as pt
+    cfg, params = ctx["cfg"], ctx["params"]
+    cds = ctx["fed_data"][0]
+    hp = FedHyper(**RESUME_HP)
+    path = workdir / "sim.msgpack"
+    a = FedSim(cfg, hp, base=params, device="cuda")
+    resume_round(torch, a, cds, hp, 0)
+    t0 = time.perf_counter()
+    a.save(str(path), round_idx=1)
+    save_s = time.perf_counter() - t0
+    mb = path.stat().st_size / 1e6
+    saved = host_copy(torch, a.state_tree())
+    resume_round(torch, a, cds, hp, 1)
+
+    b = FedSim(cfg, hp, base=params, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rnd = b.load(str(path))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(rnd == 1, f"resume: load returns round {rnd} = 1")
+    n = same_leaves(torch, b.state_tree(), saved,
+                    "resume: the loaded state against sim A's at its save")
+    print(f"ok: resume: {n} state leaves loaded bit for bit")
+    resume_round(torch, b, cds, hp, 1)
+    same_leaves(torch, b.state_tree(), a.state_tree(),
+                "resume: round 2 after the load against round 2 run on")
+    print(f"ok: resume: round 2 from the file equals round 2 run on, {n} "
+          f"leaves bit for bit (client adapters, moments, step, comm bytes, "
+          f"ranks)")
+    del a, saved
+    other = FLEET_RANKS[::-1]
+    perm = FedSim(cfg, FedHyper(**dict(RESUME_HP, client_ranks=other)),
+                  base=params, device="cuda")
+    try:
+        perm.load(str(path))
+    except ValueError as e:
+        check("ranks" in str(e), f"resume: a fleet at ranks {other} refuses "
+              f"the file ({e})")
+    else:
+        raise CheckFailed(f"resume: a fleet at ranks {other} loaded a file "
+                          f"of ranks {FLEET_RANKS}")
+    del perm
+    tree, step = restore_checkpoint(str(path), b.state_tree(), device="cpu")
+    check(all(x.device.type == "cpu" for x in pt.tree_leaves(tree)
+              if torch.is_tensor(x)), "resume: the file restored on the CPU")
+    save_checkpoint(str(workdir / "cpu.msgpack"), tree, step=step)
+    check((workdir / "cpu.msgpack").read_bytes() == path.read_bytes(),
+          f"resume: the card's file restored on the CPU and saved from the "
+          f"CPU gives the same {mb:.1f} MB")
+    del b, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"file_mb": mb, "leaves": n, "save_s": save_s, "load_s": load_s,
+           "save_mb_per_s": mb / save_s, "load_mb_per_s": mb / load_s}
+    print("resume: " + json.dumps(out))
+    return out
+
+
+def tier_deltas(server):
+    """Every tenant's ΔB_M for each dB_mag leaf of the server model:
+    (tenants, leaves, *leaf shape) f32 on the host, N(0, 1) x TIER_DELTA
+    from a seeded generator (no two tenants share a row), zero above the
+    tenant's rank (the ranks cycle FLEET_RANKS)."""
+    from repro_torch.utils import pytree as pt
+    paths = [p for p in pt.tree_paths(server) if p.endswith("/dB_mag")]
+    shape = tuple(pt.tree_get(server, paths[0]).shape)
+    ranks = np.resize(np.asarray(FLEET_RANKS), TIER_TENANTS)
+    d = np.random.default_rng(1).standard_normal(
+        (TIER_TENANTS, len(paths), *shape), dtype=np.float32) * TIER_DELTA
+    d *= np.arange(shape[-1]) < ranks[:, None, None, None]
+    return paths, ranks, d
+
+
+def tier_overlay(torch, paths, ranks, d, t):
+    """Tenant ``t``'s ΔB_M overlay at its own rank, as host tensors."""
+    from repro_torch.utils import pytree as pt
+    tree: dict = {}
+    for j, p in enumerate(paths):
+        pt.set_leaf(tree, p, torch.from_numpy(d[t, j, ..., :ranks[t]]))
+    return tree
+
+
+def checked_tiered(torch, paths, ranks, d, counts):
+    """TieredAdapterStore that holds every install to the script's own
+    ΔB_M (each promoted slot's rows equal to the tenant's, exactly, with
+    its rank in the slot table) and counts T0 hits, T1 hits, shard reads
+    on the serving thread (T2) and on the prefetch thread."""
+    import threading
+    from repro_torch.serve import TieredAdapterStore
+    prefixes = [p[:-len("/dB_mag")] for p in paths]
+    lock = threading.Lock()
+
+    class CheckedTiered(TieredAdapterStore):
+        def _read_shard(self, tenant):
+            out = super()._read_shard(tenant)
+            key = ("t2_reads" if threading.current_thread()
+                   is threading.main_thread() else "prefetch_reads")
+            with lock:
+                counts[key] += 1
+            return out
+
+        def install_batch(self, tenants, *, pinned=(), queued=()):
+            want = list(dict.fromkeys(tenants))
+            hits = sum(t in self._slot_of for t in want)
+            reads = counts["t2_reads"]
+            out = super().install_batch(tenants, pinned=pinned,
+                                        queued=queued)
+            counts["t0_hits"] += hits
+            counts["t1_hits"] += (len(want) - hits
+                                  - (counts["t2_reads"] - reads))
+            return out
+
+        def _install_rows(self, rows):
+            super()._install_rows(rows)
+            pools = [self._pools[p]["pool_dB_mag"].cpu().numpy()
+                     for p in prefixes]
+            for slot, tenant, _packed, r in rows:
+                t = int(tenant[len("tenant"):])
+                if not r == ranks[t] == self._slot_ranks[slot]:
+                    raise CheckFailed(f"tiered: slot {slot} holds {tenant} "
+                                      f"at rank {self._slot_ranks[slot]}, "
+                                      f"not {ranks[t]}")
+                for j, pool in enumerate(pools):
+                    if not np.array_equal(pool[:, slot], d[t, j]):
+                        raise CheckFailed(f"tiered: slot {slot}'s "
+                                          f"{paths[j]} row is not {tenant}'s "
+                                          f"ΔB_M")
+            counts["installs"] += 1
+            counts["rows"] += len(rows)
+
+    return CheckedTiered
+
+
+def tier_run(torch, ctx, store, reqs, label):
+    """``reqs`` through a ServeEngine over ``store`` with every launch
+    count at 0: bgmv_mag 2 x 32 x (prefills + decode steps) launches, no
+    other kernel.  Returns the tokens, the run's numbers, the launches."""
+    from repro_torch.serve import ServeEngine
+    cfg = ctx["cfg"]
+    eng = ServeEngine(ctx["params"], cfg, store, max_rows=TIER_ROWS,
+                      max_prompt_len=TIER_PROMPT,
+                      max_len=TIER_PROMPT + TIER_NEW + 8, decode_chunk=8,
+                      device="cuda")
+    torch.cuda.synchronize()
+    reset_launches()
+    outs = eng.generate(reqs, n_new=TIER_NEW)
+    launches = read_launches()
+    st = eng.last_run
+    passes = st["prefills"] + st["decode_steps"]
+    check_launches(launches, {"bgmv_mag": 2}, cfg.n_layers, passes, label,
+                   f"{st['prefills']} prefills + {st['decode_steps']} decode "
+                   f"steps")
+    check(all(o.shape == (TIER_NEW,) for o in outs),
+          f"{label}: {len(reqs)} requests returned {TIER_NEW} tokens each")
+    return outs, {"tokens_per_s": st["tokens"] / st["wall_seconds"],
+                  "wall_s": st["wall_seconds"], "prefills": st["prefills"],
+                  "decode_steps": st["decode_steps"]}, launches["bgmv_mag"]
+
+
+def same_tokens(a, b, what):
+    check(len(a) == len(b) and all(np.array_equal(x, y)
+                                   for x, y in zip(a, b)),
+          f"tiered: {what} ({len(a)} requests)")
+
+
+def phase_tiered(torch, ctx, workdir):
+    """Phase 10 (b): 10,000 dora_mag tenants registered into a tiered
+    store over phase 9's fedlora_opt stage-2 server model, paged from
+    disk through a 256-entry host cache into a 32-slot pool and served
+    through ``bgmv_mag``, against flat stores, with and without prefetch
+    and across a save / load."""
+    from repro_torch.checkpoint import list_shards
+    from repro_torch.serve import AdapterStore
+    cfg, params, server = ctx["cfg"], ctx["params"], ctx["fleet_server"]
+    paths, ranks, d = tier_deltas(server)
+    shard_dir = workdir / "shards"
+
+    def overlay(t):
+        return tier_overlay(torch, paths, ranks, d, t)
+
+    def tiered():
+        counts = dict.fromkeys(TIER_COUNTS, 0)
+        store = checked_tiered(torch, paths, ranks, d, counts)(
+            params, cfg, shard_dir=str(shard_dir), host_capacity=TIER_T1,
+            n_slots=TIER_SLOTS, kind="dora_mag", shared=server,
+            device="cuda")
+        check(store.rank == max(FLEET_RANKS) and all(
+            x.device.type == "cuda" for pool in store._pools.values()
+            for x in pool.values()), "tiered: T0 on the card at rank "
+              f"{max(FLEET_RANKS)}")
+        return store, counts
+
+    def flat(ids):
+        store = AdapterStore(params, cfg, n_slots=TIER_SLOTS,
+                             kind="dora_mag", shared=server, device="cuda")
+        for t in ids:
+            store.register(f"tenant{t}", overlay(t), rank=int(ranks[t]))
+        return store
+
+    ts, counts = tiered()
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    t0 = time.perf_counter()
+    for t in range(TIER_TENANTS):
+        ts.register(f"tenant{t}", overlay(t), rank=int(ranks[t]))
+    reg_s = time.perf_counter() - t0
+    new_allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs
+    check(new_allocs == 0, f"tiered: {TIER_TENANTS} registrations made "
+          f"{new_allocs} device allocations (0)")
+    n_spilled = len(list_shards(str(shard_dir)))
+    check(n_spilled == TIER_TENANTS - TIER_T1, f"tiered: registration left "
+          f"{n_spilled} shards ({TIER_TENANTS} - {TIER_T1} spilled)")
+    t0 = time.perf_counter()
+    ts.flush()                          # the T1 entries: TIER_T1 shard writes
+    flush_s = time.perf_counter() - t0
+    n_flushed = len(list_shards(str(shard_dir)))
+    check(n_flushed == TIER_TENANTS, f"tiered: {n_flushed} shards after "
+          f"flush ({TIER_TENANTS})")
+
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(5, cfg.vocab_size,
+                           size=(TIER_REQS, TIER_PROMPT)).astype(np.int32)
+    p = 1.0 / np.arange(1, TIER_TENANTS + 1) ** TIER_ZIPF_S
+    zipf_ids = rng.choice(TIER_TENANTS, size=TIER_REQS, p=p / p.sum())
+    warm = [(f"tenant{i % TIER_SLOTS}", prompts[i])
+            for i in range(TIER_REQS)]
+    zipf = [(f"tenant{t}", prompts[i]) for i, t in enumerate(zipf_ids)]
+    distinct = sorted(set(int(t) for t in zipf_ids))
+    check(len(distinct) <= TIER_SLOTS, f"tiered: the Zipf schedule's "
+          f"{len(distinct)} tenants fit a flat {TIER_SLOTS}-slot store")
+
+    runs, launches = {}, {"tiered": 0, "flat": 0}
+
+    def run(store, reqs, label, kind):
+        outs, runs[label], n = tier_run(torch, ctx, store, reqs, label)
+        launches[kind] += n
+        return outs
+
+    flat_warm, flat_zipf = flat(range(TIER_SLOTS)), flat(distinct)
+    run(flat_warm, warm[:2], "flat warm-up", "flat")
+    rounds = []
+    for rep in range(TIER_REPS):        # side by side: host clocks drift
+        out_flat = run(flat_warm, warm, f"flat warm {rep}", "flat")
+        same_tokens(run(ts, warm, f"tiered warm {rep}", "tiered"), out_flat,
+                    "the warm schedule's tokens equal the flat store's")
+        out_zipf = run(ts, zipf, f"tiered Zipf {rep}", "tiered")
+        same_tokens(run(flat_zipf, zipf, f"flat Zipf {rep}", "flat"),
+                    out_zipf, "the Zipf schedule's tokens equal a flat "
+                    f"store's holding its {len(distinct)} tenants")
+        rounds.append((out_flat, out_zipf))
+    out_flat, out_zipf = rounds[0]
+    for later in rounds[1:]:
+        same_tokens(later[0], out_flat, "a later round's warm tokens equal "
+                    "the first round's")
+        same_tokens(later[1], out_zipf, "a later round's Zipf tokens equal "
+                    "the first round's")
+    check(ts.wait_prefetch(timeout=30.0), "tiered: the prefetcher is idle")
+
+    ckpt = str(workdir / "tier.msgpack")
+    t0 = time.perf_counter()
+    ts.save(ckpt)
+    save_s = time.perf_counter() - t0
+    loaded, counts_loaded = tiered()
+    t0 = time.perf_counter()
+    loaded.load(ckpt)
+    load_s = time.perf_counter() - t0
+    check(len(loaded.tenants) == TIER_TENANTS
+          and loaded.resident_tenants == ts.resident_tenants,
+          f"tiered: the loaded store knows {TIER_TENANTS} tenants and the "
+          f"{len(ts.resident_tenants)} residents")
+    same_tokens(run(loaded, zipf, "tiered Zipf after save / load", "tiered"),
+                out_zipf, "the Zipf tokens after a save and a load into a "
+                "fresh store on the same shards are unchanged")
+
+    quiet, counts_quiet = tiered()
+    quiet.prefetch = lambda tenants: None
+    same_tokens(run(quiet, warm, "tiered warm, no prefetch", "tiered"),
+                out_flat, "the warm tokens with prefetch a no-op")
+    same_tokens(run(quiet, zipf, "tiered Zipf, no prefetch", "tiered"),
+                out_zipf, "the Zipf tokens with prefetch a no-op equal "
+                "those with prefetch on")
+    check(counts_quiet["prefetch_reads"] == 0,
+          "tiered: no shard read off the serving thread without prefetch")
+    for store in (ts, loaded, quiet):
+        check(store.wait_prefetch(timeout=30.0),
+              "tiered: every prefetcher idle at the end")
+    ckpt_mb = (workdir / "tier.msgpack").stat().st_size / 1e6
+    out = {"tenants": TIER_TENANTS, "register_s": reg_s,
+           "flush_s": flush_s, "flush_ms_per_shard": 1e3 * flush_s / TIER_T1,
+           "shards_after_register": n_spilled, "shards_after_flush": n_flushed,
+           "bytes_per_tenant": ts.bytes_per_tenant(),
+           "zipf_distinct_tenants": len(distinct),
+           "counts": counts, "counts_after_load": counts_loaded,
+           "counts_no_prefetch": counts_quiet,
+           "save_s": save_s, "load_s": load_s, "ckpt_mb": ckpt_mb,
+           "runs": runs, "bgmv_mag_launches": launches}
+    print("tiered: " + json.dumps(out))
+    return out, launches
+
+
+def phase_persistence(torch, ctx):
+    """Phase 10: (a) FedSim resume and (b) tiered serving, in a work
+    directory under the checkout's ignored build/, removed afterwards."""
+    workdir = ROOT / "build" / "phase10"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    try:
+        report = {"resume": phase_resume(torch, ctx, workdir)}
+        report["tiered"], launches = phase_tiered(torch, ctx, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return report, launches
 
 
 def quant_bytes(tree):
@@ -2883,6 +3284,12 @@ def main():
             launches[name] += n
         print(f"phase 9 (mixed-rank fleets) took "
               f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        report["persistence"], persist_launches = phase_persistence(torch,
+                                                                    ctx)
+        launches["bgmv_mag"] += sum(persist_launches.values())
+        print(f"phase 10 (persistence) took "
+              f"{time.perf_counter() - t0:.1f} s")
         del ctx["params"]
         gc.collect()
         torch.cuda.empty_cache()
@@ -2917,6 +3324,9 @@ def main():
                           "factor_gbps")},
              "build": bgmv_build,
              "launches_phase9_fleet_serve": fleet_launches[name],
+             **({"launches_phase10_tiered_serve": persist_launches["tiered"],
+                 "launches_phase10_flat_serve": persist_launches["flat"]}
+                if name == "bgmv_mag" else {}),
              **({"launches_phase7_training_serve": train_launches}
                 if name == "bgmv_mag" else
                 {"launches_phase8_baselines_serve": baseline_launches})}))

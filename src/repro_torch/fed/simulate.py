@@ -33,7 +33,11 @@ stage-2 server model trains at the full allocated rank, unmasked; each
 rebroadcast re-masks it to every client's rank.  Rank-aware aggregators
 get the fleet's ranks, and each client is billed at its own rank.
 
-Not ported yet: cohort rounds, checkpoints and obs spans (ROADMAP A10).
+``save`` / ``load`` write and read the reference's checkpoint files
+(``checkpoint/ckpt.py``): the port resumes a reference run and the
+reference a port run.
+
+Not ported yet: cohort rounds (ROADMAP A10c) and obs spans (A10b).
 """
 from __future__ import annotations
 
@@ -45,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch import optim
+from repro_torch.checkpoint.ckpt import restore_checkpoint, save_checkpoint
 from repro_torch.core import aggregation as agg
 from repro_torch.core import peft
 from repro_torch.core.methods import get_method
@@ -250,7 +255,7 @@ class FedSim:
         """One round of stage-1 local training.  batches: one stacked
         (C, B, S) dict per local step; rng: the round's torch.Generator
         (adapter dropout).  Returns the last step's (C,) metrics."""
-        if self._prox_mu and self._round_ref is None:
+        if self.method.prox and self._round_ref is None:
             self._round_ref = self.client_adapters
         ref = self._round_ref if self._prox_mu else None
         mets = {}
@@ -269,11 +274,11 @@ class FedSim:
         client.  ``weights``: a per-call (C,) override of
         ``hp.client_weights``.  A ``needs_step`` aggregate gets the round
         counter, a ``needs_staleness`` one zero staleness (cohort
-        staleness is ROADMAP A10).  Returns the aggregate (no client
+        staleness is ROADMAP A10c).  Returns the aggregate (no client
         axis)."""
         if staleness is not None or participation is not None:
             raise NotImplementedError("cohort rounds are not ported yet "
-                                      "(ROADMAP A10)")
+                                      "(ROADMAP A10c)")
         C = self.hp.n_clients
         w = weights if weights is not None else self._base_weights
         kwargs = {}
@@ -294,7 +299,7 @@ class FedSim:
                 rank=r, comm=self._comm_class, n_clients=C,
                 topk_ratio=self._topk_ratio)
         self.client_adapters = self._rebroadcast(aggregated)
-        if self._prox_mu:
+        if self.method.prox:
             self._round_ref = self.client_adapters
         return aggregated
 
@@ -313,7 +318,7 @@ class FedSim:
 
     def run_cohort_round(self, *args, **kwargs):
         raise NotImplementedError("cohort rounds are not ported yet "
-                                  "(ROADMAP A10)")
+                                  "(ROADMAP A10c)")
 
     def global_stage(self, aggregated: Params, server_batches: list[dict],
                      rng=None) -> Params:
@@ -341,13 +346,55 @@ class FedSim:
                 ad, opt_state, b, rng, step, self.opt_local, lam)
         self.client_adapters = ad
 
+    # ------------------------------------------------------------------
+    # checkpointing
+    # ------------------------------------------------------------------
+
+    def state_tree(self) -> dict:
+        """Round-resumable state, leaf for leaf the reference's:
+        ``client_adapters``, ``opt_state`` (masked AdamW's frozen leaves
+        as (C, 0) placeholders), ``step`` (0-d int32), ``comm_bytes``
+        (0-d int64), ``client_ranks`` ((C,) int32, recorded for uniform
+        fleets too, so a checkpoint never loads into another fleet) and,
+        for a prox method, ``round_ref``: mid-cycle (after a round,
+        before its aggregate) the anchor is not the current adapters."""
+        C = self.hp.n_clients
+        tree = {"client_adapters": self.client_adapters,
+                "opt_state": self.opt_state,
+                "step": torch.tensor(self._step, dtype=torch.int32),
+                "comm_bytes": np.asarray(self.comm_bytes, np.int64),
+                "client_ranks": torch.tensor(
+                    self.hp.client_ranks or (self.alloc_rank,) * C,
+                    dtype=torch.int32)}
+        if self.method.prox:
+            # before the first round the anchor is the adapters as that
+            # round will find them
+            tree["round_ref"] = (self._round_ref if self._round_ref
+                                 is not None else self.client_adapters)
+        return tree
+
     def save(self, path: str, round_idx: int = 0) -> None:
-        raise NotImplementedError("FedSim checkpoints are not ported yet "
-                                  "(ROADMAP A10)")
+        save_checkpoint(path, self.state_tree(), step=round_idx)
 
     def load(self, path: str) -> int:
-        raise NotImplementedError("FedSim checkpoints are not ported yet "
-                                  "(ROADMAP A10)")
+        """Restore state saved by ``save`` (either package's) into this
+        sim (same cfg and hp) on its device; returns the round index.
+        Raises ValueError when the checkpoint's per-client ranks are not
+        this fleet's: rank layout is state, not a detail."""
+        like = self.state_tree()
+        tree, round_idx = restore_checkpoint(path, like, device=self.device)
+        want = like["client_ranks"].tolist()
+        got = tree["client_ranks"].tolist()
+        if want != got:
+            raise ValueError(f"checkpoint fleet ranks {got} do not match "
+                             f"this sim's {want}")
+        self.client_adapters = tree["client_adapters"]
+        self.opt_state = tree["opt_state"]
+        self._step = int(tree["step"])
+        self.comm_bytes = int(tree["comm_bytes"])
+        if self.method.prox:
+            self._round_ref = tree["round_ref"]
+        return round_idx
 
     # ------------------------------------------------------------------
     def _metrics(self, adapters, batch) -> dict:

@@ -174,8 +174,15 @@ class ServeEngine:
             if admitted:
                 tenant = {req.rid: self._tenant_of_rid[req.rid]
                           for _, req in admitted}
+                # one install for every admitted tenant: the active rows'
+                # tenants are pinned (their slots are serving) and the
+                # front of the queue steers the victim choice
+                still_active = {self._tenant_of_rid[int(rid_of_row[r])]
+                                for r in range(R) if active[r]} - {None}
                 installed = self.store.install_batch(
-                    [t for t in tenant.values() if t is not None])
+                    [t for t in tenant.values() if t is not None],
+                    pinned=still_active,
+                    queued=self.batcher.queued_tenants(limit=2 * R))
                 slot_of_rid = {rid: null if t is None else installed[t]
                                for rid, t in tenant.items()}
                 params = self._merged_params()

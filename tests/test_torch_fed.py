@@ -425,11 +425,13 @@ def test_local_round_matches_both_reference_loops():
         assert ts._step == int(js._step) == int(jr._step) == 3 * (rnd + 1)
 
 
-def test_unported_options_raise_naming_their_item():
-    """Cohort rounds and checkpoints name A10; mixed-rank fleets, client
-    weights and the FedProx term construct (held against the reference
-    by ``tests/test_torch_het_ranks.py``, ``test_torch_het_fed.py``,
-    ``test_torch_methods.py`` and ``test_torch_fed_methods.py``)."""
+def test_unported_options_raise_naming_their_item(tmp_path):
+    """Cohort rounds name A10c; mixed-rank fleets, client weights and the
+    FedProx term construct (held against the reference by
+    ``tests/test_torch_het_ranks.py``, ``test_torch_het_fed.py``,
+    ``test_torch_methods.py`` and ``test_torch_fed_methods.py``), and
+    checkpoints save and load (held against the reference by
+    ``tests/test_torch_ckpt.py``)."""
     ts = TSim(T_CFG, THyper(client_ranks=(2, 4, 4, 4)), device="cpu")
     assert ts.alloc_rank == 4 and ts.rank_mask is not None
     ts = TSim(T_CFG, THyper(client_weights=(1, 1, 1, 2)), device="cpu")
@@ -438,10 +440,11 @@ def test_unported_options_raise_naming_their_item():
     assert ts._prox_mu == 0.1
     ts = TSim(T_CFG, THyper(n_clients=2), device="cpu")
     for call in (lambda: ts.run_cohort_round([], None),
-                 lambda: ts.save("x"), lambda: ts.load("x"),
                  lambda: ts.aggregate(participation=[1, 0])):
-        with pytest.raises(NotImplementedError, match="A10"):
+        with pytest.raises(NotImplementedError, match="A10c"):
             call()
+    ts.save(str(tmp_path / "sim.msgpack"), round_idx=3)
+    assert ts.load(str(tmp_path / "sim.msgpack")) == 3
     with pytest.raises(ValueError, match="use_fused_dora"):
         TSim(dataclasses.replace(T_CFG, use_fused_dora=True), THyper(),
              device="cpu")

@@ -225,8 +225,8 @@ def test_store_and_engine_refuse_what_they_do_not_take(world):
         store.register("too-big", t["loras"][2])            # rank 8 > 4
     with pytest.raises(ValueError, match="unknown AdapterStore kind"):
         AdapterStore(t["base"], T_CFG, kind="nope", device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        store.save("x")
+    with pytest.raises(KeyError):
+        store.install_batch(["nobody"])                     # never registered
     with pytest.raises(ValueError, match="sliding-window"):
         ServeEngine(t["base"], dataclasses.replace(T_CFG, sliding_window=4),
                     store, device="cpu")
