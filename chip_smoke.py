@@ -193,6 +193,46 @@ Phase 10 persistence, run after phase 9 on phase 3's backbone, in a work
          load seconds and MB/s of (a), the registration seconds, the
          shard counts, T0 hits, T1 hits and shard reads, and each run's
          tokens/s.
+Phase 11 telemetry and cohort rounds, run after phase 10 in its work
+         directory.  (a) With ``obs`` enabled (events in the work
+         directory), phase 10's warm and Zipf runs again over its
+         10,000-tenant tiered store: tokens equal those with telemetry
+         off; pool/tier_hits (t0, t1), tier_misses, promotions (t1, t2)
+         and t1_spills equal the checking store's counts of the same
+         runs; span_seconds of serve/prefill and serve/decode_chunk
+         count last_run's prefills and chunks; each serve_run event's
+         tokens are last_run's; one ckpt_restore event per shard read,
+         prefetched ones included, all emitted on the serving thread.
+         One FedSim save / load: one ckpt_save and one ckpt_restore of
+         its file, with its step, leaf count and payload bytes.  One
+         prefill + one decode chunk under torch.profiler: as many
+         "kernels/bgmv_mag" ranges as counted bgmv_mag launches (2 x 32
+         a pass), each linked to exactly one bgmv_kernel on the card.
+         One warm batch's decode step ms with telemetry off and on, in
+         turns (off, on, on, off, ...) on one warm engine, printed
+         beside the card's name and power limit.  (b) For fedlora_opt and
+         lora_fedbuff: a CohortSim of a 4-slot FedSim over a 16-client
+         host bank, FaultPlan(dropout 0.25, stragglers 0.25 at delays
+         1-2, corrupted updates 0.25 x 10, seed 1), 3 rounds of 1 step
+         of 4 x 128 tokens, telemetry on: cohorts, fates and delays
+         equal a replay of the numpy draws written out here; every
+         client that did not sync (and had no delivery due) is
+         unchanged in the bank bit for bit; the bill is the unit times
+         live clients plus deliveries; the bank is host memory and the
+         device peak stays within one plain round's peak plus the 4
+         clients' round-start copy and 256 MiB; the dropout, straggler
+         and corruption counters equal the draws; the last fed_cohort
+         event's comm bytes are the sim's.  fedlora_opt is saved after
+         round 1 with a straggler in flight (the cohort file and the
+         FedSim's own, for its step counter) and resumed in a fresh
+         sim: rounds 2-3 equal the uninterrupted run's, bank bit for
+         bit, and the straggler delivers at its round.  lora_fedbuff's
+         16 bank clients, each at its last-synced adapter, are served
+         as pairs tenants in one 16-row batch through bgmv (2 x 32 x
+         (prefills + decode steps) launches), the prefill logits held
+         as phase 8's.  Prints the telemetry counts, the decode step
+         ms, each round's wall, the bank's size, the peaks, the cohort
+         file's save and load seconds and the serving tokens/s.
 Every run starts with every launch count at 0.  Each path's prefill
 logits, kernels against plain versions, relative to max |logit|: bf16
 weights through the first CHECK_DEPTH layers within 2e-2, f32 weights
@@ -1354,13 +1394,13 @@ def serve(torch, eng, reqs, label, *, expect=None):
     return outs, st, launches
 
 
-def admitted_batch(torch, store, reqs):
-    """The first ROWS requests as one admitted prefill batch, and the
+def admitted_batch(torch, store, reqs, rows=ROWS):
+    """The first ``rows`` requests as one admitted prefill batch, and the
     index of each row's last prompt token."""
-    tokens = np.zeros((ROWS, PAD_W), np.int32)
-    lens = np.ones((ROWS,), np.int64)
-    slots = np.zeros((ROWS,), np.int32)
-    for i, (t, p) in enumerate(reqs[:ROWS]):
+    tokens = np.zeros((rows, PAD_W), np.int32)
+    lens = np.ones((rows,), np.int64)
+    slots = np.zeros((rows,), np.int32)
+    for i, (t, p) in enumerate(reqs[:rows]):
         tokens[i, :p.size], lens[i] = p, p.size
         slots[i] = store.null_slot if t is None else store.slot_of(t)
     batch = {"tokens": torch.as_tensor(tokens, device="cuda"),
@@ -1445,7 +1485,11 @@ def profiled(fn, cpu=True):
         fn()
     by_name, counts = {}, {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # a recording profiler opens the port's obs scopes
+        # ("kernels/bgmv_mag", ...): their device-side ranges span
+        # kernels counted on their own
+        if e.device_type == DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3)
             counts[e.name] = counts.get(e.name, 0) + 1
@@ -2651,7 +2695,7 @@ TIER_ZIPF_S = 1.1
 TIER_DELTA = 0.1        # each tenant's ΔB_M: N(0, 1) x this, up to its rank
 TIER_REPS = 2           # rounds of flat warm, tiered warm, tiered / flat Zipf
 TIER_COUNTS = ("t0_hits", "t1_hits", "t2_reads", "prefetch_reads",
-               "installs", "rows")
+               "installs", "rows", "shard_writes")
 
 
 def resume_round(torch, sim, cds, hp, rnd):
@@ -2788,6 +2832,10 @@ def checked_tiered(torch, paths, ranks, d, counts):
     lock = threading.Lock()
 
     class CheckedTiered(TieredAdapterStore):
+        def _shard_tree(self, packed, rank):       # one a shard write
+            counts["shard_writes"] += 1
+            return super()._shard_tree(packed, rank)
+
         def _read_shard(self, tenant):
             out = super()._read_shard(tenant)
             key = ("t2_reads" if threading.current_thread()
@@ -2851,7 +2899,11 @@ def tier_run(torch, ctx, store, reqs, label):
           f"{label}: {len(reqs)} requests returned {TIER_NEW} tokens each")
     return outs, {"tokens_per_s": st["tokens"] / st["wall_seconds"],
                   "wall_s": st["wall_seconds"], "prefills": st["prefills"],
-                  "decode_steps": st["decode_steps"]}, launches["bgmv_mag"]
+                  "decode_steps": st["decode_steps"], "tokens": st["tokens"],
+                  "chunks": len(st["chunk_seconds"]),
+                  "decode_step_ms": [1e3 * t / CHUNK
+                                     for t in st["chunk_seconds"]]}, \
+        launches["bgmv_mag"]
 
 
 def same_tokens(a, b, what):
@@ -2992,21 +3044,502 @@ def phase_tiered(torch, ctx, workdir):
            "save_s": save_s, "load_s": load_s, "ckpt_mb": ckpt_mb,
            "runs": runs, "bgmv_mag_launches": launches}
     print("tiered: " + json.dumps(out))
+    tier = {"store": ts, "counts": counts, "warm": warm, "zipf": zipf,
+            "out_warm": out_flat, "out_zipf": out_zipf}
+    return out, launches, tier
+
+
+def phase_persistence(torch, ctx, workdir):
+    """Phase 10: (a) FedSim resume and (b) tiered serving, in
+    ``workdir``; returns the report, the launches and the tiered store
+    with its schedules, which phase 11 serves again."""
+    report = {"resume": phase_resume(torch, ctx, workdir)}
+    report["tiered"], launches, tier = phase_tiered(torch, ctx, workdir)
+    return report, launches, tier
+
+
+# --- phase 11: telemetry and cohort rounds (run after phase 10) ------------
+
+TELEMETRY_REPS = 4      # rounds of one warm batch off, on / on, off, ...
+# (b) a bank of 16 clients over a FedSim of 4 slots, 3 rounds of 1 step of
+# 4 x 128 tokens, each slot fed by its dolly client's data
+COHORT_N = 16
+COHORT_HP = dict(BASELINE_HP, local_steps=1, rounds=3)
+COHORT_PLAN = dict(dropout_rate=0.25, straggler_rate=0.25,
+                   straggler_delay=(1, 2), corrupt_rate=0.25,
+                   corrupt_scale=10.0, seed=1)
+COHORT_SEED = 0         # the sampler's
+COHORT_METHODS = ("fedlora_opt", "lora_fedbuff")
+COHORT_RESUMED = "fedlora_opt"     # saved after round 1, resumed
+COHORT_SERVED = "lora_fedbuff"     # its bank served as pairs tenants
+# the card may hold, beside one 4-client FedSim round's peak, the
+# round-start copy of the 4 clients' state and this much more
+COHORT_PEAK_SLACK = 256 << 20
+
+
+def series(snap, kind, name, **labels):
+    """Σ of a snapshot's series of ``name`` whose labels include
+    ``labels``."""
+    return sum(s.get("value", s.get("count", 0))
+               for s in snap[kind].get(name, [])
+               if labels.items() <= s["labels"].items())
+
+
+def tree_nbytes(torch, tree):
+    from repro_torch.utils import pytree as pt
+    return sum(x.numel() * x.element_size() if torch.is_tensor(x)
+               else np.asarray(x).nbytes for x in pt.tree_leaves(tree))
+
+
+def bgmv_ranges(torch, fn):
+    """Run ``fn`` under torch.profiler (host and card); returns, for each
+    host range named "kernels/bgmv_mag", the names of the device kernels
+    whose launch (the runtime call, matched to its kernel by CUPTI's
+    correlation id) lies inside it; the count of ``bgmv_kernel`` launches
+    on the card; and how many of them were launched outside every
+    range."""
+    import bisect
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    evs = prof.events()
+    ranges = sorted((e.time_range.start, e.time_range.end) for e in evs
+                    if e.name == "kernels/bgmv_mag"
+                    and e.device_type == DeviceType.CPU)
+    starts = [a for a, _ in ranges]
+    launch = {e.id: e for e in evs if e.device_type == DeviceType.CPU
+              and "Launch" in e.name}
+    held = [[] for _ in ranges]
+    on_card = outside = 0
+    for e in evs:
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        is_bgmv = "bgmv_kernel" in e.name
+        on_card += is_bgmv
+        rt = launch.get(e.id)
+        i = (-1 if rt is None
+             else bisect.bisect_right(starts, rt.time_range.start) - 1)
+        if i >= 0 and rt.time_range.end <= ranges[i][1]:
+            held[i].append(e.name)
+        elif is_bgmv:
+            outside += 1
+    print(f"trace: {len(ranges)} ranges, {len(launch)} runtime launch "
+          f"events ({sorted({e.name for e in launch.values()})}), "
+          f"{on_card} bgmv_kernel launches on the card")
+    return held, on_card, outside
+
+
+def phase_telemetry(torch, ctx, workdir, tier):
+    """Phase 11 (a): telemetry on over phase 10's 10,000-tenant tiered
+    store (its warm and Zipf schedules again, the counters against the
+    checking store's counts, the spans against ``last_run``), one FedSim
+    save /
+    load, one traced decode chunk whose every "kernels/bgmv_mag" range
+    holds one ``bgmv_kernel`` launch, and the decode step's ms with
+    telemetry off and on."""
+    from repro_torch import obs
+    from repro_torch.checkpoint import checkpoint_leaf_paths
+    from repro_torch.fed.simulate import FedHyper, FedSim
+    from repro_torch.serve import ServeEngine
+    cfg, params = ctx["cfg"], ctx["params"]
+    ts, counts = tier["store"], tier["counts"]
+    events_path = workdir / "telemetry.jsonl"
+    launches = 0
+    obs.enable(str(events_path))
+    try:
+        # --- phase 10's warm then Zipf runs, counted by the checking
+        # store and by obs --------------------------------------------------
+        before = dict(counts)
+        run = {"prefills": 0, "chunks": 0, "tokens": []}
+        for label in ("warm", "zipf"):
+            outs, r, n = tier_run(torch, ctx, ts, tier[label],
+                                  f"telemetry: tiered {label}")
+            launches += n
+            same_tokens(outs, tier[f"out_{label}"], f"the {label} tokens "
+                        f"with telemetry on equal those with it off")
+            run["prefills"] += r["prefills"]
+            run["chunks"] += r["chunks"]
+            run["tokens"].append(r["tokens"])
+            run[label] = r
+        check(ts.wait_prefetch(timeout=30.0), "telemetry: prefetcher idle")
+        ts.drain_prefetch()             # the last reads' restore records
+        d = {k: counts[k] - before[k] for k in counts}
+        snap = obs.active().metrics.snapshot()
+        want = {("counters", "pool/tier_hits", (("tier", "t0"),)):
+                d["t0_hits"],
+                ("counters", "pool/tier_hits", (("tier", "t1"),)):
+                d["t1_hits"],
+                ("counters", "pool/tier_misses", (("tier", "t1"),)):
+                d["t2_reads"],
+                ("counters", "pool/promotions", (("src", "t1"),)):
+                d["t1_hits"],
+                ("counters", "pool/promotions", (("src", "t2"),)):
+                d["t2_reads"],
+                ("counters", "pool/t1_spills", ()): d["shard_writes"],
+                ("histograms", "span_seconds",
+                 (("span", "serve/prefill"),)): run["prefills"],
+                ("histograms", "span_seconds",
+                 (("span", "serve/decode_chunk"),)): run["chunks"]}
+        got = {}
+        for (kind, name, labels), n_want in want.items():
+            n_got = series(snap, kind, name, **dict(labels))
+            got[f"{name}{dict(labels)}"] = n_got
+            check(n_got == n_want, f"telemetry: {name} {dict(labels)} = "
+                  f"{n_got}, the checking store / last_run's {n_want}")
+        obs.active().events.flush()
+        evs = obs.read_events(str(events_path))
+        runs = [e["tokens"] for e in evs if e["kind"] == "serve_run"]
+        check(runs == run["tokens"], f"telemetry: the serve_run events' "
+              f"tokens {runs} = each run's last_run tokens {run['tokens']}")
+        shard_reads = sum(e["kind"] == "ckpt_restore" for e in evs)
+        check(shard_reads == d["t2_reads"] + d["prefetch_reads"],
+              f"telemetry: {shard_reads} ckpt_restore events of shards = "
+              f"{d['t2_reads']} serving-thread + {d['prefetch_reads']} "
+              f"prefetch reads, all emitted on the serving thread")
+
+        # --- one FedSim save / load ----------------------------------------
+        sim = FedSim(cfg, FedHyper(**RESUME_HP), base=params, device="cuda")
+        path = workdir / "telemetry_sim.msgpack"
+        sim.save(str(path), round_idx=3)
+        check(sim.load(str(path)) == 3, "telemetry: the FedSim reloads")
+        obs.active().events.flush()
+        mine = [e for e in obs.read_events(str(events_path))
+                if e.get("path") == str(path)]
+        n_leaves = len(checkpoint_leaf_paths(str(path)))
+        n_bytes = tree_nbytes(torch, sim.state_tree())
+        check([e["kind"] for e in mine] == ["ckpt_save", "ckpt_restore"]
+              and all(e["step"] == 3 and e["leaves"] == n_leaves
+                      for e in mine) and mine[0]["bytes"] == n_bytes,
+              f"telemetry: one ckpt_save and one ckpt_restore of the FedSim "
+              f"file, step 3, {n_leaves} leaves, {n_bytes} bytes "
+              f"({[{k: e[k] for k in ('kind', 'step', 'leaves')} for e in mine]})")
+        del sim
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # --- one decode chunk traced ---------------------------------------
+        eng = ServeEngine(params, cfg, ts, max_rows=TIER_ROWS,
+                          max_prompt_len=TIER_PROMPT,
+                          max_len=TIER_PROMPT + TIER_NEW + 8, decode_chunk=CHUNK,
+                          device="cuda")
+        reqs = tier["warm"][:TIER_ROWS]
+        eng.generate(reqs[:2], n_new=2)                 # warm, untraced
+        torch.cuda.synchronize()
+        reset_launches()
+        for t, p in reqs:
+            eng.submit(t, p, CHUNK + 1)
+        ranges, on_card, outside = bgmv_ranges(torch, eng.run)
+        n_mag = read_launches()["bgmv_mag"]
+        launches += n_mag
+        st = eng.last_run
+        steps = st["prefills"] + st["decode_steps"]
+        check(st["prefills"] == 1 and len(st["chunk_seconds"]) == 1
+              and n_mag == 2 * cfg.n_layers * steps,
+              f"telemetry trace: 1 prefill + 1 chunk, bgmv_mag launched "
+              f"{n_mag} = 2 x {cfg.n_layers} x {steps}")
+        check(len(ranges) == n_mag, f"telemetry trace: {len(ranges)} "
+              f"kernels/bgmv_mag ranges = the {n_mag} counted launches")
+        bad = [k for k in ranges if len(k) != 1 or "bgmv_kernel" not in k[0]]
+        check(not bad and on_card == n_mag and outside == 0,
+              f"telemetry trace: each range holds exactly one device "
+              f"kernel, a bgmv_kernel ({len(bad)} do not, e.g. {bad[:1]}); "
+              f"{on_card} bgmv_kernel launches on the card, {outside} "
+              f"outside every range")
+    finally:
+        obs.disable()
+
+    # --- the decode step with telemetry off and on, one warm engine --------
+    eng = ServeEngine(params, cfg, ts, max_rows=TIER_ROWS,
+                      max_prompt_len=TIER_PROMPT,
+                      max_len=TIER_PROMPT + TIER_NEW + 8, decode_chunk=CHUNK,
+                      device="cuda")
+    step_ms = {"off": [], "on": []}
+    reqs = tier["warm"][:TIER_ROWS]          # one batch: 1 prefill, 2 chunks
+    want = eng.generate(reqs, n_new=TIER_NEW)            # warm, off
+    for rep in range(TELEMETRY_REPS):
+        for mode in (("off", "on") if rep % 2 == 0 else ("on", "off")):
+            if mode == "on":
+                obs.enable(str(workdir / "telemetry_cost.jsonl"))
+            try:
+                torch.cuda.synchronize()
+                reset_launches()
+                outs = eng.generate(reqs, n_new=TIER_NEW)
+                launches += read_launches()["bgmv_mag"]
+            finally:
+                obs.disable()
+            same_tokens(outs, want, f"one warm batch's tokens, telemetry "
+                        f"{mode}")
+            step_ms[mode] += [1e3 * t / CHUNK
+                              for t in eng.last_run["chunk_seconds"]]
+    gpu = gpu_line()
+    out = {"counts": d, "obs": got, "runs": run,
+           "fedsim_ckpt": {"leaves": n_leaves, "bytes": n_bytes},
+           "trace": {"ranges": len(ranges), "bgmv_kernel_on_card": on_card,
+                     "bgmv_kernel_outside_ranges": outside},
+           "decode_step_ms_off": statistics.median(step_ms["off"]),
+           "decode_step_ms_on": statistics.median(step_ms["on"]),
+           "decode_step_ms_all": step_ms, "gpu": gpu,
+           "bgmv_mag_launches": launches}
+    print(f"telemetry: decode step {out['decode_step_ms_off']:.2f} ms off, "
+          f"{out['decode_step_ms_on']:.2f} ms on (median of "
+          f"{len(step_ms['off'])} chunks each, {gpu})")
+    print("telemetry: " + json.dumps(out))
     return out, launches
 
 
-def phase_persistence(torch, ctx):
-    """Phase 10: (a) FedSim resume and (b) tiered serving, in a work
-    directory under the checkout's ignored build/, removed afterwards."""
-    workdir = ROOT / "build" / "phase10"
-    shutil.rmtree(workdir, ignore_errors=True)
-    workdir.mkdir(parents=True)
-    try:
-        report = {"resume": phase_resume(torch, ctx, workdir)}
-        report["tiered"], launches = phase_tiered(torch, ctx, workdir)
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    return report, launches
+def replay_cohort(r):
+    """Round ``r``'s cohort and faults from numpy, as the sampler and the
+    fault plan draw them (written out here, not taken from the port)."""
+    rng = np.random.default_rng((COHORT_SEED, r))
+    idx = np.sort(rng.choice(COHORT_N, size=COHORT_HP["n_clients"],
+                             replace=False))
+    p, C = COHORT_PLAN, COHORT_HP["n_clients"]
+    rng = np.random.default_rng((p["seed"], r, 727))
+    u = rng.random(C)
+    drop = u < p["dropout_rate"]
+    strag = ~drop & (u < p["dropout_rate"] + p["straggler_rate"])
+    corrupt = ~drop & ~strag & (rng.random(C) < p["corrupt_rate"])
+    lo, hi = p["straggler_delay"]
+    delays = rng.integers(lo, hi + 1, size=C)
+    return idx, drop, strag, corrupt, delays
+
+
+def cohort_batches(torch, ctx, r):
+    """Round ``r``'s stacked (4, 4, 128) batch, slot c from dolly client
+    c, from a numpy generator seeded by the round, and its generator."""
+    from repro_torch.data import client_batch
+    hp = COHORT_HP
+    rng = np.random.default_rng(50_000 + r)
+    b = [client_batch(ctx["fed_data"][0], rng, hp["batch"], hp["seq_len"],
+                      device="cuda") for _ in range(hp["local_steps"])]
+    return b, torch.Generator(device="cuda").manual_seed(60_000 + r)
+
+
+def bank_entry(torch, bank, c):
+    from repro_torch.utils import pytree as pt
+    return {t: pt.tree_map(lambda x: x[c].clone(), getattr(bank, t))
+            for t in ("adapters", "opt_state")}
+
+
+def cohort_round(torch, ctx, cs, r, label, checks):
+    """One cohort round with its checks against the replayed draws:
+    cohort, fates, delays, billing, and every client that did not sync
+    (and had no delivery due) unchanged in the bank, bit for bit."""
+    idx, drop, strag, corrupt, delays = replay_cohort(r)
+    due = {d["client"] for d in cs._pending if d["deliver_at"] <= r}
+    idle = [int(idx[s]) for s in np.nonzero(drop | strag)[0]
+            if int(idx[s]) not in due]
+    before = {c: bank_entry(torch, cs.bank, c) for c in idle}
+    pending = len(cs._pending)
+    bill = cs.sim.comm_bytes
+    batches, gen = cohort_batches(torch, ctx, r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = cs.run_round(batches, gen)
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    check(np.array_equal(out["cohort"], idx)
+          and np.array_equal(out["participation"], ~(drop | strag)),
+          f"{label} round {r}: cohort {out['cohort'].tolist()} and "
+          f"participation equal the replayed draws")
+    new = cs._pending[pending - out["delivered_billed"]:]
+    check([(d["client"], d["deliver_at"]) for d in new]
+          == [(int(idx[s]), r + int(delays[s])) for s in np.nonzero(strag)[0]],
+          f"{label} round {r}: the stragglers and their delays are the "
+          f"replayed ones")
+    unit = cs.sim.client_comm_bytes()
+    want = bill + unit * (int((~(drop | strag)).sum())
+                          + out["delivered_billed"])
+    check(cs.sim.comm_bytes == want, f"{label} round {r}: comm bytes "
+          f"{cs.sim.comm_bytes} = {bill} + {unit} x (live + deliveries)")
+    for c, entry in before.items():
+        now = bank_entry(torch, cs.bank, c)
+        same_leaves(torch, now, entry, f"{label} round {r}: client {c}, "
+                    f"who did not sync, in the bank")
+    checks.setdefault("idle_clients_unchanged", 0)
+    checks["idle_clients_unchanged"] += len(before)
+    checks.setdefault("corrupt", 0)
+    checks["corrupt"] += int(corrupt.sum())
+    return out
+
+
+def phase_cohort(torch, ctx, workdir):
+    """Phase 11 (b): faulted cohort rounds over a 16-client host bank,
+    fedlora_opt and lora_fedbuff at llama2-7b width, with telemetry on;
+    fedlora_opt resumed from a file written with a straggler in flight;
+    lora_fedbuff's bank served as pairs tenants through ``bgmv``."""
+    from repro_torch import obs
+    from repro_torch.fed import CohortSim, FaultPlan
+    from repro_torch.fed.simulate import FedHyper, FedSim
+    from repro_torch.serve import AdapterStore, ServeEngine
+    from repro_torch.utils import pytree as pt
+    cfg, params = ctx["cfg"], ctx["params"]
+    report, checks = {}, {}
+    for method in COHORT_METHODS:
+        hp = FedHyper(method=method, **COHORT_HP)
+        # one plain 4-client round: the device peak the bank must not raise
+        plain = FedSim(cfg, hp, base=params, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        plain.run_round(*cohort_batches(torch, ctx, 0))
+        torch.cuda.synchronize()
+        plain_peak = torch.cuda.max_memory_allocated()
+        state_bytes = tree_nbytes(torch, plain.client_adapters) + \
+            tree_nbytes(torch, plain.opt_state)
+        del plain
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        events_path = workdir / f"cohort_{method}.jsonl"
+        obs.enable(str(events_path))
+        try:
+            sim = FedSim(cfg, hp, base=params, device="cuda")
+            t0 = time.perf_counter()
+            cs = CohortSim(sim, COHORT_N, faults=FaultPlan(**COHORT_PLAN),
+                           seed=COHORT_SEED)
+            bank_s = time.perf_counter() - t0
+            bank_bytes = tree_nbytes(torch, cs.bank.adapters) + \
+                tree_nbytes(torch, cs.bank.opt_state)
+            check(all(x.device.type == "cpu" for t in (cs.bank.adapters,
+                                                       cs.bank.opt_state)
+                      for x in pt.tree_leaves(t)),
+                  f"cohort {method}: the {COHORT_N}-client bank is host "
+                  f"memory ({bank_bytes / 1e9:.2f} GB)")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            outs = []
+            ckpt = workdir / "cohort.msgpack"
+            for r in range(COHORT_HP["rounds"]):
+                outs.append(cohort_round(torch, ctx, cs, r, f"cohort {method}",
+                                         checks))
+                if method == COHORT_RESUMED and r == 0:
+                    check(any(d["deliver_at"] > 0 for d in cs._pending),
+                          f"cohort {method}: a straggler in flight at the "
+                          f"save")
+                    in_flight = [dict(d) for d in cs._pending]
+                    # the cohort file holds the bank, round, bill and
+                    # in-flight updates, as the reference's; the sim's
+                    # own file holds its step counter (AdamW's bias
+                    # correction), which a resume needs as well
+                    t0 = time.perf_counter()
+                    cs.save(str(ckpt))
+                    save_s = time.perf_counter() - t0
+                    sim.save(str(workdir / "cohort_sim.msgpack"), round_idx=1)
+            peak = torch.cuda.max_memory_allocated()
+            check(peak <= plain_peak + state_bytes + COHORT_PEAK_SLACK,
+                  f"cohort {method}: device peak {peak / 1e9:.3f} GB <= one "
+                  f"plain round's {plain_peak / 1e9:.3f} GB + the 4 clients' "
+                  f"state {state_bytes / 1e9:.3f} GB + "
+                  f"{COHORT_PEAK_SLACK >> 20} MiB (the bank: "
+                  f"{bank_bytes / 1e9:.2f} GB, on the host)")
+            snap = obs.emit_snapshot()
+        finally:
+            obs.disable()
+        draws = [replay_cohort(r) for r in range(COHORT_HP["rounds"])]
+        for name, i in (("fed/dropouts", 1), ("fed/stragglers", 2),
+                        ("fed/corrupt_updates", 3)):
+            n = series(snap, "counters", name, method=method)
+            check(n == sum(int(d[i].sum()) for d in draws),
+                  f"cohort {method}: {name} = {n}, the draws'")
+        evs = obs.read_events(str(events_path), kind="fed_cohort")
+        check(len(evs) == COHORT_HP["rounds"]
+              and evs[-1]["comm_bytes"] == sim.comm_bytes,
+              f"cohort {method}: the last fed_cohort event's comm bytes "
+              f"{evs[-1]['comm_bytes']} = sim.comm_bytes {sim.comm_bytes}")
+        run = {"bank_gb": bank_bytes / 1e9, "bank_s": bank_s,
+               "round_wall_s": [o["wall_s"] for o in outs],
+               "peak_bytes": peak,
+               "plain_round_peak_bytes": plain_peak,
+               "state_bytes": state_bytes, "comm_bytes": sim.comm_bytes,
+               "ce": [o["metrics"]["ce"].tolist() for o in outs],
+               "participation": [o["participation"].astype(int).tolist()
+                                 for o in outs],
+               "delivered": [o["delivered"] for o in outs]}
+
+        if method == COHORT_RESUMED:
+            fresh = FedSim(cfg, hp, base=params, device="cuda")
+            t0 = time.perf_counter()
+            cs2 = CohortSim(fresh, COHORT_N, faults=FaultPlan(**COHORT_PLAN),
+                            seed=COHORT_SEED)
+            check(fresh.load(str(workdir / "cohort_sim.msgpack")) == 1
+                  and cs2.load(str(ckpt)) == 1, f"cohort {method}: the files "
+                  f"resume at round 1")
+            load_s = time.perf_counter() - t0
+            check([(d["client"], d["deliver_at"]) for d in cs2._pending]
+                  == [(d["client"], d["deliver_at"]) for d in in_flight],
+                  f"cohort {method}: the in-flight stragglers come back")
+            for r in range(1, COHORT_HP["rounds"]):
+                o = cohort_round(torch, ctx, cs2, r, f"cohort {method} "
+                                 f"resumed", checks)
+                w = outs[r]
+                check(o["delivered"] == w["delivered"]
+                      and o["delivered_billed"] == w["delivered_billed"]
+                      and np.array_equal(o["metrics"]["ce"],
+                                         w["metrics"]["ce"]),
+                      f"cohort {method} resumed round {r}: deliveries and "
+                      f"ce equal the uninterrupted run's")
+                for d in in_flight:
+                    if d["deliver_at"] == r:
+                        check(cs2.bank.last_sync[d["client"]] ==
+                              d["trained_round"] and o["delivered"] >= 1,
+                              f"cohort {method}: client {d['client']}'s "
+                              f"update delivered at its round {r}")
+                        same_leaves(torch, bank_entry(torch, cs2.bank,
+                                                      d["client"])["adapters"],
+                                    d["adapters"], f"cohort {method}: the "
+                                    f"delivered update")
+            n = same_leaves(torch, cs2.bank.state_tree(), cs.bank.state_tree(),
+                            f"cohort {method}: the resumed bank against the "
+                            f"uninterrupted one")
+            check(cs2.sim.comm_bytes == sim.comm_bytes
+                  and cs2.round == cs.round and
+                  [(d["client"], d["deliver_at"]) for d in cs2._pending]
+                  == [(d["client"], d["deliver_at"]) for d in cs._pending],
+                  f"cohort {method}: resumed comm bytes, round and in-flight "
+                  f"stragglers equal the uninterrupted run's")
+            print(f"ok: cohort {method}: rounds 2-3 from the file equal the "
+                  f"uninterrupted run, {n} bank leaves bit for bit")
+            run.update(save_s=save_s, load_s=load_s,
+                       ckpt_gb=ckpt.stat().st_size / 1e9)
+            del cs2, fresh
+            ckpt.unlink()
+            (workdir / "cohort_sim.msgpack").unlink()
+        report[method] = run
+        print(f"cohort {method}: " + json.dumps(run))
+        if method == COHORT_SERVED:
+            served = cs.bank
+        del cs, sim
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["checks"] = checks
+
+    # --- the served method's 16 bank clients as pairs tenants -------------
+    tenants = [f"client{c}" for c in range(COHORT_N)]
+    store = AdapterStore(params, cfg, n_slots=COHORT_N, kind="pairs",
+                         rank=cfg.lora_rank, device="cuda")
+    for c, t in enumerate(tenants):
+        store.register(t, pt.tree_map(lambda x: x[c], served.adapters))
+    rng = np.random.default_rng(11)
+    reqs = [(t, rng.integers(0, cfg.vocab_size,
+                             size=int(rng.integers(16, PAD_W + 1))
+                             ).astype(np.int32)) for t in tenants]
+    eng = ServeEngine(params, cfg, store, max_rows=COHORT_N,
+                      max_prompt_len=PAD_W, max_len=MAX_LEN,
+                      decode_chunk=CHUNK, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    _, st, counts = serve(torch, eng, reqs, "cohort bank", expect={"bgmv": 2})
+    check(st["prefills"] == 1, "cohort bank: the 16 tenants in one batch")
+    report["serve"] = engine_report("cohort bank", st, len(reqs),
+                                    torch.cuda.max_memory_allocated())
+    batch, last = admitted_batch(torch, store, reqs, rows=COHORT_N)
+    report["serve"]["prefill_logits"] = logits_checks(
+        torch, "cohort bank", pt.merge_trees(params, store.overlay()), cfg,
+        prefill_logits(torch, batch, last), depths=(CHECK_DEPTH,))
+    del store, served
+    return report, counts["bgmv"]
 
 
 def quant_bytes(tree):
@@ -3284,12 +3817,33 @@ def main():
             launches[name] += n
         print(f"phase 9 (mixed-rank fleets) took "
               f"{time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        report["persistence"], persist_launches = phase_persistence(torch,
-                                                                    ctx)
-        launches["bgmv_mag"] += sum(persist_launches.values())
-        print(f"phase 10 (persistence) took "
-              f"{time.perf_counter() - t0:.1f} s")
+        workdir = ROOT / "build" / "phase10"    # phases 10 and 11's files
+        shutil.rmtree(workdir, ignore_errors=True)
+        workdir.mkdir(parents=True)
+        try:
+            t0 = time.perf_counter()
+            report["persistence"], persist_launches, tier = \
+                phase_persistence(torch, ctx, workdir)
+            launches["bgmv_mag"] += sum(persist_launches.values())
+            print(f"phase 10 (persistence) took "
+                  f"{time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            report["telemetry"], tel_launches = phase_telemetry(
+                torch, ctx, workdir, tier)
+            launches["bgmv_mag"] += tel_launches
+            del tier
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"phase 11 (a) (telemetry) took "
+                  f"{time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            report["cohort"], cohort_launches = phase_cohort(torch, ctx,
+                                                             workdir)
+            launches["bgmv"] += cohort_launches
+            print(f"phase 11 (b) (cohort rounds) took "
+                  f"{time.perf_counter() - t0:.1f} s")
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
         del ctx["params"]
         gc.collect()
         torch.cuda.empty_cache()
@@ -3325,8 +3879,10 @@ def main():
              "build": bgmv_build,
              "launches_phase9_fleet_serve": fleet_launches[name],
              **({"launches_phase10_tiered_serve": persist_launches["tiered"],
-                 "launches_phase10_flat_serve": persist_launches["flat"]}
-                if name == "bgmv_mag" else {}),
+                 "launches_phase10_flat_serve": persist_launches["flat"],
+                 "launches_phase11_telemetry_serve": tel_launches}
+                if name == "bgmv_mag" else
+                {"launches_phase11_cohort_serve": cohort_launches}),
              **({"launches_phase7_training_serve": train_launches}
                 if name == "bgmv_mag" else
                 {"launches_phase8_baselines_serve": baseline_launches})}))

@@ -14,8 +14,16 @@ kernels; fused-DoRA generation (``cfg.use_fused_dora``) through the
 (``cfg.backbone_quant``) through the ``quant_matmul`` kernel; and the
 paper's training pipeline (``core/fedlora.run_federated`` →
 ``fed/simulate.FedSim``, ``optim/``, ``data/``) through torch autograd,
-with the registry's baselines that run on a uniform-rank fleet
-(``core/methods.py``) and Fig. 1's ``core/sensitivity.py``.
-Everything else raises ``NotImplementedError`` naming its ROADMAP item.
+with all 14 methods of the reference's registry (``core/methods.py``),
+mixed-rank fleets and Fig. 1's ``core/sensitivity.py``; checkpoints in
+the reference's msgpack format and the tiered adapter store; telemetry
+(``obs``: metrics, JSONL events, profiler spans, zero cost when
+disabled); and cross-device cohorts (``fed.cohort``: a host-side client
+bank, cohort sampling, dropouts, stragglers and corrupted updates).
+The other architecture families raise ``NotImplementedError`` naming
+their ROADMAP item (A12); the production round engine (A11) and the
+tooling (A13) are not ported yet.
 """
+from repro_torch import obs  # noqa: F401
 from repro_torch.device import resolve_device  # noqa: F401
+from repro_torch.fed import cohort  # noqa: F401

@@ -28,8 +28,15 @@ Where the port differs from the reference:
   arrays, except bfloat16 leaves, which numpy cannot hold without the
   ``ml_dtypes`` extension: they come back as CPU ``torch.bfloat16``
   tensors, bit for bit.
-- No telemetry events (the reference's ``ckpt_save`` / ``ckpt_restore``)
-  until the port has ``obs/``.
+
+Telemetry, as the reference's: each save emits ``ckpt_save`` (path,
+step, leaves, bytes: the leaves' payload bytes) and counts
+``ckpt/saves``; each restore emits ``ckpt_restore`` (path, step, leaves)
+and counts ``ckpt/restores``, only while ``obs`` is enabled.  A worker
+thread's reads (the tiered store's prefetcher) run under
+``held_restores``, which holds their records for ``record_restores`` on
+the thread that owns the event log (the log is not thread-safe; the
+reference emits them from the worker).
 
 Per-key shards are the tiered adapter store's T2 layout: one small
 checkpoint per key (tenant id), named by the hex of the key's utf-8
@@ -37,15 +44,18 @@ bytes.
 """
 from __future__ import annotations
 
+import contextlib
 import operator
 import os
 import re
+import threading
 from typing import Any, Mapping
 
 import numpy as np
 import torch
 
 from repro_torch.checkpoint import msgpack_codec as codec
+from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.utils import pytree as pt
 
@@ -109,6 +119,7 @@ def save_checkpoint(path: str, tree: Any, step: int = 0) -> None:
     step = operator.index(step)
     tmp = path + ".tmp"
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    nbytes = 0
     with open(tmp, "wb") as f:
         f.write(codec.pack_map_header(2))
         codec.pack_to(f, "step")
@@ -116,9 +127,49 @@ def save_checkpoint(path: str, tree: Any, step: int = 0) -> None:
         codec.pack_to(f, "leaves")
         f.write(codec.pack_map_header(len(leaves)))
         for p, x in leaves:
+            rec = _pack_leaf(x)
+            nbytes += rec["b"].nbytes
             codec.pack_to(f, p)
-            codec.pack_to(f, _pack_leaf(x))
+            codec.pack_to(f, rec)
     os.replace(tmp, path)
+    if obs.enabled():
+        obs.event("ckpt_save", path=str(path), step=int(step),
+                  leaves=len(leaves), bytes=nbytes)
+        obs.inc("ckpt/saves")
+
+
+_held = threading.local()
+
+
+def _restored(path: str, step, n_leaves: int) -> None:
+    """The ``ckpt_restore`` event and counter of one read, or its record
+    kept for later under ``held_restores``."""
+    if not obs.enabled():
+        return
+    held = getattr(_held, "records", None)
+    if held is not None:
+        held.append((str(path), int(step), n_leaves))
+        return
+    obs.event("ckpt_restore", path=str(path), step=int(step),
+              leaves=n_leaves)
+    obs.inc("ckpt/restores")
+
+
+@contextlib.contextmanager
+def held_restores():
+    """Collect this thread's restore records in the yielded list instead
+    of emitting them."""
+    _held.records = records = []
+    try:
+        yield records
+    finally:
+        _held.records = None
+
+
+def record_restores(records) -> None:
+    """Emit restore records a ``held_restores`` block collected."""
+    for rec in records:
+        _restored(*rec)
 
 
 def checkpoint_leaf_paths(path: str) -> list[str]:
@@ -132,8 +183,9 @@ def load_checkpoint_flat(path: str) -> tuple[dict, int]:
     with no ``like`` template: the read path for state whose shapes vary
     between save and load (tier-2 shards, the tier directory)."""
     payload = _read_payload(path)
-    return ({p: _unpack_leaf(rec) for p, rec in payload["leaves"].items()},
-            payload["step"])
+    flat = {p: _unpack_leaf(rec) for p, rec in payload["leaves"].items()}
+    _restored(path, payload["step"], len(flat))
+    return flat, payload["step"]
 
 
 # ---------------------------------------------------------------------------
@@ -239,4 +291,6 @@ def restore_checkpoint(path: str, like: Any, *, device=None,
             return _to_tensor(arr, x.device)
         return _to_host(arr)
 
-    return pt.tree_map_with_path(fn, like), payload["step"]
+    tree = pt.tree_map_with_path(fn, like)
+    _restored(path, payload["step"], len(recs))
+    return tree, payload["step"]

@@ -37,18 +37,31 @@ get the fleet's ranks, and each client is billed at its own rank.
 (``checkpoint/ckpt.py``): the port resumes a reference run and the
 reference a port run.
 
-Not ported yet: cohort rounds (ROADMAP A10c) and obs spans (A10b).
+Cohort rounds: ``aggregate`` takes per-round ``weights``,
+``participation`` and ``staleness``, and ``run_cohort_round`` applies a
+round's faults (dropouts, corrupted updates), the layer under
+``fed/cohort.py``.
+
+Telemetry (``repro_torch.obs``), as the reference's: the spans
+``fed/round_scan``, ``fed/aggregate``, ``fed/rebroadcast``,
+``fed/round``, ``fed/stage2_global`` and ``fed/stage3_personalize``
+(each waits for the card first, only while telemetry is enabled),
+``fed/rounds``, ``fed/comm_bytes`` (by method and comm class),
+``fed/loss_spread``, ``fed/client_ce``, each client's drift from the
+aggregate, and the ``fed_round`` and ``fed_stage`` events.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import re
+import time
 from typing import Any
 
 import numpy as np
 import torch
 
-from repro_torch import optim
+from repro_torch import obs, optim
 from repro_torch.checkpoint.ckpt import restore_checkpoint, save_checkpoint
 from repro_torch.core import aggregation as agg
 from repro_torch.core import peft
@@ -103,6 +116,12 @@ def prox_term(adapters: Params, ref: Params):
     """‖θ − θ_ref‖² over every adapter leaf, summed in f32."""
     return sum(torch.sum(torch.square(x.float() - pt.tree_get(ref, p).float()))
                for p, x in pt.tree_leaves_with_path(adapters))
+
+
+def _host(v) -> np.ndarray:
+    """A (C,) fault vector (numpy, list or tensor) as a host array."""
+    return (v.detach().cpu().numpy() if torch.is_tensor(v)
+            else np.asarray(v))
 
 
 def client(tree: Params, c: int) -> Params:
@@ -185,6 +204,10 @@ class FedSim:
         self.comm_bytes = 0
         # FedProx round reference; None until the first round starts
         self._round_ref = None
+        # the scaled, not yet reverted client state of the last faulted
+        # round (what a straggler computed): see run_cohort_round
+        self.last_trained: dict | None = None
+        self._obs_wall: dict = {}       # the last round's telemetry split
 
     # ------------------------------------------------------------------
     def _init_clients(self, opt) -> Params:
@@ -251,6 +274,23 @@ class FedSim:
         return tuple(stack_clients([o[i] for o in outs]) for i in range(3))
 
     # ------------------------------------------------------------------
+    @contextlib.contextmanager
+    def _timed(self, span: str, wall_key: str):
+        """While telemetry is enabled, time the region into
+        ``span_seconds`` and the round's wall split, waiting for the card
+        first so that the span covers its work; bare otherwise (no clock
+        read, no sync)."""
+        if not obs.enabled():
+            yield
+            return
+        t0 = time.perf_counter()
+        yield
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dt = time.perf_counter() - t0
+        obs.observe("span_seconds", dt, span=span, method=self.hp.method)
+        self._obs_wall[wall_key] = dt
+
     def local_round(self, batches: list[dict], rng=None) -> dict:
         """One round of stage-1 local training.  batches: one stacked
         (C, B, S) dict per local step; rng: the round's torch.Generator
@@ -259,46 +299,89 @@ class FedSim:
             self._round_ref = self.client_adapters
         ref = self._round_ref if self._prox_mu else None
         mets = {}
-        for b in batches:
-            self.client_adapters, self.opt_state, mets = self._clients_step(
-                self.client_adapters, self.opt_state, b, rng, self._step,
-                self.opt, 0.0, ref)
-            self._step += 1
+        with self._timed("fed/round_scan", "scan"), \
+                obs.named_scope("fed/round_scan"):
+            for b in batches:
+                self.client_adapters, self.opt_state, mets = \
+                    self._clients_step(self.client_adapters, self.opt_state,
+                                       b, rng, self._step, self.opt, 0.0,
+                                       ref)
+                self._step += 1
         return {k: v.cpu().numpy() for k, v in mets.items()}
+
+    def _client_drift(self, clients, aggregated) -> np.ndarray:
+        """Per-client drift ‖clientᵢ − aggregate‖ over the shared leaves
+        (keep-local leaves are personal and skipped; a mixed-rank fleet
+        masks each difference to the client's rank rows), summed in f32;
+        (C,) float64 on the host.  Telemetry only."""
+        rm = self.rank_mask
+        tot = torch.zeros((self.hp.n_clients,), device=self.device)
+        for p, x in pt.tree_leaves_with_path(clients):
+            if self._keep_rx is not None and self._keep_rx.search(p):
+                continue
+            d = x.float() - pt.tree_get(aggregated, p).float()[None]
+            if rm is not None:
+                d = d * pt.tree_get(rm, p)
+            tot = tot + torch.sum(torch.square(d),
+                                  dim=tuple(range(1, x.dim())))
+        return torch.sqrt(tot).cpu().numpy().astype(np.float64)
 
     def aggregate(self, *, weights=None, staleness=None,
                   participation=None) -> Params:
         """Method aggregation (Eqs. 5-8 for ours, the baselines' own
-        otherwise) and comm accounting; broadcasts the aggregate back
-        with the keep-local leaves (dB_mag, FedALT's pair) kept per
-        client.  ``weights``: a per-call (C,) override of
-        ``hp.client_weights``.  A ``needs_step`` aggregate gets the round
-        counter, a ``needs_staleness`` one zero staleness (cohort
-        staleness is ROADMAP A10c).  Returns the aggregate (no client
-        axis)."""
-        if staleness is not None or participation is not None:
-            raise NotImplementedError("cohort rounds are not ported yet "
-                                      "(ROADMAP A10c)")
+        otherwise) and comm accounting; broadcasts the aggregate back with
+        the keep-local leaves (dB_mag, FedALT's pair) kept per client.
+        Returns the aggregate (no client axis).  A ``needs_step``
+        aggregate gets the round counter.
+
+        Cohort and fault arguments, all optional (None: the synchronous
+        full-participation round):
+
+          weights        a per-call (C,) override of ``hp.client_weights``
+          staleness      (C,) rounds since each client's last sync, for
+                         ``needs_staleness`` aggregates (FedBuff); zeros
+                         when None
+          participation  (C,) 0/1 flags: a non-participant gets weight 0
+                         and is not billed (it uploads nothing)
+        """
         C = self.hp.n_clients
         w = weights if weights is not None else self._base_weights
+        if participation is not None:
+            base_w = (torch.as_tensor(w, dtype=torch.float32)
+                      if w is not None else torch.ones((C,)))
+            w = base_w * torch.as_tensor(participation, dtype=torch.float32)
         kwargs = {}
         if w is not None:
             kwargs["weights"] = torch.as_tensor(w, dtype=torch.float32)
         if getattr(self.method.aggregate, "needs_step", False):
             kwargs["step"] = self._step
         if getattr(self.method.aggregate, "needs_staleness", False):
-            kwargs["staleness"] = torch.zeros((C,), dtype=torch.float32)
+            kwargs["staleness"] = (
+                torch.zeros((C,), dtype=torch.float32) if staleness is None
+                else torch.as_tensor(staleness, dtype=torch.float32))
         if self.method.rank_aware:
             # a uniform fleet is the all-alloc_rank case
             kwargs["ranks"] = self.hp.client_ranks or (self.alloc_rank,) * C
-        aggregated = self.method.aggregate(self.client_adapters, **kwargs)
-        # each client moves only its own rank rows (None: the allocation)
-        for r in self.hp.client_ranks or (None,) * C:
-            self.comm_bytes += agg.comm_bytes_per_round(
-                self.adapter_template, exclude_rx=self.method.keep_local,
-                rank=r, comm=self._comm_class, n_clients=C,
-                topk_ratio=self._topk_ratio)
-        self.client_adapters = self._rebroadcast(aggregated)
+        with self._timed("fed/aggregate", "aggregate"):
+            aggregated = self.method.aggregate(self.client_adapters,
+                                               **kwargs)
+        # a dropped or straggling client uploads nothing this round
+        # (a straggler is billed when its update arrives: fed/cohort.py),
+        # and each live client moves only its own rank rows
+        live = (_host(participation) > 0 if participation is not None
+                else np.ones((C,), bool))
+        billed = sum(self.client_comm_bytes(c) for c in range(C) if live[c])
+        self.comm_bytes += billed
+        if obs.enabled():
+            obs.inc("fed/comm_bytes", billed, method=self.hp.method,
+                    comm=self._comm_class)
+            self._obs_wall["comm_bytes"] = billed
+            # measured before the rebroadcast: the client models as they
+            # finished the round, against the server aggregate
+            self._obs_wall["drift"] = self._client_drift(self.client_adapters,
+                                                         aggregated)
+        with self._timed("fed/rebroadcast", "rebroadcast"):
+            self.client_adapters = self._rebroadcast(aggregated)
         if self.method.prox:
             self._round_ref = self.client_adapters
         return aggregated
@@ -311,14 +394,131 @@ class FedSim:
                                              self._keep_rx, self.rank_mask)
 
     def run_round(self, batches: list[dict], rng=None) -> dict:
-        """Stage-1 local training, then the method's aggregation."""
+        """Stage-1 local training, then the method's aggregation.  With
+        telemetry enabled: the ``fed/round`` span, ``fed/rounds``,
+        ``fed/loss_spread``, ``fed/client_ce`` and the ``fed_round``
+        event."""
+        if not obs.enabled():
+            mets = self.local_round(batches, rng)
+            self.aggregate()
+            return mets
+        self._obs_wall = {}
+        t0 = time.perf_counter()
         mets = self.local_round(batches, rng)
         self.aggregate()
+        total = time.perf_counter() - t0
+        self._round_event(mets, total)
         return mets
 
-    def run_cohort_round(self, *args, **kwargs):
-        raise NotImplementedError("cohort rounds are not ported yet "
-                                  "(ROADMAP A10c)")
+    def _round_event(self, mets: dict, total: float) -> None:
+        method = self.hp.method
+        obs.observe("span_seconds", total, span="fed/round", method=method)
+        obs.inc("fed/rounds", method=method)
+        w = self._obs_wall
+        ce = np.asarray(mets["ce"], np.float64).reshape(-1)
+        gn = np.asarray(mets.get("grad_norm", np.zeros_like(ce)),
+                        np.float64).reshape(-1)
+        drift = np.asarray(w.get("drift", np.zeros_like(ce))).reshape(-1)
+        spread = float(ce.max() - ce.min()) if ce.size else 0.0
+        obs.set_gauge("fed/loss_spread", spread, method=method)
+        for c in range(ce.size):
+            obs.observe("fed/client_ce", float(ce[c]), method=method,
+                        client=c)
+        obs.event(
+            "fed_round", method=method, step=int(self._step),
+            clients=int(ce.size),
+            ce=[round(float(v), 6) for v in ce],
+            grad_norm=[round(float(v), 6) for v in gn],
+            drift=[round(float(v), 6) for v in drift],
+            loss_spread=round(spread, 6),
+            comm_bytes=int(w.get("comm_bytes", 0)),
+            comm_class=self._comm_class,
+            wall={"scan": round(w.get("scan", 0.0), 6),
+                  "aggregate": round(w.get("aggregate", 0.0), 6),
+                  "rebroadcast": round(w.get("rebroadcast", 0.0), 6),
+                  "total": round(total, 6)})
+
+    def client_comm_bytes(self, client: int | None = None) -> int:
+        """One client's wire bytes for one round of this method's
+        collective (the unit ``aggregate`` bills a live client), at the
+        client's own rank on a mixed-rank fleet; cohort drivers bill a
+        straggler's delivery with it."""
+        rank = (int(self.hp.client_ranks[client])
+                if self.hp.client_ranks is not None and client is not None
+                else None)
+        return agg.comm_bytes_per_round(
+            self.adapter_template, exclude_rx=self.method.keep_local,
+            rank=rank, comm=self._comm_class, n_clients=self.hp.n_clients,
+            topk_ratio=self._topk_ratio)
+
+    def run_cohort_round(self, batches: list[dict], rng=None, *,
+                         participation=None, staleness=None,
+                         update_scale=None, weights=None) -> dict:
+        """One federated round under cohort faults.  Every fault input is
+        a (C,) array:
+
+          participation  0/1 flags; a 0-client's adapters AND optimizer
+                         state revert to their round-start values (its
+                         work is lost), it has weight 0 in the aggregate
+                         and is not billed
+          update_scale   multiplies each client's round update (a
+                         corrupted client inflates its own); 1 is honest
+          staleness      rounds since the last sync, for
+                         ``needs_staleness`` aggregates (FedBuff)
+          weights        a per-round override of ``hp.client_weights``
+
+        The fault transforms, ``old + s·(new − old)`` then
+        ``where(p > 0, new, old)``, apply to every client when either
+        ``participation`` or ``update_scale`` is given, and not at all
+        otherwise: with neither, the round is ``run_round`` bit for bit
+        (``old + 1·(new − old)`` is not always ``new`` in floating
+        point).  The round-start snapshot is a copy (``clone``), so a
+        step that updated a leaf in place could not alter it.
+
+        After a faulted round ``last_trained`` holds the scaled client
+        state before the revert (what a straggler computed), for
+        delayed delivery (``fed/cohort.CohortSim``).  When every client
+        dropped, nothing aggregates and nothing is billed."""
+        use_faults = participation is not None or update_scale is not None
+        C = self.hp.n_clients
+        # dropped before the round (the reference drops it after), so the
+        # last round's copy is not held through this round's training
+        self.last_trained = None
+        if use_faults:
+            snap_ad = pt.tree_map(torch.clone, self.client_adapters)
+            snap_ost = pt.tree_map(torch.clone, self.opt_state)
+        mets = self.local_round(batches, rng)
+        if use_faults:
+            s = (torch.ones((C,)) if update_scale is None
+                 else torch.as_tensor(update_scale, dtype=torch.float32))
+            p = (torch.ones((C,)) if participation is None
+                 else torch.as_tensor(participation, dtype=torch.float32))
+            s, p = s.to(self.device), p.to(self.device)
+
+            def per_client(v, x):
+                return v.reshape((C,) + (1,) * (x.dim() - 1))
+
+            self.client_adapters = pt.tree_map2(
+                lambda new, old: old + per_client(s, new) * (new - old),
+                self.client_adapters, snap_ad)
+            self.last_trained = {"adapters": self.client_adapters,
+                                 "opt_state": self.opt_state}
+
+            def revert(new, old):
+                return torch.where(per_client(p, new) > 0, new, old)
+            self.client_adapters = pt.tree_map2(revert, self.client_adapters,
+                                                snap_ad)
+            self.opt_state = pt.tree_map2(revert, self.opt_state, snap_ost)
+        if participation is not None and not np.any(
+                _host(participation) > 0):
+            # every cohort client dropped: the round is a no-op (the
+            # reverted adapters are the round-start anchor)
+            if self.method.prox:
+                self._round_ref = self.client_adapters
+            return mets
+        self.aggregate(weights=weights, staleness=staleness,
+                       participation=participation)
+        return mets
 
     def global_stage(self, aggregated: Params, server_batches: list[dict],
                      rng=None) -> Params:
@@ -328,10 +528,13 @@ class FedSim:
         result (keep-local leaves stay, each client re-masked to its
         rank) and return it."""
         opt_state = self.opt_global.init(aggregated)
-        for step, b in enumerate(server_batches):
-            aggregated, opt_state, _ = self._step_one(
-                aggregated, opt_state, b, rng, step, self.opt_global, 0.0)
-        self.client_adapters = self._rebroadcast(aggregated)
+        with self._timed("fed/stage2_global", "global"), \
+                obs.named_scope("fed/stage2_global"):
+            for step, b in enumerate(server_batches):
+                aggregated, opt_state, _ = self._step_one(
+                    aggregated, opt_state, b, rng, step, self.opt_global, 0.0)
+            self.client_adapters = self._rebroadcast(aggregated)
+        self._stage_event("global", len(server_batches))
         return aggregated
 
     def personalize(self, batches: list[dict], rng=None) -> None:
@@ -341,10 +544,18 @@ class FedSim:
         lam = self.hp.lam if self.method.personal_reg is not None else 0.0
         ad, opt_state = self.client_adapters, self._init_clients(
             self.opt_local)
-        for step, b in enumerate(batches):
-            ad, opt_state, _ = self._clients_step(
-                ad, opt_state, b, rng, step, self.opt_local, lam)
+        with self._timed("fed/stage3_personalize", "personalize"), \
+                obs.named_scope("fed/stage3_personalize"):
+            for step, b in enumerate(batches):
+                ad, opt_state, _ = self._clients_step(
+                    ad, opt_state, b, rng, step, self.opt_local, lam)
         self.client_adapters = ad
+        self._stage_event("personalize", len(batches))
+
+    def _stage_event(self, stage: str, steps: int) -> None:
+        if obs.enabled():
+            obs.event("fed_stage", stage=stage, method=self.hp.method,
+                      steps=steps, wall=round(self._obs_wall[stage], 6))
 
     # ------------------------------------------------------------------
     # checkpointing

@@ -8,13 +8,17 @@ explicit comparisons only (``chip_smoke.py`` and the tests).
 
 Inputs accept (B, S, d_in) token blocks or (B, d_in) single-token decode
 rows (taken as S = 1); ``idx`` is the (B,) int32 pool-slot vector from
-the AdapterStore.
+the AdapterStore.  Each call runs inside ``obs.named_scope``
+("kernels/bgmv", "kernels/bgmv_mag"), as the reference's, which names it
+in a profiler trace and costs nothing with telemetry off and no profiler
+recording.
 """
 from __future__ import annotations
 
 from repro_torch.kernels._wrap import resolve_impl
 from repro_torch.kernels.batched_lora.bgmv import bgmv_cuda, bgmv_mag_cuda
 from repro_torch.kernels.batched_lora.ref import bgmv_mag_ref, bgmv_ref
+from repro_torch.obs.tracing import named_scope
 
 
 def bgmv(x, a_pool, b_pool, idx, *, scale: float = 1.0, ranks=None,
@@ -25,10 +29,11 @@ def bgmv(x, a_pool, b_pool, idx, *, scale: float = 1.0, ranks=None,
     squeeze = x.dim() == 2
     if squeeze:
         x = x[:, None, :]
-    if impl == "torch":
-        y = bgmv_ref(x, a_pool, b_pool, idx, scale, ranks=ranks)
-    else:
-        y = bgmv_cuda(x, a_pool, b_pool, idx, ranks, scale=scale)
+    with named_scope("kernels/bgmv"):
+        if impl == "torch":
+            y = bgmv_ref(x, a_pool, b_pool, idx, scale, ranks=ranks)
+        else:
+            y = bgmv_cuda(x, a_pool, b_pool, idx, ranks, scale=scale)
     return y[:, 0] if squeeze else y
 
 
@@ -43,12 +48,13 @@ def bgmv_mag(x, a_dir, a_mag, b_mag, dmag_pool, b_dir, idx, *,
     squeeze = x.dim() == 2
     if squeeze:
         x = x[:, None, :]
-    if impl == "torch":
-        y = bgmv_mag_ref(x, a_dir, a_mag, b_mag, dmag_pool, b_dir, idx,
-                         scale, ranks=ranks)
-    else:
-        y = bgmv_mag_cuda(x, a_dir, a_mag, b_mag, dmag_pool, b_dir, idx,
-                          ranks, scale=scale)
+    with named_scope("kernels/bgmv_mag"):
+        if impl == "torch":
+            y = bgmv_mag_ref(x, a_dir, a_mag, b_mag, dmag_pool, b_dir, idx,
+                             scale, ranks=ranks)
+        else:
+            y = bgmv_mag_cuda(x, a_dir, a_mag, b_mag, dmag_pool, b_dir, idx,
+                              ranks, scale=scale)
     return y[:, 0] if squeeze else y
 
 

@@ -3,7 +3,8 @@
 
 ``quant_matmul(..., impl=None)`` launches the CUDA kernel for a CUDA
 tensor and runs the plain version for a CPU tensor; ``impl="torch"``
-forces the plain version, for explicit comparisons only.  The kernel
+forces the plain version, for explicit comparisons only.  The call runs
+inside ``obs.named_scope("kernels/quant_matmul")``, as the reference's.  The kernel
 masks its own ragged edges, so unlike the JAX dispatcher nothing is
 padded or sliced here.
 
@@ -21,6 +22,7 @@ from repro_torch.kernels.quant_matmul.ref import (dequantize,  # noqa: F401
                                                   quant_matmul_ref,
                                                   quantize_int4, quantize_int8,
                                                   unpack_int4)
+from repro_torch.obs.tracing import named_scope
 from repro_torch.utils import pytree as pt
 
 # the backbone leaves that quantize: attention and FFN projection kernels.
@@ -34,11 +36,12 @@ def quant_matmul(x, q, scale, *, impl=None):
     ``q`` int8 (d_in, d_out) or packed-int4 uint8 (d_in/2, d_out);
     ``scale`` (G, d_out) f32, per channel (G = 1) or per group."""
     impl = resolve_impl(impl, x, "quant_matmul")
-    if impl == "torch":
-        return quant_matmul_ref(x, q, scale)
-    lead, d_in = x.shape[:-1], x.shape[-1]
-    y = quant_matmul_cuda(x.reshape(-1, d_in).contiguous(), q, scale)
-    return y.reshape(*lead, q.shape[-1])
+    with named_scope("kernels/quant_matmul"):
+        if impl == "torch":
+            return quant_matmul_ref(x, q, scale)
+        lead, d_in = x.shape[:-1], x.shape[-1]
+        y = quant_matmul_cuda(x.reshape(-1, d_in).contiguous(), q, scale)
+        return y.reshape(*lead, q.shape[-1])
 
 
 def _quantize(quant, leaf, group_size):

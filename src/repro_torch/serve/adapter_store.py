@@ -46,6 +46,15 @@ promotes T2→T1→T0, and ``install_batch`` installs every tenant the next
 admission needs with one ``index_copy_`` a pool leaf.  A background
 prefetcher reads queued tenants' shards into host memory while a
 decode chunk runs.
+
+Telemetry (``repro_torch.obs``), at the reference's sites with its
+names: the ``pool/*`` counters (lookups, registers, evictions, tier
+hits and misses, promotions, spills, prefetches) and occupancy gauges,
+and the ``pool_register`` / ``pool_evict`` / ``pool_promote`` /
+``pool_prefetch`` / ``ckpt_migrate`` events, emitted on the serving
+thread only: ``pool_prefetch``, and the ``ckpt_restore`` of a prefetched
+shard, when ``drain_prefetch`` folds the load in, not on the prefetch
+thread (the event log is not thread-safe).
 """
 from __future__ import annotations
 
@@ -59,10 +68,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.checkpoint.ckpt import (checkpoint_leaf_paths, list_shards,
+from repro_torch import obs
+from repro_torch.checkpoint.ckpt import (checkpoint_leaf_paths,
+                                         held_restores, list_shards,
                                          load_checkpoint_flat,
-                                         load_shard_flat, restore_checkpoint,
-                                         save_checkpoint, save_shard)
+                                         load_shard_flat, record_restores,
+                                         restore_checkpoint, save_checkpoint,
+                                         save_shard)
 from repro_torch.core.peft import _target_kernels
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ArchConfig
@@ -183,6 +195,7 @@ class AdapterStore:
         """Slot for a registered tenant; bumps LRU recency."""
         slot = self._slot_of[tenant]
         self._touch(slot)
+        obs.inc("pool/lookups", kind=self.kind)
         return slot
 
     def rank_of(self, tenant: str) -> int:
@@ -222,6 +235,11 @@ class AdapterStore:
             for key in _SLOT_KEYS:
                 if key in pool:
                     self._set_slot(prefix, key, slot, 0.0)
+        if obs.enabled():
+            obs.inc("pool/evictions", kind=self.kind)
+            obs.set_gauge("pool/occupancy",
+                          len(self._tenant_of) / self.n_slots, kind=self.kind)
+            obs.event("pool_evict", tenant=tenant, slot=slot, pool=self.kind)
 
     # ------------------------------------------------------------------
     # register
@@ -243,6 +261,12 @@ class AdapterStore:
         self._tenant_of[slot] = tenant
         self._slot_ranks[slot] = r_t
         self._touch(slot)
+        if obs.enabled():
+            obs.inc("pool/registers", kind=self.kind)
+            obs.set_gauge("pool/occupancy",
+                          len(self._tenant_of) / self.n_slots, kind=self.kind)
+            obs.event("pool_register", tenant=tenant, slot=slot,
+                      rank=int(self._slot_ranks[slot]), pool=self.kind)
         return slot
 
     def install_batch(self, tenants, *, pinned=(),
@@ -494,6 +518,10 @@ class AdapterStore:
             self._pools[p]["pool_dB_mag"] = self._f32(
                 db * (occupied & rows))
         self.version += 1
+        if obs.enabled():
+            obs.event("ckpt_migrate", path=str(path),
+                      layout="pool_B_mag->pool_dB_mag",
+                      tenants=len(self._tenant_of))
         return step
 
 
@@ -513,7 +541,9 @@ class _Prefetcher:
     tenant's registration generation at submit time, so the store can
     drop a load that a re-registration made stale.  A load that fails
     (missing or corrupt shard) is dropped and kept in ``last_error``: the
-    synchronous path raises it when the tenant is installed."""
+    synchronous path raises it when the tenant is installed.  The
+    thread emits no telemetry: its shard reads' ``ckpt_restore`` records
+    wait in ``records`` for the serving thread."""
 
     def __init__(self, load_fn):
         self._load = load_fn                  # tenant → (packed, rank)
@@ -521,6 +551,7 @@ class _Prefetcher:
         self._work: deque = deque()
         self._inflight: set[str] = set()
         self._back: dict[str, tuple] = {}     # tenant → (packed, rank, gen)
+        self._records: list = []              # held ckpt_restore records
         self._thread: Optional[threading.Thread] = None
         self.last_error: Optional[BaseException] = None
 
@@ -543,15 +574,17 @@ class _Prefetcher:
                     return
                 tenant, gen = self._work.popleft()
             result = None
-            try:
-                packed, rank = self._load(tenant)
-                result = (packed, rank, gen)
-            except Exception as e:  # noqa: BLE001
-                # the boundary of the thread: the load is dropped, and
-                # the synchronous read raises the error at install time
-                self.last_error = e
+            with held_restores() as records:
+                try:
+                    packed, rank = self._load(tenant)
+                    result = (packed, rank, gen)
+                except Exception as e:  # noqa: BLE001
+                    # the boundary of the thread: the load is dropped, and
+                    # the synchronous read raises the error at install time
+                    self.last_error = e
             with self._cv:
                 self._inflight.discard(tenant)
+                self._records.extend(records)
                 if result is not None:
                     self._back[tenant] = result
                 self._cv.notify_all()
@@ -560,6 +593,12 @@ class _Prefetcher:
         """Swap out the completed loads."""
         with self._cv:
             front, self._back = self._back, {}
+        return front
+
+    def drain_records(self) -> list:
+        """Swap out the held ``ckpt_restore`` records of the reads."""
+        with self._cv:
+            front, self._records = self._records, []
         return front
 
     def wait(self, timeout: float = 5.0) -> bool:
@@ -662,6 +701,12 @@ class TieredAdapterStore(AdapterStore):
         slot = self._slot_of.get(tenant, -1)
         if slot >= 0:
             self._install_rows([(slot, tenant, packed, r_t)])
+        if obs.enabled():
+            obs.inc("pool/registers", kind=self.kind)
+            obs.set_gauge("pool/t1_occupancy",
+                          len(self._t1) / self.host_capacity)
+            obs.event("pool_register", tenant=tenant, slot=slot,
+                      rank=int(r_t), pool=self.kind, tier="t1")
         return slot
 
     # -- promotion ------------------------------------------------------
@@ -685,8 +730,11 @@ class TieredAdapterStore(AdapterStore):
             if slot is not None:
                 self._touch(slot)
                 out[t] = slot
+                obs.inc("pool/tier_hits", tier="t0")
             else:
                 missing.append(t)
+        if order:
+            obs.inc("pool/lookups", len(order), kind=self.kind)
         if not missing:
             return out
         self.drain_prefetch()
@@ -698,15 +746,29 @@ class TieredAdapterStore(AdapterStore):
             if entry is not None:
                 self._t1.move_to_end(t)
                 packed, r_t, _dirty = entry
+                src = "t1"
+                obs.inc("pool/tier_hits", tier="t1")
             else:
+                obs.inc("pool/tier_misses", tier="t1")
                 packed, r_t = self._read_shard(t)
                 self._t1_put(t, packed, r_t, dirty=False)
-            incoming.append((t, packed, r_t))
+                src = "t2"
+            obs.inc("pool/promotions", src=src)
+            incoming.append((t, packed, r_t, src))
         slots = self._alloc_slots(len(incoming), pinned=set(pinned) | set(out),
                                   queued=set(queued))
         self._install_rows([(s, t, p, r)
-                            for s, (t, p, r) in zip(slots, incoming)])
-        out.update((t, s) for (t, _p, _r), s in zip(incoming, slots))
+                            for s, (t, p, r, _src) in zip(slots, incoming)])
+        for (t, _p, r_t, src), s in zip(incoming, slots):
+            out[t] = s
+            if obs.enabled():
+                obs.event("pool_promote", tenant=t, slot=s, src=src,
+                          rank=int(r_t), pool=self.kind)
+        if obs.enabled():
+            obs.set_gauge("pool/occupancy",
+                          len(self._tenant_of) / self.n_slots, kind=self.kind)
+            obs.set_gauge("pool/t1_occupancy",
+                          len(self._t1) / self.host_capacity)
         return out
 
     def _alloc_slots(self, k: int, *, pinned: set, queued: set) -> list[int]:
@@ -727,18 +789,22 @@ class TieredAdapterStore(AdapterStore):
                     f"only {len(ranked)} of {self.n_slots} residents are "
                     f"evictable (rest pinned by active rows) — raise "
                     f"n_slots or shrink the admitted batch")
-            for _queued, _lu, s in ranked[:need]:
-                self._demote(s)
+            for was_queued, _lu, s in ranked[:need]:
+                self._demote(s, bool(was_queued))
                 slots.append(s)
         return slots
 
-    def _demote(self, slot: int) -> None:
+    def _demote(self, slot: int, was_queued: bool) -> None:
         """Bookkeeping-only T0 eviction: the bytes stay in T1 (or a
         shard) and the row is overwritten by the incoming install."""
         tenant = self._tenant_of.pop(slot)
         del self._slot_of[tenant]
         self._last_used[slot] = 0
         self._slot_ranks[slot] = 0
+        if obs.enabled():
+            obs.inc("pool/evictions", kind=self.kind)
+            obs.event("pool_evict", tenant=tenant, slot=slot, pool=self.kind,
+                      tier="t0", queued=was_queued)
 
     def _install_rows(self, rows) -> None:
         """Write packed host rows ``(slot, tenant, packed, rank)`` into
@@ -771,6 +837,8 @@ class TieredAdapterStore(AdapterStore):
             victim, (vp, vr, vdirty) = self._t1.popitem(last=False)
             if vdirty:
                 save_shard(self.shard_dir, victim, self._shard_tree(vp, vr))
+                obs.inc("pool/t1_spills")
+            obs.inc("pool/t1_evictions")
 
     def _shard_tree(self, packed: dict, rank: int) -> dict:
         return {"leaves": {p.replace("/", "."): dict(v)
@@ -803,14 +871,21 @@ class TieredAdapterStore(AdapterStore):
             if t in self._slot_of or t in self._t1 or t not in self._dir:
                 continue
             self._prefetcher.submit(t, self._gen.get(t, 0))
+            obs.inc("pool/prefetch_submits")
 
     def drain_prefetch(self) -> None:
         """Fold completed prefetches into T1; a load a re-registration
-        superseded while in flight is dropped."""
-        for tenant, (packed, rank, gen) in self._prefetcher.drain().items():
+        superseded while in flight is dropped.  The reads' ``ckpt_restore``
+        records are emitted here, on the serving thread."""
+        loads = self._prefetcher.drain()
+        record_restores(self._prefetcher.drain_records())
+        for tenant, (packed, rank, gen) in loads.items():
             if gen != self._gen.get(tenant, 0) or tenant in self._t1:
                 continue
             self._t1_put(tenant, packed, rank, dirty=False)
+            if obs.enabled():
+                obs.inc("pool/prefetched")
+                obs.event("pool_prefetch", tenant=tenant, rank=int(rank))
 
     def wait_prefetch(self, timeout: float = 5.0) -> bool:
         """Block until the prefetcher is idle (True) or ``timeout``
@@ -826,6 +901,7 @@ class TieredAdapterStore(AdapterStore):
             if dirty:
                 save_shard(self.shard_dir, t, self._shard_tree(packed, r))
                 self._t1[t] = (packed, r, False)
+                obs.inc("pool/t1_spills")
 
     def save(self, path: str, step: int = 0) -> None:
         """Flush dirty T1 entries, then write the T0 state and the tier

@@ -10,6 +10,7 @@ pass with per-row ``adapter_idx`` and per-row cache positions.
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 from typing import Optional
 
@@ -22,6 +23,9 @@ class Request:
     tenant: str
     tokens: np.ndarray            # (prompt_len,) int32
     n_new: int
+    # host clock at submit (perf_counter seconds), for the admission-wait
+    # histogram; one clock read a request, stamped unconditionally
+    submit_ts: float = 0.0
 
 
 class ContinuousBatcher:
@@ -42,7 +46,8 @@ class ContinuousBatcher:
                              f"max_len {self.max_len}")
         rid = self._next_rid
         self._next_rid += 1
-        self._queue.append(Request(rid, tenant, tokens, n_new))
+        self._queue.append(Request(rid, tenant, tokens, n_new,
+                                   submit_ts=time.perf_counter()))
         return rid
 
     @property

@@ -23,15 +23,29 @@ Two steps cover the serving loop, both at fixed shapes:
 Between chunks the host retires finished rows and lets the batcher
 admit queued requests into the free rows — continuous batching at
 chunk granularity, with one host sync per prefill and per chunk.
+
+Telemetry (``repro_torch.obs``), at the reference's sites with its
+names: the ``serve/requests`` and ``serve/completed`` counters per
+tenant, the queue-depth, slot-occupancy and null-slot gauges (sampled
+at admit and retire), the admission-wait, prefill, decode-chunk and
+tokens/s histograms and ``span_seconds`` of ``serve/prefill`` and
+``serve/decode_chunk`` (timed from the host syncs the loop makes
+anyway), the ``serve_admit``, ``compile`` (the first call of each step
+in this engine, which on the card includes the lazy kernel build) and
+``serve_run`` events, and the ``REPRO_PROM_PATH`` Prometheus textfile,
+written atomically after each run.  All of it only while ``obs`` is
+enabled; the two steps are named in profiler traces by ``obs.annotate``.
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Any
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import check_on, resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig
@@ -85,6 +99,7 @@ class ServeEngine:
         self.batcher = ContinuousBatcher(max_rows, max_prompt_len, max_len)
         self._tenant_of_rid: dict[int, str] = {}
         self._params_cache: tuple[int, Params] | None = None
+        self._compiled: set[str] = set()   # compile-event bookkeeping
         # counts and host-clock seconds of the latest run(); each timed
         # step ends in the host sync the loop makes anyway
         self.last_run: dict = {}
@@ -102,6 +117,7 @@ class ServeEngine:
     def _tensor(self, a, dtype):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
+    @obs.annotate("serve/prefill")
     def _prefill(self, params, cache, tokens, lens, slots, rows):
         """Full-width prefill; copies the admitted ``rows`` of the fresh
         cache into ``cache`` and returns the first greedy token per row."""
@@ -116,6 +132,7 @@ class ServeEngine:
         _merge_cache_rows(cache, fresh, self._tensor(rows, torch.int64))
         return M.argmax_first(logits)
 
+    @obs.annotate("serve/decode_chunk")
     def _decode_chunk(self, params, cache, tok, pos, slots, active):
         """``decode_chunk`` greedy steps; retired rows keep their token and
         position.  Returns (tok, pos, toks (chunk, R))."""
@@ -138,6 +155,9 @@ class ServeEngine:
             raise KeyError(f"tenant {tenant!r} not registered in the store")
         rid = self.batcher.submit(tenant or "", tokens, n_new)
         self._tenant_of_rid[rid] = tenant
+        if obs.enabled():
+            obs.inc("serve/requests", tenant=tenant or "<none>")
+            obs.set_gauge("serve/queue_depth", self.batcher.pending)
         return rid
 
     def run(self) -> dict[int, np.ndarray]:
@@ -151,6 +171,9 @@ class ServeEngine:
         stats = {"prefills": 0, "decode_steps": 0, "tokens": 0,
                  "prefill_seconds": [], "chunk_seconds": []}
         t_run = time.perf_counter()
+        # telemetry is sampled once a run; every obs call below is behind
+        # ``if enabled`` and reuses the loop's own clock reads
+        enabled = obs.enabled()
 
         active = np.zeros((R,), bool)
         pos = torch.zeros((R,), dtype=torch.int32, device=dev)
@@ -161,17 +184,38 @@ class ServeEngine:
         outputs: dict[int, list[int]] = {}
         results: dict[int, np.ndarray] = {}
 
+        def gauges():
+            # batch composition changes only at admit and retire
+            obs.set_gauge("serve/queue_depth", self.batcher.pending)
+            obs.set_gauge("serve/slot_occupancy", float(active.mean()))
+            obs.set_gauge("serve/null_slot_fraction",
+                          float((row_slots == null).mean()))
+
         def retire(row):
             rid = int(rid_of_row[row])
             results[rid] = np.asarray(outputs.pop(rid), np.int32)
-            self._tenant_of_rid.pop(rid, None)
+            tenant = self._tenant_of_rid.pop(rid, None)
             active[row] = False
             row_slots[row] = null
+            if enabled:
+                obs.inc("serve/completed", tenant=tenant or "<none>")
+                gauges()
 
         while self.batcher.pending or active.any():
             free = [r for r in range(R) if not active[r]]
             admitted = self.batcher.admit(free)
             if admitted:
+                if enabled:
+                    now = time.perf_counter()
+                    for row, req in admitted:
+                        wait = now - req.submit_ts
+                        obs.observe("serve/admission_wait_seconds", wait,
+                                    bounds=obs.LATENCY_BOUNDS,
+                                    tenant=req.tenant or "<none>")
+                        obs.event("serve_admit", rid=req.rid,
+                                  tenant=req.tenant or None, row=row,
+                                  wait=round(wait, 6),
+                                  queue_depth=self.batcher.pending)
                 tenant = {req.rid: self._tenant_of_rid[req.rid]
                           for _, req in admitted}
                 # one install for every admitted tenant: the active rows'
@@ -193,8 +237,15 @@ class ServeEngine:
                 tok0 = self._prefill(params, cache, tokens, lens, row_slots,
                                      rows)
                 tok0_h = tok0.cpu().numpy()
-                stats["prefill_seconds"].append(time.perf_counter() - t0)
+                dt = time.perf_counter() - t0
+                stats["prefill_seconds"].append(dt)
                 stats["prefills"] += 1
+                if enabled:
+                    self._compile_event("prefill", dt)
+                    obs.observe("serve/prefill_seconds", dt,
+                                bounds=obs.LATENCY_BOUNDS)
+                    obs.observe("span_seconds", dt, span="serve/prefill")
+                    gauges()
                 admit_mask = np.zeros((R,), bool)
                 admit_mask[rows] = True
                 tok = torch.where(self._tensor(admit_mask, torch.bool),
@@ -211,6 +262,7 @@ class ServeEngine:
                 pos = self._tensor(new_pos, torch.int32)
 
             if active.any():
+                n_active = int(active.sum())
                 # queued tenants' adapters may load while the chunk runs
                 # (flat store: no-op)
                 self.store.prefetch(self.batcher.queued_tenants(limit=2 * R))
@@ -221,8 +273,16 @@ class ServeEngine:
                     self._tensor(active, torch.bool))
                 toks_h = toks.cpu().numpy()                 # (chunk, R)
                 self.store.drain_prefetch()
-                stats["chunk_seconds"].append(time.perf_counter() - t0)
+                dt = time.perf_counter() - t0
+                stats["chunk_seconds"].append(dt)
                 stats["decode_steps"] += self.decode_chunk
+                if enabled:
+                    self._compile_event("decode_chunk", dt)
+                    obs.observe("serve/decode_chunk_seconds", dt,
+                                bounds=obs.LATENCY_BOUNDS)
+                    obs.observe("span_seconds", dt, span="serve/decode_chunk")
+                    obs.observe("serve/chunk_tokens_per_s",
+                                n_active * self.decode_chunk / max(dt, 1e-9))
                 for row in range(R):
                     if not active[row]:
                         continue
@@ -235,7 +295,36 @@ class ServeEngine:
         stats["wall_seconds"] = time.perf_counter() - t_run
         stats["tokens"] = int(sum(v.size for v in results.values()))
         self.last_run = stats
+        if enabled:
+            self._run_epilogue(stats, len(results), gauges)
         return results
+
+    def _compile_event(self, program: str, dt: float) -> None:
+        """The ``compile`` event of a step's first call in this engine."""
+        if program not in self._compiled:
+            self._compiled.add(program)
+            obs.event("compile", program=f"serve/{program}",
+                      wall=round(dt, 6))
+
+    def _run_epilogue(self, stats: dict, n_requests: int, gauges) -> None:
+        """The ``serve_run`` event, and the Prometheus textfile when
+        ``REPRO_PROM_PATH`` names one (written to a temporary file and
+        renamed, so a scrape never reads a torn file)."""
+        wall, toks = stats["wall_seconds"], stats["tokens"]
+        gauges()
+        obs.event("serve_run", requests=n_requests, tokens=toks,
+                  wall=round(wall, 6),
+                  tokens_per_s=round(toks / max(wall, 1e-9), 2),
+                  chunks=len(stats["chunk_seconds"]),
+                  prefills=stats["prefills"], rows=self.max_rows,
+                  decode_chunk=self.decode_chunk)
+        prom_path = os.environ.get("REPRO_PROM_PATH")
+        if prom_path:
+            text = obs.to_prometheus(obs.active().metrics.snapshot())
+            tmp = prom_path + ".tmp"
+            with open(tmp, "w") as f:
+                f.write(text)
+            os.replace(tmp, prom_path)
 
     def generate(self, requests, n_new: int = 16) -> list[np.ndarray]:
         """Convenience: ``requests`` is a list of (tenant, prompt_tokens);

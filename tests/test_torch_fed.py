@@ -426,12 +426,13 @@ def test_local_round_matches_both_reference_loops():
 
 
 def test_unported_options_raise_naming_their_item(tmp_path):
-    """Cohort rounds name A10c; mixed-rank fleets, client weights and the
-    FedProx term construct (held against the reference by
-    ``tests/test_torch_het_ranks.py``, ``test_torch_het_fed.py``,
-    ``test_torch_methods.py`` and ``test_torch_fed_methods.py``), and
-    checkpoints save and load (held against the reference by
-    ``tests/test_torch_ckpt.py``)."""
+    """Mixed-rank fleets, client weights and the FedProx term construct
+    (held against the reference by ``tests/test_torch_het_ranks.py``,
+    ``test_torch_het_fed.py``, ``test_torch_methods.py`` and
+    ``test_torch_fed_methods.py``), cohort rounds run (held against the
+    reference by ``tests/test_torch_cohort.py``), checkpoints save and
+    load (held against the reference by ``tests/test_torch_ckpt.py``),
+    and the fused-DoRA path, which has no backward, is refused."""
     ts = TSim(T_CFG, THyper(client_ranks=(2, 4, 4, 4)), device="cpu")
     assert ts.alloc_rank == 4 and ts.rank_mask is not None
     ts = TSim(T_CFG, THyper(client_weights=(1, 1, 1, 2)), device="cpu")
@@ -439,10 +440,10 @@ def test_unported_options_raise_naming_their_item(tmp_path):
     ts = TSim(T_CFG, THyper(method="fedprox", prox_mu=0.1), device="cpu")
     assert ts._prox_mu == 0.1
     ts = TSim(T_CFG, THyper(n_clients=2), device="cpu")
-    for call in (lambda: ts.run_cohort_round([], None),
-                 lambda: ts.aggregate(participation=[1, 0])):
-        with pytest.raises(NotImplementedError, match="A10c"):
-            call()
+    ts.aggregate(participation=[1, 0], staleness=[0, 2])
+    assert ts.comm_bytes == ts.client_comm_bytes() > 0
+    ts.run_cohort_round([], None, participation=[0, 0])
+    assert ts.comm_bytes == ts.client_comm_bytes()
     ts.save(str(tmp_path / "sim.msgpack"), round_idx=3)
     assert ts.load(str(tmp_path / "sim.msgpack")) == 3
     with pytest.raises(ValueError, match="use_fused_dora"):

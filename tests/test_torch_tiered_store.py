@@ -5,7 +5,8 @@ write the checkpoints and shards the port's stores read (and the port's
 files are byte for byte the JAX stores'), covering
 ``tests/test_adapter_store.py``'s checkpoint and legacy-migration tests,
 ``tests/test_het_ckpt.py``'s pool tests and ``tests/test_tiered_store.py``
-but its telemetry test (the port has no ``obs/`` yet).  Inside the port:
+(its telemetry test run through both packages' stores: the same
+counters, gauges and events, but for ``ts``).  Inside the port:
 the tier mechanics (T1 registration, spill, promotion, queue-informed
 and pinned eviction, prefetch and its determinism contract) and tokens
 served through promoted adapters equal to the flat pool's and to
@@ -17,6 +18,7 @@ exactly; a legacy migration re-derives ΔB_M with one f32 rounding
 Config: the reference's ``hetck-t`` (2 layers, d 32, rank 8, f32).
 Every prefetch barrier is ``wait_prefetch(timeout)`` held to True.
 """
+import os
 import sys
 import threading
 import time
@@ -28,6 +30,7 @@ jax = pytest.importorskip("jax", reason="parity tests need the JAX package")
 import jax.numpy as jnp
 import torch
 
+from repro import obs as j_obs
 from repro.core import peft as j_peft
 from repro.models import model as JM
 from repro.models.config import ArchConfig as JArch
@@ -35,6 +38,7 @@ from repro.serve import AdapterStore as JStore
 from repro.serve import ServeEngine as JEngine
 from repro.serve import TieredAdapterStore as JTiered
 from repro.utils import pytree as jpt
+from repro_torch import obs
 from repro_torch.checkpoint import list_shards, msgpack_codec
 from repro_torch.checkpoint.bridge import params_from_numpy
 from repro_torch.launch.serve import greedy_generate, merge_adapters
@@ -651,3 +655,69 @@ def test_engine_churn_matches_reference_engine(world, tmp_path):
     for a, b, r in zip(outs["j"], outs["t"], rids):
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(b, res[r])
+
+
+def test_tier_metrics_and_events(world, tmp_path):
+    """``tests/test_tiered_store.py::test_tier_metrics_and_events``'s
+    schedule through both packages' stores with telemetry on: the port's
+    counters, gauges and events (but for ``ts``) are the reference's,
+    and the reference test's own checks hold."""
+    out = {}
+    for pkg, mod in (("j", j_obs), ("t", obs)):
+        path = str(tmp_path / f"{pkg}.jsonl")
+        tel = mod.enable(path)
+        try:
+            ts = tiered(world, tmp_path / pkg, host_capacity=2, pkg=pkg)
+            for t in range(4):
+                ts.register(f"t{t}", adapter(world, pkg, "pairs", t))
+            ts.install_batch(["t0", "t1"])    # t0 / t1 spilled: T2 reads
+            ts.install_batch(["t0"])          # a T0 hit
+            ts.prefetch(["t2"])
+            assert ts.wait_prefetch(timeout=10.0)
+            ts.drain_prefetch()
+            ts.install_batch(["t2"])          # a T1 hit from the prefetch
+            snap = tel.metrics.snapshot()
+        finally:
+            mod.disable()
+        out[pkg] = (snap, [{k: (os.path.basename(v) if k == "path" else v)
+                            for k, v in e.items() if k != "ts"}
+                           for e in mod.read_events(path)])
+    assert out["t"] == out["j"]
+    m = out["t"][0]
+
+    def value(kind, name, **labels):
+        return sum(s["value"] for s in m[kind][name]
+                   if labels.items() <= s["labels"].items())
+    assert value("counters", "pool/tier_hits", tier="t0") >= 1
+    assert value("counters", "pool/tier_hits", tier="t1") >= 1
+    assert value("counters", "pool/tier_misses", tier="t1") >= 1
+    assert value("counters", "pool/promotions", src="t2") >= 1
+    assert value("counters", "pool/promotions", src="t1") >= 1
+    assert value("counters", "pool/prefetched") >= 1
+    assert value("counters", "pool/t1_spills") >= 1
+    assert value("gauges", "pool/t1_occupancy") > 0
+    assert {"pool_promote", "pool_prefetch", "pool_register"} <= {
+        e["kind"] for e in out["t"][1]}
+
+
+def test_legacy_migration_events_match_reference(world, tmp_path):
+    """Loading a legacy ``pool_B_mag`` checkpoint with telemetry on: the
+    port's ``ckpt_restore`` and ``ckpt_migrate`` events and counters are
+    the reference's (but for ``ts`` and the path's directory)."""
+    path = str(tmp_path / "legacy.msgpack")
+    _legacy(world, path)
+    out = {}
+    for pkg, mod in (("j", j_obs), ("t", obs)):
+        log = str(tmp_path / f"{pkg}.jsonl")
+        tel = mod.enable(log)
+        try:
+            with pytest.warns(UserWarning, match="pool_B_mag"):
+                flat_store(pkg, world, "dora_mag", n_slots=3).load(path)
+            snap = tel.metrics.snapshot()
+        finally:
+            mod.disable()
+        out[pkg] = (snap, [{k: v for k, v in e.items() if k != "ts"}
+                           for e in mod.read_events(log)])
+    assert out["t"] == out["j"]
+    assert [e["kind"] for e in out["t"][1]][-1] == "ckpt_migrate"
+    assert out["t"][1][-1]["tenants"] == 2
