@@ -233,6 +233,44 @@ Phase 11 telemetry and cohort rounds, run after phase 10 in its work
          as phase 8's.  Prints the telemetry counts, the decode step
          ms, each round's wall, the bank's size, the peaks, the cohort
          file's save and load seconds and the serving tokens/s.
+Phase 12 the production round engine, run after phase 11 on phase 3's
+         backbone (dropout 0): fedlora_opt at llama2-7b full width through
+         launch/train.make_fed_pipeline_step, one client per rank of a
+         4-rank gloo group on the one card (launch/mesh.ClientPool; the
+         ranks map this process's backbone by CUDA IPC), 2 pipeline
+         iterations of 2 local steps of 4 x 128 tokens a client, 2 stage-2
+         steps over 16 x 128 server rows (the sharded path: 2 rows a
+         rank a step) and 2 stage-3 steps, remat on, micro_batches 1, the
+         last iteration also through run_pipeline with telemetry on,
+         which must give every rank the adapters, stage-1 optimizer
+         state and server model of round_step -> global_step ->
+         personal_step from the same input bit for bit.  Held against
+         the port's FedSim in this process, each stage of both
+         iterations from the engine's own input to it (in bf16 a 1e-7
+         difference in an f32 adapter flips bf16 roundings that later
+         stages carry): stage 1's client adapters before the collective
+         equal FedSim.local_round's bit for bit (the first differing leaf
+         is named if not); the collective's aggregate and rebroadcast
+         within 1e-5 of each leaf's max of FedSim.aggregate's; stage 2
+         within 1e-4 of FedSim's global stage with its gradient taken in
+         the engine's 4 row slices (sharded_global_stage); stage 3 within
+         1e-6 of FedSim.personalize's.  The f32 witness: the engine's
+         sharded stage 2 at 4 layers of full width in f32, from the
+         first iteration's server model, against FedSim.global_stage's
+         full batch: every leaf within 1e-2 of its norm and at most 0.1%
+         of its elements beyond 1e-3 of its max; the bf16 replica's
+         distance from global_stage at the same depth is printed.  Also:
+         every client is the server model plus its dB_mag;
+         comm_bytes_round equals FedSim's bill for the round; the card
+         holds under 80 GB with the ranks up, which add under 4 x 6 GiB
+         and each allocate under half the backbone (none copies it); one
+         fed_round event with 4 clients' ce, grad_norm and drift.  The 4
+         personalized clients serve 8 requests as dora_mag tenants
+         (bgmv_mag 2 x 32 x (prefills + decode steps) launches, the
+         prefill logits held as phase 7's).  The phase takes at most 120
+         s.  Prints the card's used memory, each rank's peak, the stage
+         walls of both engines, each rank's warm stage-1 step ms, the
+         collectives' calls, bytes and seconds, and the fed_round event.
 Every run starts with every launch count at 0.  Each path's prefill
 logits, kernels against plain versions, relative to max |logit|: bf16
 weights through the first CHECK_DEPTH layers within 2e-2, f32 weights
@@ -3727,6 +3765,468 @@ def phase_standalone(torch):
     return report, {k: launches[k] for k in ("flash_attention", "ssd_scan")}
 
 
+# --- phase 12: the production round engine (run after phase 11) ------------
+
+ENGINE_HP = dict(method="fedlora_opt", n_clients=4, local_steps=2, batch=4,
+                 seq_len=128, global_steps=2, personal_steps=2)
+ENGINE_SERVER_ROWS = 16     # a stage-2 batch: 8 rows a step, 2 a rank
+ENGINE_ITERS = 2            # pipeline iterations; telemetry on in the last
+ENGINE_AGG_TOL = 1e-5       # the collective vs FedSim's aggregate, of max
+ENGINE_STAGE2_TOL = 1e-4    # sharded stage 2 vs its FedSim replica, of max
+ENGINE_STAGE3_TOL = 1e-6    # stage 3 vs FedSim.personalize, of max
+ENGINE_WITNESS_LAYERS = 4   # depth of the f32 stage-2 witness, full width
+ENGINE_REL_TOL = 1e-2       # f32 witness: every leaf's ‖Δ‖ / ‖leaf‖ ...
+ENGINE_ELEM_TOL = 1e-3      # ... and |Δ| beyond this of max |leaf| ...
+ENGINE_ELEM_SHARE = 1e-3    # ... in at most this share of its elements
+ENGINE_RANK_GIB = 6.0       # the card's memory a rank may add
+ENGINE_BUDGET_S = 120       # the phase's wall time, serving included
+
+
+def engine_batches(ctx, rng):
+    """Phase 12's batches on the host: per iteration T stage-1 batches of
+    each client's own tasks (C, B, S), TG server batches of the task mix
+    (8 rows), TP stage-3 batches."""
+    from repro_torch.data import client_batch, to_device
+    cds, sds = ctx["engine_data"]
+    C, B, S = (ENGINE_HP[k] for k in ("n_clients", "batch", "seq_len"))
+    T, TG, TP = (ENGINE_HP[k] for k in ("local_steps", "global_steps",
+                                        "personal_steps"))
+    rows = ENGINE_SERVER_ROWS // TG
+    return [([client_batch(cds, rng, B, S, device="cpu") for _ in range(T)],
+             [to_device(sds.sample_batch(rng, rows, S), "cpu")
+              for _ in range(TG)],
+             [client_batch(cds, rng, B, S, device="cpu") for _ in range(TP)])
+            for _ in range(ENGINE_ITERS)]
+
+
+def engine_rank(group, cfg, settings, params, ad0, iters, events):
+    """Phase 12 on one rank of the client group: the rank's client of
+    ``ad0`` (host, (C, ...)) through ENGINE_ITERS pipeline iterations on
+    the card, over ``params`` (CUDA IPC: mapped, never written).  Each
+    iteration keeps its input (adapters, stage-1 optimizer state, step)
+    and runs stage 1's local steps alone (``local_step``), then
+    ``round_step`` → ``global_step`` → ``personal_step`` from that
+    input, each stage's output kept; the last iteration also runs
+    ``run_pipeline`` with telemetry on from the same input (rank 0 writes
+    the events to ``events``) and names each leaf of its adapters,
+    optimizer state and server model that differs from the
+    composition's.  Then one more warm ``local_step``, timed.  Returns
+    host copies and readings."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.launch.train import (TrainSettings,
+                                          make_fed_pipeline_step)
+    from repro_torch.utils import pytree as pt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    me, dev = group.rank, torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+
+    def mine(tree):
+        return pt.tree_map(lambda x: x[me:me + 1].to(dev), tree)
+
+    def cat(bs, dim):
+        return {k: torch.cat([b[k] for b in bs], dim).to(dev) for k in bs[0]}
+
+    def host(tree):
+        return pt.tree_map(lambda x: x.detach().cpu(), tree)
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    pipes = {t: make_fed_pipeline_step(cfg, group, TrainSettings(
+        **settings, telemetry=t), device="cuda") for t in (False, True)}
+    pipe = pipes[False]
+    ad = mine(ad0)
+    ost = pipe.opt_init(ad)
+    out = {"comm_bytes_round": pipe.comm_bytes_round, "iters": [],
+           "walls": []}
+    step, anchor = 0, None
+    T = settings["local_steps"]
+    for i, (cb, sb, pb) in enumerate(iters):
+        cb, sb, pb = mine(cat(cb, 1)), cat(sb, 0), mine(cat(pb, 1))
+        it = {"ad": host(ad), "ost": host(ost), "step": step}
+        (local, _, _), t0 = wall(lambda: pipe.local_step(
+            params, ad, ost, step, cb, anchor))
+        it["local"] = host(local)
+        del local
+        (ad1, ost1, agg1, m1), t1 = wall(lambda: pipe.round_step(
+            params, ad, ost, step, cb, anchor))
+        (agg2, ad2, _), t2 = wall(lambda: pipe.global_step(
+            params, agg1, ad1, sb))
+        (ad3, _), t3 = wall(lambda: pipe.personal_step(params, ad2, pb))
+        it.update(ad1=host(ad1), agg1=host(agg1), ad2=host(ad2),
+                  agg2=host(agg2), ad3=host(ad3))
+        w = {"local": t0, "round": t1, "global": t2, "personal": t3}
+        if i == len(iters) - 1:
+            if me == 0:
+                obs.enable(events)
+            (adp, ostp, aggp, _, met), w["pipeline"] = wall(
+                lambda: pipes[True].run_pipeline(params, ad, ost, step, cb,
+                                                 sb, pb, anchor))
+            if me == 0:
+                obs.disable()
+            got = {"adapters": adp, "opt_state": ostp, "server": aggp}
+            want = {"adapters": ad3, "opt_state": ost1, "server": agg2}
+            it["pipeline_differs"] = [
+                p for p, x in pt.tree_leaves_with_path(got)
+                if not torch.equal(x, pt.tree_get(want, p))]
+            m1 = met["round"]
+        anchor = ad1 if pipe.method.prox else None
+        ad, ost, agg = ad3, ost1, agg2
+        step += T
+        out["iters"].append(it)
+        out["walls"].append(w)
+    _, t_warm = wall(lambda: pipe.local_step(params, ad, ost, step, cb))
+    out.update(adapters=host(ad), agg=host(agg),
+               warm_step_ms=1e3 * t_warm / T,
+               metrics={k: v.detach().cpu().tolist() for k, v in m1.items()},
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               collectives=group.stats)
+    return out
+
+
+def engine_stage2(group, cfg, settings, params, aggregated, server_batches):
+    """One sharded stage 2 (``global_step``) on this rank from the server
+    model ``aggregated`` (host, no client axis) over ``params`` (CUDA
+    IPC); returns the trained server model on the host."""
+    import torch
+    from repro_torch.launch.train import (TrainSettings,
+                                          make_fed_pipeline_step)
+    from repro_torch.utils import pytree as pt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pipe = make_fed_pipeline_step(cfg, group, TrainSettings(**settings),
+                                  device="cuda")
+    agg = pt.tree_map(lambda x: x.to("cuda"), aggregated)
+    sb = {k: torch.cat([b[k] for b in server_batches]).to("cuda")
+          for k in server_batches[0]}
+    agg, _, _ = pipe.global_step(params, agg,
+                                 pt.tree_map(lambda x: x[None], agg), sb)
+    return pt.tree_map(lambda x: x.detach().cpu(), agg)
+
+
+def depth_cut(tree, layers, dtype=None):
+    """``tree`` (the backbone or an adapter tree) cut to its first
+    ``layers`` superblocks, on the card, cast to ``dtype`` if given (a
+    cut without a cast is a view)."""
+    from repro_torch.utils import pytree as pt
+    return pt.tree_map_with_path(
+        lambda p, x: (x[:layers] if p.startswith("blocks/") else x).to(
+            "cuda", dtype=dtype), tree)
+
+
+def sharded_global_stage(torch, sim, aggregated, server_batches, shards):
+    """``FedSim.global_stage`` with each step's gradient taken as the
+    engine's sharded stage 2 takes it: the step's rows cut into
+    ``shards`` slices in rank order, each slice's gradient by FedSim's
+    own ``loss_and_grad``, weighted by its token count and summed in
+    f32, over the total count; then FedSim's clip and masked AdamW and
+    its rebroadcast.  In bf16 a slice's gradient is rounded where the
+    whole batch's is (``layers.lora_delta`` casts the factors to the
+    activations' dtype), so this, not the plain ``global_stage``, is the
+    math the engine must reproduce."""
+    from repro_torch.optim import apply_updates
+    from repro_torch.utils import pytree as pt
+    opt_state = sim.opt_global.init(aggregated)
+    for step, b in enumerate(server_batches):
+        rows = b["tokens"].shape[0] // shards
+        acc, n_tot = None, 0.0
+        for r in range(shards):
+            _, met, g = sim.loss_and_grad(
+                aggregated, {k: v[r * rows:(r + 1) * rows]
+                             for k, v in b.items()})
+            n = met["n_tok"]
+            g = pt.tree_map(lambda x: x.float() * n, g)
+            acc = g if acc is None else pt.tree_map2(torch.add, acc, g)
+            n_tot = n_tot + n
+        upd, opt_state = sim.opt_global.update(
+            pt.tree_map(lambda x: x / n_tot, acc), opt_state, aggregated,
+            step)
+        aggregated = apply_updates(aggregated, upd)
+    sim.client_adapters = sim._rebroadcast(aggregated)
+    return aggregated
+
+
+def leaf_errs(torch, got, want):
+    """Per leaf: max |Δ| / max |want|, ‖Δ‖ / ‖want‖ and the share of
+    elements beyond 1e-3 of max |want| (f64 on the host)."""
+    from repro_torch.utils import pytree as pt
+    out = {}
+    for p, w in pt.tree_leaves_with_path(want):
+        w = w.detach().double().cpu()
+        d = (pt.tree_get(got, p).detach().double().cpu() - w).abs()
+        scale = max(float(w.abs().max()), 1e-30)
+        out[p.split("/", 2)[-1]] = (
+            float(d.max()) / scale, float(d.norm() / max(float(w.norm()),
+                                                         1e-30)),
+            float((d > 1e-3 * scale).double().mean()))
+    return out
+
+
+def phase_engine(torch, ctx, workdir):
+    """Phase 12: the paper's pipeline through the production engine
+    (``launch/train.make_fed_pipeline_step``), one client per rank of a
+    4-rank gloo group on the one card, at llama2-7b full width; each
+    stage of both iterations against the port's FedSim from the engine's
+    own inputs, ``run_pipeline`` against its three stage calls, and the
+    f32 witness of the sharded stage 2 against ``FedSim.global_stage``;
+    then the personalized clients served through ``bgmv_mag``."""
+    from repro_torch.data import (SyntheticInstructionDataset,
+                                  make_dataset_family, specialist_partition)
+    from repro_torch.fed.simulate import FedHyper, FedSim, client
+    from repro_torch.launch.mesh import ClientPool
+    from repro_torch.obs import read_events
+    from repro_torch.serve import AdapterStore
+    from repro_torch.utils import pytree as pt
+
+    cfg = dataclasses.replace(ctx["cfg"], lora_dropout=0.0)
+    params = ctx["params"]
+    hp = FedHyper(**ENGINE_HP)
+    C, T = hp.n_clients, hp.local_steps
+    fam = make_dataset_family("dolly", vocab_size=cfg.vocab_size)
+    part = specialist_partition(C, 4)
+    ctx["engine_data"] = (
+        [SyntheticInstructionDataset(fam, part[c], client_seed=c)
+         for c in range(C)],
+        SyntheticInstructionDataset(fam, np.ones(4) / 4, client_seed=99))
+    iters = engine_batches(ctx, np.random.default_rng(40_000))
+    backbone = sum(x.numel() * x.element_size()
+                   for x in pt.tree_leaves(params))
+    report = {"config": dict(ENGINE_HP, server_rows=ENGINE_SERVER_ROWS,
+                             iterations=ENGINE_ITERS, micro_batches=1,
+                             remat=True, layers=cfg.n_layers,
+                             d_model=cfg.d_model, rank=cfg.lora_rank),
+              "backbone_bytes": backbone}
+    gib = 1 << 30
+
+    def cuda(tree):
+        return pt.tree_map(lambda x: x.to("cuda"), tree)
+
+    def on(bs):
+        return [cuda(b) for b in bs]
+
+    # --- the engine: 4 ranks sharing the backbone --------------------------
+    sim = FedSim(cfg, hp, base=params, device="cuda")
+    ad0 = host_copy(torch, sim.client_adapters)
+    del sim
+    torch.cuda.synchronize()
+    free0, total = torch.cuda.mem_get_info()
+    settings = dict(lr=hp.lr, micro_batches=1, clip=hp.clip, remat=True,
+                    method=hp.method, local_steps=T, server_lr=hp.server_lr,
+                    global_steps=hp.global_steps,
+                    personal_steps=hp.personal_steps, lam=hp.lam)
+    events = str(workdir / "engine.jsonl")
+    L = ENGINE_WITNESS_LAYERS
+    cfg32 = dataclasses.replace(cfg, n_layers=L, dtype="float32")
+    t0 = time.perf_counter()
+    with ClientPool(C, str(workdir), timeout_s=600) as pool:
+        t_up = time.perf_counter() - t0
+        try:
+            res = pool.run(engine_rank, cfg, settings, params, ad0, iters,
+                           events)
+        except RuntimeError as e:
+            raise CheckFailed(f"engine: a rank failed:\n{e}")
+        free1, _ = torch.cuda.mem_get_info()     # the ranks still hold theirs
+        t_engine = time.perf_counter() - t0
+        # the f32 witness: the engine's sharded stage 2 at full width, L
+        # layers deep, from the first iteration's server model
+        base32 = depth_cut(params, L, torch.float32)
+        agg32 = depth_cut(res[0]["iters"][0]["agg1"], L)
+        try:
+            got32 = pool.run(engine_stage2, cfg32, settings, base32,
+                             host_copy(torch, agg32), iters[0][1])[0]
+        except RuntimeError as e:
+            raise CheckFailed(f"engine: a rank failed in the f32 witness:"
+                              f"\n{e}")
+    report["engine"] = {
+        "pool_start_s": t_up, "wall_s": t_engine,
+        "card_used_bytes": total - free1, "ranks_added_bytes": free0 - free1,
+        "rank_peak_bytes": [r["peak_bytes"] for r in res],
+        "walls": [r["walls"] for r in res],
+        "warm_stage1_step_ms": [r["warm_step_ms"] for r in res],
+        "collectives": [r["collectives"] for r in res]}
+    print("engine: " + json.dumps(report["engine"]))
+    check(total - free1 < 80e9, f"engine: the card holds "
+          f"{(total - free1) / gib:.1f} GiB with 4 ranks up, under 80 GB")
+    check(free0 - free1 < C * ENGINE_RANK_GIB * gib
+          and max(r["peak_bytes"] for r in res) < backbone / 2,
+          f"engine: the 4 ranks added {(free0 - free1) / gib:.2f} GiB to the "
+          f"card (< {C} x {ENGINE_RANK_GIB} GiB), each allocated at most "
+          f"{max(r['peak_bytes'] for r in res) / gib:.2f} GiB: they map the "
+          f"one {backbone / gib:.1f} GiB backbone, none copies it")
+    differs = sorted({p for r in res for p in r["iters"][-1]["pipeline_differs"]})
+    check(not differs, "engine: run_pipeline with telemetry on gives every "
+          "rank the adapters, stage-1 optimizer state and server model of "
+          "round_step → global_step → personal_step from the same input, "
+          "bit for bit" + (f" (leaves that differ: {differs[:4]}, "
+                           f"{len(differs)} in all)" if differs else ""))
+
+    # --- every iteration, stage by stage, against FedSim --------------------
+    # each stage of FedSim starts from the engine's own input to it: in
+    # bf16 a 1e-7 difference in an f32 adapter flips the bf16 rounding of
+    # some elements, which the next stage would carry and amplify
+    sim = FedSim(cfg, hp, base=params, device="cuda")
+    t0 = time.perf_counter()
+    stages, fedsim_walls = [], []
+    for i, (cb, sb, pb) in enumerate(iters):
+        its = [r["iters"][i] for r in res]
+
+        def stacked(key, its=its):
+            return pt.tree_map_with_path(lambda p, _: torch.cat(
+                [pt.tree_get(it[key], p) for it in its]), its[0][key])
+        check(all(it["step"] == sim._step for it in its),
+              f"engine, iteration {i + 1}: every rank starts stage 1 at "
+              f"FedSim's step {sim._step}")
+        sim.client_adapters = cuda(stacked("ad"))
+        sim.opt_state = cuda(stacked("ost"))
+        w = {}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sim.local_round(on(cb))
+        local = stacked("local")
+        diff = [(p, float((pt.tree_get(local, p) - x.cpu()).abs().max()))
+                for p, x in pt.tree_leaves_with_path(sim.client_adapters)
+                if not torch.equal(pt.tree_get(local, p), x.cpu())]
+        check(not diff, f"engine, iteration {i + 1}: stage 1's client "
+              "adapters before the collective equal FedSim.local_round's bit "
+              "for bit" + (f" (first leaf that differs: {diff[0][0]}, max "
+                           f"|Δ| {diff[0][1]:.3e}; {len(diff)} leaves differ)"
+                           if diff else ""))
+        bill = sim.comm_bytes
+        agg_s = sim.aggregate()
+        torch.cuda.synchronize()
+        w["round"], t = time.perf_counter() - t, time.perf_counter()
+        if i == 0:
+            round_bill = sim.comm_bytes - bill
+        st = {"aggregate": leaf_errs(torch, its[0]["agg1"], agg_s),
+              "rebroadcast": leaf_errs(torch, stacked("ad1"),
+                                       sim.client_adapters)}
+        sim.client_adapters = cuda(stacked("ad1"))
+        agg2_s = sharded_global_stage(torch, sim, cuda(its[0]["agg1"]),
+                                      on(sb), C)
+        torch.cuda.synchronize()
+        w["global"], t = time.perf_counter() - t, time.perf_counter()
+        st["stage2"] = leaf_errs(torch, its[0]["agg2"], agg2_s)
+        st["stage2_rebroadcast"] = leaf_errs(torch, stacked("ad2"),
+                                             sim.client_adapters)
+        sim.client_adapters = cuda(stacked("ad2"))
+        sim.personalize(on(pb))
+        torch.cuda.synchronize()
+        w["personal"] = time.perf_counter() - t
+        st["stage3"] = leaf_errs(torch, stacked("ad3"), sim.client_adapters)
+        stages.append(st)
+        fedsim_walls.append(w)
+    del sim, agg_s, agg2_s
+    report["fedsim"] = {"wall_s": time.perf_counter() - t0,
+                        "walls": fedsim_walls, "round_bill": round_bill}
+    print("engine's FedSim checks: " + json.dumps(report["fedsim"]))
+    worst = [{k: max(v[0] for v in d.values()) for k, d in st.items()}
+             for st in stages]
+    report["engine"]["stages_vs_fedsim"] = {"max_err_of_max": worst,
+                                            "per_leaf": stages}
+    print("engine, each iteration stage by stage against FedSim from the "
+          "engine's inputs (max |Δ| / max, ‖Δ‖ / ‖leaf‖, share beyond 1e-3 "
+          "of max): " + json.dumps(report["engine"]["stages_vs_fedsim"]))
+    for i, wi in enumerate(worst):
+        for k, tol in (("aggregate", ENGINE_AGG_TOL),
+                       ("rebroadcast", ENGINE_AGG_TOL),
+                       ("stage2", ENGINE_STAGE2_TOL),
+                       ("stage2_rebroadcast", ENGINE_STAGE2_TOL),
+                       ("stage3", ENGINE_STAGE3_TOL)):
+            check(wi[k] <= tol, f"engine, iteration {i + 1}: {k} within "
+                  f"{wi[k]:.2e} <= {tol} of each leaf's max of FedSim's from "
+                  f"the same input" + (
+                      " (stage 2 with its gradient taken in the engine's "
+                      f"{C} slices)" if k.startswith("stage2") else ""))
+
+    # --- the f32 witness, against FedSim.global_stage -----------------------
+    # the engine's sharded stage 2 in f32 against FedSim's full-batch
+    # global stage (held), and in bf16 FedSim's own sharded replica
+    # against its full-batch global stage (a reading: the gap bf16 makes)
+    sb0 = on(iters[0][1])
+    sim = FedSim(cfg32, hp, base=base32, device="cuda")
+    witness = {"float32_engine": leaf_errs(
+        torch, got32, sim.global_stage(agg32, sb0))}
+    del sim, base32
+    sim = FedSim(dataclasses.replace(cfg, n_layers=L), hp,
+                 base=depth_cut(params, L), device="cuda")
+    witness["bfloat16_sharded_replica"] = leaf_errs(
+        torch, sharded_global_stage(torch, sim, agg32, sb0, C),
+        sim.global_stage(agg32, sb0))
+    del sim, agg32
+    gc.collect()
+    torch.cuda.empty_cache()
+    wsum = {k: {"max_err_of_max": max(v[0] for v in d.values()),
+                "rel_norm": max(v[1] for v in d.values()),
+                "share_beyond": max(v[2] for v in d.values())}
+            for k, d in witness.items()}
+    report["engine"]["stage2_witness"] = dict(layers=L, **wsum,
+                                              per_leaf=witness)
+    print(f"engine, stage 2 from the same server model at {L} layers of "
+          "full width, sharded against FedSim.global_stage's full batch "
+          "(max |Δ| / max, ‖Δ‖ / ‖leaf‖, share beyond 1e-3 of max): "
+          + json.dumps(report["engine"]["stage2_witness"]))
+    f32 = wsum["float32_engine"]
+    check(f32["rel_norm"] <= ENGINE_REL_TOL
+          and f32["share_beyond"] <= ENGINE_ELEM_SHARE,
+          f"engine: in f32 the sharded stage 2 is FedSim.global_stage's "
+          f"step: every leaf within ‖Δ‖/‖leaf‖ {f32['rel_norm']:.2e} <= "
+          f"{ENGINE_REL_TOL}, {f32['share_beyond']:.2e} of its elements "
+          f"beyond {ENGINE_ELEM_TOL} of its max (<= {ENGINE_ELEM_SHARE})")
+
+    check(all(torch.equal(x[0], pt.tree_get(r["agg"], p))
+              and torch.equal(pt.tree_get(r["agg"], p),
+                              pt.tree_get(res[0]["agg"], p))
+              for r in res for p, x in pt.tree_leaves_with_path(r["adapters"])
+              if not p.endswith("/dB_mag")),
+          "engine: every client's model is the stage-2 server model plus its "
+          "own dB_mag, the same server model on every rank")
+    check(all(r["comm_bytes_round"] == round_bill for r in res),
+          f"engine: comm_bytes_round {res[0]['comm_bytes_round']} equals "
+          f"FedSim's bill for the round, {round_bill}")
+    evs = read_events(events)
+    rounds = [e for e in evs if e["kind"] == "fed_round"]
+    check(len(rounds) == 1 and rounds[0]["clients"] == C
+          and len(rounds[0]["ce"]) == C
+          and np.allclose(np.mean(rounds[0]["ce"]),
+                          res[0]["metrics"]["ce"], rtol=1e-5)
+          and all(np.isfinite(rounds[0][k]).all()
+                  for k in ("ce", "grad_norm", "drift")),
+          "engine: one fed_round event from the telemetry iteration, its "
+          "per-client ce averaging the round's ce, every value finite")
+    report["engine"]["fed_round"] = {k: rounds[0][k] for k in (
+        "ce", "grad_norm", "drift", "loss_spread", "comm_bytes", "wall")}
+    print("engine fed_round: " + json.dumps(report["engine"]["fed_round"]))
+
+    # --- serve the personalized clients through bgmv_mag --------------------
+    server = cuda(res[0]["agg"])
+    mag = AdapterStore(params, cfg, n_slots=8, kind="dora_mag", shared=server,
+                       device="cuda")
+    tenants = [f"client{c}" for c in range(C)]
+    for c, t in enumerate(tenants):
+        own = cuda(client(res[c]["adapters"], 0))
+        mag.register(t, pt.filter_tree(own, lambda p: p.endswith("/dB_mag")))
+    del res
+    rng = np.random.default_rng(7)
+    reqs = [(tenants[i % C], rng.integers(0, cfg.vocab_size,
+                                          size=int(rng.integers(16, PAD_W + 1))
+                                          ).astype(np.int32))
+            for i in range(8)]
+    torch.cuda.reset_peak_memory_stats()
+    _, st, counts = serve(torch, engine(params, cfg, mag), reqs, "engine",
+                          expect={"bgmv_mag": 2})
+    report["serve"] = engine_report("engine", st, len(reqs),
+                                    torch.cuda.max_memory_allocated())
+    batch, last = admitted_batch(torch, mag, reqs)
+    report["serve"]["prefill_logits"] = logits_checks(
+        torch, "engine", pt.merge_trees(params, mag.overlay()), cfg,
+        prefill_logits(torch, batch, last))
+    return report, counts["bgmv_mag"]
+
+
 def kernel_entry(name, src, replaces, launches, row, shape, extra=None):
     keys = ("ms", "plain_ms", "library_ms", "eager_ms", "eager_plain_ms",
             "eager_library_ms")
@@ -3842,6 +4342,15 @@ def main():
             launches["bgmv"] += cohort_launches
             print(f"phase 11 (b) (cohort rounds) took "
                   f"{time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            (workdir / "engine").mkdir()
+            report["engine"], engine_launches = phase_engine(
+                torch, ctx, workdir / "engine")
+            launches["bgmv_mag"] += engine_launches
+            t_engine = time.perf_counter() - t0
+            print(f"phase 12 (production engine) took {t_engine:.1f} s")
+            check(t_engine <= ENGINE_BUDGET_S, f"phase 12 took "
+                  f"{t_engine:.1f} s <= {ENGINE_BUDGET_S} s")
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         del ctx["params"]
@@ -3880,7 +4389,8 @@ def main():
              "launches_phase9_fleet_serve": fleet_launches[name],
              **({"launches_phase10_tiered_serve": persist_launches["tiered"],
                  "launches_phase10_flat_serve": persist_launches["flat"],
-                 "launches_phase11_telemetry_serve": tel_launches}
+                 "launches_phase11_telemetry_serve": tel_launches,
+                 "launches_phase12_engine_serve": engine_launches}
                 if name == "bgmv_mag" else
                 {"launches_phase11_cohort_serve": cohort_launches}),
              **({"launches_phase7_training_serve": train_launches}

@@ -11,14 +11,15 @@ rank-aware family of mixed-rank fleets (zero-pad, replication, exact).
 
 Every aggregator takes the client-stacked tree (plus optional weights,
 plus ``ranks`` for the rank-aware family) and returns the aggregate
-without the client axis.  ``CollectiveAgg``
-records only what the comm accounting reads of the reference's
-collective forms (the comm class and the top-k ratio); the shard_map
-collectives of the production round engine themselves are ROADMAP A11.
+without the client axis.  ``CollectiveAgg`` is the same aggregation as
+a collective over one client's tree a rank (``launch/train.py``: one
+client per ``torch.distributed`` rank), and ``collective_form`` resolves
+a method's.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import re
 from typing import Any
@@ -33,15 +34,6 @@ from repro_torch.utils import pytree as pt
 Params = Any
 
 COMM_CLASSES = ("psum", "all_gather", "q8", "topk")
-
-
-@dataclasses.dataclass(frozen=True)
-class CollectiveAgg:
-    """A method's collective form, as far as billing reads it: its comm
-    class (one of COMM_CLASSES) and, for "topk", the uplink's density.
-    Not callable here (ROADMAP A11)."""
-    comm: str
-    topk_ratio: float = 0.01
 
 
 def fedavg(client_adapters: Params, weights=None) -> Params:
@@ -435,16 +427,172 @@ def comm_bytes_per_round(adapters_one_client: Params,
     return total
 
 
+# ---------------------------------------------------------------------------
+# collective forms (the production round engine, launch/train.py)
+# ---------------------------------------------------------------------------
+#
+# Every aggregator above takes the client-stacked tree ``FedSim`` holds.
+# The production engine never holds that stack: each client is one rank
+# of a ``torch.distributed`` group with its own adapters, and aggregation
+# is a collective over the group.  ``group`` is a ``launch.mesh
+# .ClientGroup``: ``rank``, ``size``, and ``all_reduce`` / ``all_gather``
+# over a list of tensors (sum; stacked in rank order).  Comm classes:
+#
+#   psum        Σ wᵢxᵢ / Σ wᵢ by two all-reduces: the mean family (fedavg,
+#               decomposed, zero-pad, excluding) and, with per-row
+#               coverage masks, replication_fedavg.
+#   all_gather  every rank stacks all clients' trees and runs the host
+#               aggregator ``FedSim`` uses (exact_fedavg's QR and SVD,
+#               trimmed_fedavg's order statistics).
+#   q8 / topk   the rank encodes its update (compress_update, keyed by
+#               its rank as FedSim keys by the client index) before the
+#               weighted sum of the decoded values.
+#
+# The gather class gives the host aggregate of the same bits; the psum
+# class agrees with it up to rounding (FedSim's mean normalises w first).
+
+
+def client_index(group) -> int:
+    """This rank's client index: its rank in the client group, the order
+    ``all_gather`` stacks in and ``FedSim`` stacks its clients."""
+    return group.rank
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveAgg:
+    """A method's aggregation as a collective over the client group.
+
+    Called on every rank with the rank's adapter tree (no client axis),
+    the group, the client's scalar weight and its per-leaf rank-coverage
+    masks (only the "coverage" kind reads them); returns the aggregate,
+    the same on every rank."""
+    kind: str            # "wmean" | "coverage" | "staleness" |
+                         # "gather_exact" | "gather_trimmed" | "q8" | "topk"
+    comm: str            # comm class (COMM_CLASSES), for the billing
+    trim_ratio: float = 0.0
+    topk_ratio: float = 0.01
+    seed: int = 0
+    alpha: float = 0.5   # staleness discount exponent ("staleness" kind)
+
+    def __call__(self, adapters: Params, *, group, weight, cover=None,
+                 step=0, staleness=0.0):
+        paths = pt.tree_paths(adapters)
+        xs = pt.tree_leaves(adapters)
+        w = torch.as_tensor(weight, dtype=torch.float32,
+                            device=xs[0].device)
+
+        def rebuild(leaves):
+            out: dict = {}
+            for p, x in zip(paths, leaves):
+                pt.set_leaf(out, p, x)
+            return out
+
+        if self.kind in ("q8", "topk"):
+            # the rank's uplink, encoded before it reaches the wire; the
+            # weighted sum of decoded trees is then WMEAN's algebra
+            xs = pt.tree_leaves(compress_update(
+                adapters, mode=self.kind, step=step,
+                client_idx=client_index(group), topk_ratio=self.topk_ratio,
+                seed=self.seed))
+        if self.kind == "staleness":
+            w = w * staleness_scale(staleness, self.alpha).to(w.device)
+        if self.kind in ("wmean", "staleness", "q8", "topk"):
+            den, *num = group.all_reduce([w] + [x * w for x in xs])
+            return rebuild([n / den for n in num])
+        if self.kind == "coverage":
+            cs = [pt.tree_get(cover, p) for p in paths]
+            sums = group.all_reduce([x * c * w for x, c in zip(xs, cs)]
+                                    + [c * w for c in cs])
+            num, den = sums[:len(xs)], sums[len(xs):]
+            return rebuild([
+                torch.where(d > 0, n / torch.clamp(d, min=1e-12),
+                            torch.zeros((), dtype=n.dtype, device=n.device))
+                for n, d in zip(num, den)])
+        gathered = rebuild(group.all_gather(xs))
+        if self.kind == "gather_trimmed":
+            return trimmed_fedavg(gathered, trim_ratio=self.trim_ratio)
+        if self.kind == "gather_exact":
+            (w_all,) = group.all_gather([w])
+            return exact_fedavg(gathered, w_all)
+        raise ValueError(f"unknown collective kind {self.kind!r}")
+
+
+WMEAN = CollectiveAgg(kind="wmean", comm="psum")
+COVERAGE = CollectiveAgg(kind="coverage", comm="psum")
+GATHER_EXACT = CollectiveAgg(kind="gather_exact", comm="all_gather")
+COMPRESSED_Q8 = CollectiveAgg(kind="q8", comm="q8")
+STALENESS = CollectiveAgg(kind="staleness", comm="psum")
+
+
+def gather_trimmed(trim_ratio: float) -> CollectiveAgg:
+    return CollectiveAgg(kind="gather_trimmed", comm="all_gather",
+                         trim_ratio=trim_ratio)
+
+
+def compressed_topk(topk_ratio: float) -> CollectiveAgg:
+    return CollectiveAgg(kind="topk", comm="topk", topk_ratio=topk_ratio)
+
+
+def collective_form(method) -> CollectiveAgg:
+    """A method's collective form: its ``collective`` when set, else the
+    one its host aggregate maps to.  Raises for an aggregate with no
+    collective form, so the production engine never trains with other
+    math than ``FedSim``."""
+    if getattr(method, "collective", None) is not None:
+        return method.collective
+    a = method.aggregate
+    if isinstance(a, CompressedFedAvg):
+        # the codec's parameters carry over, so the engines cannot
+        # disagree on mode, ratio or seed
+        return CollectiveAgg(kind=a.mode, comm=a.mode,
+                             topk_ratio=a.topk_ratio, seed=a.seed)
+    if isinstance(a, StalenessFedAvg):
+        return CollectiveAgg(kind="staleness", comm="psum", alpha=a.alpha)
+    if a in (fedavg, decomposed_fedavg, zeropad_fedavg):
+        return WMEAN
+    if a is replication_fedavg:
+        return COVERAGE
+    if a is exact_fedavg:
+        return GATHER_EXACT
+    if isinstance(a, functools.partial) and not a.args:
+        # a partial maps to a collective only when the collective honours
+        # every keyword baked into it
+        kw = set(a.keywords)
+        if a.func is fedavg_excluding and kw == {"exclude_rx"}:
+            # sound only when the excluded leaves are the keep-local set:
+            # the engine's keep-local restore then overwrites the WMEAN
+            # of those leaves with each client's own values
+            if a.keywords["exclude_rx"] == method.keep_local:
+                return WMEAN
+        if a.func is trimmed_fedavg and kw <= {"trim_ratio"}:
+            return gather_trimmed(a.keywords.get("trim_ratio", 0.25))
+        if not kw:
+            if a.func in (fedavg, decomposed_fedavg, zeropad_fedavg):
+                return WMEAN
+            if a.func is replication_fedavg:
+                return COVERAGE
+            if a.func is exact_fedavg:
+                return GATHER_EXACT
+    raise ValueError(
+        f"method {method.name!r} has no shard_map collective form; set "
+        "FedMethod.collective (a core.aggregation.CollectiveAgg) to run "
+        "it on the production train step")
+
+
 def comm_class(method) -> str:
-    """The comm class a method's aggregation moves on the wire: its
-    collective's ``comm`` (trimmed mean "all_gather", the compressed
-    uplinks "q8" / "topk"); a method without one aggregates by a mean,
-    an all-reduce: "psum"."""
-    collective = getattr(method, "collective", None)
-    return getattr(collective, "comm", None) or "psum"
+    """The comm class a method's aggregation moves on the wire, for the
+    billing: its collective form's ``comm``; "psum" for an aggregate
+    with no collective form."""
+    try:
+        return collective_form(method).comm
+    except ValueError:
+        return "psum"
 
 
 def topk_ratio(method) -> float:
     """The top-k density a method bills its uplink at (0.01, the
     accounting's default, when it has no top-k collective)."""
-    return getattr(getattr(method, "collective", None), "topk_ratio", 0.01)
+    try:
+        return collective_form(method).topk_ratio
+    except ValueError:
+        return 0.01

@@ -71,9 +71,9 @@ class FedMethod:
     # True → ``aggregate`` accepts ranks=(C,) (the rank-aware family);
     # the engine passes the fleet's ranks
     rank_aware: bool = False
-    # the collective form's billing record (aggregation.CollectiveAgg;
-    # the collective itself is ROADMAP A11); None → a mean, billed at
-    # the psum rate
+    # the aggregation as a collective over the client group, for the
+    # production engine (launch/train.py); None → the one the aggregate
+    # maps to (aggregation.collective_form)
     collective: Optional[agg.CollectiveAgg] = None
     # regex over leaf paths the aggregated (server) model zeroes, or None
     server_zero_rx: Optional[str] = None
@@ -201,7 +201,7 @@ register(FedMethod(
     make_adapter=partial(peft.add_lora, decomposed=False),
     train_mask=peft.mask_all,
     aggregate=partial(agg.trimmed_fedavg, trim_ratio=0.25),
-    collective=agg.CollectiveAgg("all_gather"),
+    collective=agg.gather_trimmed(0.25),
     description=("LoRA + coordinate-wise trimmed-mean aggregation — "
                  "robust to adversarial/outlier clients (cf. Koo et al.)"),
 ))
@@ -224,22 +224,19 @@ register(FedMethod(
     make_adapter=partial(peft.add_lora, decomposed=False),
     train_mask=peft.mask_all,
     aggregate=agg.CompressedFedAvg(mode="q8"),
-    collective=agg.CollectiveAgg("q8"),
+    collective=agg.COMPRESSED_Q8,
     description=("raw LoRA + FedAvg over a stochastic-rounded int8 "
                  "uplink — ~4× less uplink traffic, unbiased rounding "
                  "(COMPRESSED comm class)"),
 ))
-
-# the top-k uplink; its billing record reads the same density
-_TOPK_UPLINK = agg.CompressedFedAvg(mode="topk", topk_ratio=0.05)
 
 register(FedMethod(
     name="lora_fedavg_topk",
     het_ranks=True,
     make_adapter=partial(peft.add_lora, decomposed=False),
     train_mask=peft.mask_all,
-    aggregate=_TOPK_UPLINK,
-    collective=agg.CollectiveAgg("topk", topk_ratio=_TOPK_UPLINK.topk_ratio),
+    aggregate=agg.CompressedFedAvg(mode="topk", topk_ratio=0.05),
+    collective=agg.compressed_topk(0.05),
     description=("raw LoRA + FedAvg over a magnitude top-k sparsified "
                  "uplink (5% density, deterministic; COMPRESSED comm "
                  "class)"),
@@ -263,7 +260,7 @@ register(FedMethod(
     make_adapter=partial(peft.add_lora, decomposed=False),
     train_mask=peft.mask_all,
     aggregate=agg.replication_fedavg,
-    collective=agg.CollectiveAgg("psum"),
+    collective=agg.COVERAGE,
     description=("raw LoRA, mixed-rank fleet, coverage-weighted "
                  "(replication-style) averaging — rank row j averages "
                  "only the clients that own it (cf. Koo et al.)"),
@@ -276,7 +273,7 @@ register(FedMethod(
     make_adapter=partial(peft.add_lora, decomposed=False),
     train_mask=peft.mask_all,
     aggregate=agg.exact_fedavg,
-    collective=agg.CollectiveAgg("all_gather"),
+    collective=agg.GATHER_EXACT,
     description=("raw LoRA, mixed-rank fleet, exact Σw·AB aggregation "
                  "via stacked factors + truncated-SVD re-factorization "
                  "(cf. Nguyen et al.)"),

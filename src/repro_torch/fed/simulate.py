@@ -7,9 +7,9 @@ stage masks, aggregate function, loss extras, keep-local regex), and this
 module holds no per-method branch.
 
 A training step runs the clients one after another: each gets its own
-value-and-grad through torch autograd (gradients of every adapter leaf,
-trainable or not, so the clip norm and ``grad_norm`` count the frozen
-ones as the reference's do), then the clip and the masked AdamW update.
+value-and-grad through torch autograd (``stage_loss`` and
+``value_and_grad``, which the production engine, ``launch/train.py``,
+shares), then the clip and the masked AdamW update.
 That is what the reference's ``vmap`` computes client by client; the
 client state (adapters and optimizer moments) stays stacked as (C, ...)
 leaves.  Rounds loop over their steps in Python (the reference's
@@ -118,6 +118,44 @@ def prox_term(adapters: Params, ref: Params):
                for p, x in pt.tree_leaves_with_path(adapters))
 
 
+def stage_loss(base, adapters, batch, cfg, *, gen=None, lam=0.0,
+               reg_mask=None, prox_mu=0.0, prox_ref=None, remat=False):
+    """The training loss of one adapter tree on one (B, S) batch: masked
+    CE, plus the Eq. 11 ½λ‖·‖²_F over ``reg_mask``'s leaves when ``lam``,
+    plus FedProx's ½µ‖θ − θ_ref‖² when ``prox_ref`` is given.  ``gen``:
+    the adapter-dropout generator; ``remat``: as ``model.forward``'s.
+    Returns (loss, metrics)."""
+    loss, met = M.loss_and_metrics(pt.merge_trees(base, adapters), batch,
+                                   cfg, rng=gen, remat=remat)
+    if lam:
+        reg = sum(torch.sum(torch.square(x))
+                  for p, x in pt.tree_leaves_with_path(adapters)
+                  if pt.tree_get(reg_mask, p))
+        loss = loss + 0.5 * lam * reg
+    if prox_ref is not None:
+        loss = loss + 0.5 * prox_mu * prox_term(adapters, prox_ref)
+    return loss, met
+
+
+def value_and_grad(loss_fn, adapters):
+    """(loss, metrics, grads) of ``loss_fn(adapters) → (loss, metrics)``
+    through autograd: a gradient for every adapter leaf, trainable or
+    not (zeros where the loss does not reach it), so the clip norm and
+    ``grad_norm`` count the frozen ones as the reference's do."""
+    leaves = pt.tree_map(lambda x: x.detach().requires_grad_(True),
+                         adapters)
+    with torch.enable_grad():
+        loss, met = loss_fn(leaves)
+        grads = iter(torch.autograd.grad(loss, pt.tree_leaves(leaves),
+                                         allow_unused=True))
+
+    def take(x):                    # same leaf order as tree_leaves
+        gi = next(grads)
+        return torch.zeros_like(x) if gi is None else gi
+    g = pt.tree_map(take, leaves)
+    return loss.detach(), {k: v.detach() for k, v in met.items()}, g
+
+
 def _host(v) -> np.ndarray:
     """A (C,) fault vector (numpy, list or tensor) as a host array."""
     return (v.detach().cpu().numpy() if torch.is_tensor(v)
@@ -214,38 +252,18 @@ class FedSim:
         return stack_clients([opt.init(client(self.client_adapters, c))
                               for c in range(self.hp.n_clients)])
 
-    def _loss(self, adapters, batch, gen, lam, prox_ref):
-        params = pt.merge_trees(self.base, adapters)
-        loss, met = M.loss_and_metrics(params, batch, self.cfg, rng=gen)
-        if lam:
-            reg = sum(torch.sum(torch.square(x))
-                      for p, x in pt.tree_leaves_with_path(adapters)
-                      if pt.tree_get(self.reg_mask, p))
-            loss = loss + 0.5 * lam * reg
-        if prox_ref is not None:
-            loss = loss + 0.5 * self._prox_mu * prox_term(adapters, prox_ref)
-        return loss, met
-
     def loss_and_grad(self, adapters: Params, batch: dict, gen=None,
                       lam: float = 0.0, prox_ref=None):
         """(loss, metrics, grads) of one adapter tree (no client axis) on
         one (B, S) batch; ``grads`` has a leaf for every adapter leaf.
         ``prox_ref``: the FedProx reference of this client (a prox
         method's stage 1), held constant."""
-        leaves = pt.tree_map(lambda x: x.detach().requires_grad_(True),
-                             adapters)
         if prox_ref is not None:
             prox_ref = pt.tree_map(torch.Tensor.detach, prox_ref)
-        with torch.enable_grad():
-            loss, met = self._loss(leaves, batch, gen, lam, prox_ref)
-            flat = pt.tree_leaves(leaves)
-            grads = iter(torch.autograd.grad(loss, flat, allow_unused=True))
-
-        def take(x):                    # same leaf order as tree_leaves
-            gi = next(grads)
-            return torch.zeros_like(x) if gi is None else gi
-        g = pt.tree_map(take, leaves)
-        return loss.detach(), {k: v.detach() for k, v in met.items()}, g
+        return value_and_grad(lambda ad: stage_loss(
+            self.base, ad, batch, self.cfg, gen=gen, lam=lam,
+            reg_mask=self.reg_mask, prox_mu=self._prox_mu,
+            prox_ref=prox_ref), adapters)
 
     def _step_one(self, adapters, opt_state, batch, gen, step, opt, lam,
                   prox_ref=None, rmask=None):

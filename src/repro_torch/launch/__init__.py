@@ -1,1 +1,3 @@
-"""Serving entry points (greedy generation, per-tenant merge)."""
+"""Entry points: serving (greedy generation, per-tenant merge) and the
+production round engine (``train``: one client per ``torch.distributed``
+rank, groups from ``mesh``)."""

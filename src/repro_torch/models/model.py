@@ -48,7 +48,9 @@ def check_supported(cfg: ArchConfig) -> None:
 
 def _normal(g, shape, scale, dtype, device):
     """N(0, scale²) drawn in f32 on the generator's device, stored in
-    ``dtype`` on ``device``."""
+    ``dtype`` on ``device`` (on "meta", shapes only: nothing is drawn)."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     return (torch.randn(shape, generator=g, device=g.device)
             * scale).to(dtype).to(device)
 
@@ -89,9 +91,11 @@ def _init_sublayers(g, cfg: ArchConfig, n: int, dtype, device):
 def init_params(generator: torch.Generator, cfg: ArchConfig, *,
                 device="cuda") -> Params:
     """Random backbone drawn from ``generator`` (on its own device; pass a
-    CUDA generator to draw a full-size model on the card)."""
+    CUDA generator to draw a full-size model on the card).  On
+    ``device="meta"`` the tree has the shapes and dtypes only."""
     check_supported(cfg)
-    dev = resolve_device(device)
+    dev = (torch.device("meta") if str(device) == "meta"
+           else resolve_device(device))
     dtype = _dtype(cfg)
     n_sb, _, _ = cfg.blocks_layout()     # dense: one sublayer, no tail
     g = generator
@@ -148,23 +152,72 @@ def _superblock(x, p_sb, cache_sb, pattern, cfg, **kw):
     return x, new_cache
 
 
+def _dots_saveable():
+    """remat="dots": keep the matmul outputs, recompute the rest (the
+    reference's ``dots_saveable`` policy)."""
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    aten = torch.ops.aten
+    return create_selective_checkpoint_contexts(
+        [aten.mm.default, aten.bmm.default, aten.addmm.default,
+         aten.baddbmm.default])
+
+
+def _remat_superblock(x, p_sb, pattern, cfg, remat, kw):
+    """One superblock under ``torch.utils.checkpoint``: its activations
+    are recomputed in the backward pass ("dots": all but the matmul
+    outputs).  The dropout generator is explicit, and ``checkpoint``
+    restores only the default generators' state, so the recomputation
+    rewinds it to where the forward pass started the block (the same
+    masks) and puts it back afterwards; after the block it stands where
+    the forward pass left it."""
+    gen = kw.get("dropout_gen")
+    start = gen.get_state() if gen is not None else None
+    after = []
+
+    def body(h):
+        if gen is None:
+            return _superblock(h, p_sb, None, pattern, cfg, **kw)[0]
+        here = gen.get_state()
+        gen.set_state(start)
+        try:        # a recomputation may stop early, by an exception
+            y, _ = _superblock(h, p_sb, None, pattern, cfg, **kw)
+            if not after:
+                after.append(gen.get_state())
+            return y
+        finally:
+            gen.set_state(here)
+
+    extra = {} if remat is True else {"context_fn": _dots_saveable}
+    y = checkpoint(body, x, use_reentrant=False, **extra)
+    if gen is not None:
+        gen.set_state(after[0])
+    return y
+
+
 def _run_blocks(blocks, x, pattern, cfg, *, positions, cache=None,
                 cache_index=None, dropout_gen=None, return_cache=False,
-                cache_len=0, adapter_idx=None, kernel_impl=None):
+                cache_len=0, adapter_idx=None, kernel_impl=None,
+                remat=False):
     """Loop over the stacked superblocks (the dense pattern has one
     sublayer, so there is no tail; caches keep an empty ``tail`` for the
     reference's layout).  A decode cache is updated in place and
     returned; a prefill cache (return_cache) is stacked back to the
-    (n_sb, ...) layout."""
+    (n_sb, ...) layout.  ``remat`` (True | "dots" | False): each
+    superblock under ``torch.utils.checkpoint`` (training only)."""
     kw = dict(positions=positions, cache_index=cache_index,
               dropout_gen=dropout_gen, return_cache=return_cache,
               cache_len=cache_len,
               adapter_idx=adapter_idx, kernel_impl=kernel_impl)
+    if remat and (cache is not None or return_cache):
+        raise ValueError("remat is for training; it keeps no cache")
     leaves = pt.tree_leaves(blocks)
     n_sb = leaves[0].shape[0] if leaves else 0
     fresh = []
     for i in range(n_sb):
         p_sb = pt.tree_map(lambda t: t[i], blocks)
+        if remat:
+            x = _remat_superblock(x, p_sb, pattern, cfg, remat, kw)
+            continue
         c_sb = (pt.tree_map(lambda t: t[i], cache["blocks"])
                 if cache is not None else None)
         x, nc = _superblock(x, p_sb, c_sb, pattern, cfg, **kw)
@@ -180,7 +233,7 @@ def _run_blocks(blocks, x, pattern, cfg, *, positions, cache=None,
 
 
 def forward(params, batch, cfg: ArchConfig, *, rng=None,
-            return_cache=False, cache_len=0, kernel_impl=None):
+            return_cache=False, cache_len=0, kernel_impl=None, remat=False):
     """Training / prefill forward → (hidden (B,S,D), cache, aux).
     ``batch`` holds ``tokens`` (B, S) and optionally ``positions`` and
     ``adapter_idx``.  ``rng``: a torch.Generator on the params' device
@@ -188,7 +241,8 @@ def forward(params, batch, cfg: ArchConfig, *, rng=None,
     through the layers, so each projection's mask is its own.  A
     ``prompt_embed`` leaf (n_p, D) is prepended to every sequence, the
     positions run over S + n_p, and the prompt rows are dropped before
-    the final norm."""
+    the final norm.  ``remat``: checkpoint each superblock (True) or
+    keep only its matmul outputs ("dots"), as the reference's."""
     check_supported(cfg)
     tokens = batch["tokens"]
     x = params["embed"]["embedding"][tokens.to(torch.int64)]
@@ -207,7 +261,7 @@ def forward(params, batch, cfg: ArchConfig, *, rng=None,
         params["blocks"], x, cfg.pattern(), cfg,
         positions=positions, dropout_gen=rng, return_cache=return_cache,
         cache_len=cache_len, adapter_idx=batch.get("adapter_idx"),
-        kernel_impl=kernel_impl)
+        kernel_impl=kernel_impl, remat=remat)
     x = L.rms_norm(x[:, n_p:], params["final_norm"], cfg.norm_eps)
     return x, cache, torch.zeros((), device=x.device)
 
@@ -234,14 +288,15 @@ def _ce_chunk(kern, hb, tb, mb):
 
 
 def loss_and_metrics(params, batch, cfg: ArchConfig, *, rng=None,
-                     n_loss_chunks: int = 0, aux_weight=0.01):
+                     n_loss_chunks: int = 0, aux_weight=0.01, remat=False):
     """Masked next-token CE → (loss, {ce, acc, aux, n_tok}), 0-d tensors.
 
     The CE over the vocabulary runs in sequence chunks, each under
     ``torch.utils.checkpoint``, so no (B, S, V) logits are kept for the
     backward pass.  ``acc`` counts positions where loss_mask ≥ 0.999,
-    argmax ties going to the first index; ``task_id`` is ignored."""
-    hidden, _, aux = forward(params, batch, cfg, rng=rng)
+    argmax ties going to the first index; ``task_id`` is ignored.
+    ``remat``: as ``forward``'s."""
+    hidden, _, aux = forward(params, batch, cfg, rng=rng, remat=remat)
     tokens, mask = batch["tokens"].to(torch.int64), batch["loss_mask"]
     B, Stot, D = hidden.shape
     targets, h, m = tokens[:, 1:], hidden[:, :-1], mask[:, :-1]
