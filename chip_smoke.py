@@ -271,6 +271,38 @@ Phase 12 the production round engine, run after phase 11 on phase 3's
          s.  Prints the card's used memory, each rank's peak, the stage
          walls of both engines, each rank's warm stage-1 step ms, the
          collectives' calls, bytes and seconds, and the fed_round event.
+Phase 13 the rest of the dense family, run after phase 6 (the backbones
+         drawn anew, full width, random weights from seeded generators):
+         (a) llama2-7b, 32 layers, bf16, a 1 x 4096 prefill through
+         ``forward`` on the plain chunked path (``kernel_impl="torch"``)
+         and through flash_attention (32 launches), each timed with its
+         peak above the weights; flash held to the plain path through
+         CHECK_DEPTH layers in bf16 (2e-2) and all 32 in f32 (1e-4).
+         (b) qwen3-32b (qk-norm, rep 8, d_head 128) at all 64 layers and
+         (c) granite-34b (rep 48, one kv head) at 24 of its 88 layers
+         (the cut printed), bf16: greedy_generate over a 1 x 4096 prompt
+         for 1 and 16 tokens (flash once a layer a prefill), the prefill
+         ms, decode step ms, tokens/s and peak; flash held to the plain
+         chunked path through CHECK_DEPTH layers in bf16 (2e-2), and at
+         2 layers of full width in f32 (logits within 1e-4, 16 greedy
+         tokens equal).  (d) gemma3-1b, 26 layers (4
+         superblocks of 5 local + 1 global and a tail of 2): the same
+         with 64 tokens, the local layers on flash's window 512; flash
+         held in bf16 through CHECK_DEPTH layers and in f32 through 26;
+         in f32 a 448-token prompt and 128 decode steps (the 512-slot
+         ring wraps at step 64): the tokens equal greedy_generate's, the
+         logits of steps 0, 63, 64 and 127 within 1e-4 of the plain
+         forward over the sequence so far (last row).  (e) run_federated
+         fedlora_opt at gemma3-1b under phase 7's stage checks (2 clients
+         x 1 x 4096 tokens, 1 round of 2 steps, the first a warm-up, 1
+         stage-2 and 1 stage-3 step, dropout 0; the plain chunked,
+         windowed path with each query block checkpointed; eval batches
+         of 128 tokens; no kernel launched): the stage-1 step ms, peak,
+         every loss finite; then the 2 clients as dora_mag tenants
+         over the f32 backbone through greedy_generate with adapter_idx
+         (bgmv_mag 2 x 26 x 16 launches), each row's 16 tokens equal to
+         its merged model's.  Every number is printed beside the card's
+         nvidia-smi line.
 Every run starts with every launch count at 0.  Each path's prefill
 logits, kernels against plain versions, relative to max |logit|: bf16
 weights through the first CHECK_DEPTH layers within 2e-2, f32 weights
@@ -325,6 +357,7 @@ ROOT = Path(__file__).resolve().parent
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # relative to max |plain output|
 FUSED_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # tests/test_kernels.py's
 LOGITS_F32_TOL = 1e-4   # f32 weights, all layers, kernels vs plain
+GPU = ""                # the card's nvidia-smi line, set by main()
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 D, R_MAIN, L_SLOTS = 4096, 8, 9
@@ -3688,7 +3721,7 @@ def phase_standalone(torch):
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention_bhsd_cuda)
     from repro_torch.kernels.ssd_scan.ssd_scan import variant as ssd_variant
-    from repro_torch.models.layers import _causal_mask, _sdpa
+    from repro_torch.models.layers import _causal_window_mask, _sdpa
 
     flash_in = [qkv(torch, B, Sq, Sk, c["H"], c["K"], c["dh"],
                     getattr(torch, dn), seed=i)
@@ -3732,7 +3765,8 @@ def phase_standalone(torch):
                            q_offset=Sk - Sq)
         report["flash_attention"][f"{name} {dn}"] = dict(e, shape=shape)
     q, k, v = flash_in[0]
-    mask = _causal_mask(q.shape[1], k.shape[1], q.device)[None, None]
+    mask = _causal_window_mask(q.shape[1], k.shape[1], 0, None,
+                               q.device)[None, None]
     sdpa_err = max_abs(flash_out[0], _sdpa(q, k, v, mask, q.shape[-1] ** -0.5))
     report["flash_attention"]["llama2-7b prefill bfloat16"]["vs_layers_sdpa"] = \
         sdpa_err
@@ -3763,6 +3797,391 @@ def phase_standalone(torch):
         report["ssd_scan"][f"{name} {dn} b={b} S={S}"] = dict(e, chunk=ch)
     print("standalone: " + json.dumps(report))
     return report, {k: launches[k] for k in ("flash_attention", "ssd_scan")}
+
+
+# --- phase 13: the rest of the dense family (run after phase 6) ------------
+
+DENSE_S = 4096          # prefill tokens: the chunked path (S >= 2048, S % 512)
+DENSE_NEW = 16          # greedy tokens at qwen3-32b and granite-34b
+# layers run at full width: qwen3-32b whole (61.0 GiB in bf16), granite-34b
+# cut from 88 (88.0 GiB in bf16 is more than the card holds)
+DENSE_DEPTH = {"qwen3-32b": 64, "granite-34b": 24}
+GEMMA_NEW = 64
+RING_PROMPT, RING_STEPS = 448, 128   # decode position 512 wraps the ring
+RING_HELD = (0, 63, 64, 127)         # decode steps held against forward
+DENSE_TRAIN_HP = dict(method="fedlora_opt", n_clients=2, rounds=1,
+                      local_steps=2, batch=1, seq_len=DENSE_S, global_steps=1,
+                      personal_steps=1, lr=1e-3, server_lr=5e-4)
+DENSE_EVAL_S = 128      # eval batches: below the chunked length, no kernel
+DENSE_SERVE_PROMPT = 64
+
+
+def dense_model(torch, arch, layers=None, dtype=None, seed=0):
+    """``arch``'s config (at ``layers``, in ``dtype`` when given, dropout
+    0) and its random backbone from a seeded generator on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    kw = {"lora_dropout": 0.0}
+    if layers:
+        kw["n_layers"] = layers
+    if dtype:
+        kw["dtype"] = dtype
+    cfg = dataclasses.replace(get_config(arch), **kw)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = M.init_params(g, cfg, device="cuda")
+    torch.cuda.synchronize()
+    print(f"{arch} ({cfg.n_layers} layers, {cfg.dtype}) drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return cfg, params
+
+
+def first_layers(params, cfg, depth):
+    """``params`` cut to its first ``depth`` layers (whole superblocks in
+    the stack, the rest as a tail) and the config to match."""
+    from repro_torch.utils import pytree as pt
+    n_sb, _, pattern = cfg.blocks_layout(depth)
+    tail = depth - n_sb * len(pattern)
+    cut = dict(params, blocks=pt.tree_map(lambda t: t[:n_sb],
+                                          params["blocks"]) if n_sb else {})
+    cut.pop("tail", None)
+    if tail:
+        cut["tail"] = {f"sub{i}": pt.tree_map(lambda t: t[n_sb],
+                                             params["blocks"][f"sub{i}"])
+                       for i in range(tail)}
+    return cut, dataclasses.replace(cfg, n_layers=depth)
+
+
+def prefill_last(torch, params, cfg, tokens, impl):
+    """The prefill's work through ``forward`` (hidden states and the cache
+    with DENSE_NEW slots of headroom) at ``impl``; the last row's
+    logits, f32."""
+    from repro_torch.models import model as M
+    S = tokens.shape[1]
+    h, _, _ = M.forward(params, {"tokens": tokens}, cfg, return_cache=True,
+                        cache_len=S + DENSE_NEW, kernel_impl=impl)
+    return (h[:, -1] @ M._head_kernel(params, cfg).to(h.dtype)).float()
+
+
+def synced(torch, fn):
+    """(fn(), host ms around it ending in a sync, the peak bytes it
+    allocated above what was allocated before it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return out, ms, torch.cuda.max_memory_allocated() - before
+
+
+def greedy_plain(torch, params, cfg, tokens, n_new):
+    """Greedy tokens with the prefill on the plain chunked path
+    (``kernel_impl="torch"``) and ``decode_step`` after it."""
+    from repro_torch.models import model as M
+    S = tokens.shape[1]
+    h, cache, _ = M.forward(params, {"tokens": tokens}, cfg,
+                            return_cache=True, cache_len=S + n_new,
+                            kernel_impl="torch")
+    tok = M.argmax_first((h[:, -1] @ M._head_kernel(params, cfg).to(
+        h.dtype)).float())
+    out = [tok]
+    for i in range(n_new - 1):
+        logits, cache = M.decode_step(params, tok, cache, S + i, cfg)
+        tok = M.argmax_first(logits)
+        out.append(tok)
+    return torch.stack(out, dim=1)
+
+
+def dense_tokens(torch, cfg, B, S, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                         device="cuda")
+
+
+def flash_vs_plain(torch, label, params, cfg, tokens, tol, greedy=0):
+    """The prefill's last-row logits with flash_attention against the
+    plain chunked path, relative to max |logit|, within ``tol``; with
+    ``greedy``, also that many greedy tokens equal."""
+    from repro_torch.launch.serve import greedy_generate
+    err, _ = rel_err(prefill_last(torch, params, cfg, tokens, None),
+                     prefill_last(torch, params, cfg, tokens, "torch"))
+    check(err <= tol, f"dense {label}: prefill logits, flash_attention vs "
+          f"the plain chunked path: {err:.3e} <= {tol} of max |logit|")
+    out = {"logits_rel_err": err}
+    if greedy:
+        a = greedy_generate(params, {"tokens": tokens}, cfg, greedy,
+                            device="cuda").cpu().numpy()
+        b = greedy_plain(torch, params, cfg, tokens, greedy).cpu().numpy()
+        check(np.array_equal(a, b), f"dense {label}: {greedy} greedy tokens "
+              f"with flash_attention equal the plain chunked path's")
+        out["greedy_tokens_equal"] = greedy
+    return out
+
+
+def dense_generate(torch, label, params, cfg, tokens, n_new):
+    """``greedy_generate`` timed twice after a warm-up: for 1 token (the
+    prefill and its argmax) and for ``n_new``; flash_attention must run
+    once a layer in each prefill and nowhere else.  Returns the report
+    and the launches of the two timed runs."""
+    from repro_torch.launch.serve import greedy_generate
+    greedy_generate(params, {"tokens": tokens[:, :2048]}, cfg, 2,
+                    device="cuda")                          # warm-up
+    reset_launches()
+    toks1, ms1, peak1 = synced(torch, lambda: greedy_generate(
+        params, {"tokens": tokens}, cfg, 1, device="cuda"))
+    toks, ms, peak = synced(torch, lambda: greedy_generate(
+        params, {"tokens": tokens}, cfg, n_new, device="cuda"))
+    launches = read_launches()
+    check_launches(launches, {"flash_attention": 1}, cfg.n_layers, 2,
+                   f"dense {label}", "2 prefills of greedy_generate")
+    toks = toks.cpu().numpy()
+    check(toks.shape == (tokens.shape[0], n_new) and toks.min() >= 0
+          and toks.max() < cfg.vocab_size
+          and np.array_equal(toks[:, :1], toks1.cpu().numpy()),
+          f"dense {label}: {n_new} greedy tokens in the vocabulary, the first "
+          f"the 1-token run's")
+    report = {"layers": cfg.n_layers, "prompt": list(tokens.shape),
+              "prefill_ms": ms1, "generate_ms": ms, "new_tokens": n_new,
+              "decode_step_ms": (ms - ms1) / (n_new - 1),
+              "tokens_per_s": tokens.shape[0] * n_new / (ms / 1e3),
+              "peak_bytes_above_params": max(peak, peak1),
+              "allocated_bytes": torch.cuda.memory_allocated()}
+    print(f"dense {label} [{GPU}]: " + json.dumps(report))
+    return report, launches["flash_attention"]
+
+
+def free(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dense_llama(torch):
+    """(a) llama2-7b, 32 layers, bf16, prefill 1 x 4096: the plain chunked
+    path and flash_attention, each timed with its peak; flash held to
+    the plain path in bf16 through CHECK_DEPTH layers and in f32 through
+    all 32."""
+    from repro_torch.models import model as M
+    cfg, params = dense_model(torch, "llama2-7b")
+    tokens = dense_tokens(torch, cfg, 1, DENSE_S, seed=1)
+    report = {}
+    for name, impl in (("plain", "torch"), ("flash", None)):
+        prefill_last(torch, params, cfg, tokens, impl)          # warm-up
+        reset_launches()
+        _, ms, peak = synced(torch, lambda: prefill_last(torch, params, cfg,
+                                                         tokens, impl))
+        launches = read_launches()
+        check_launches(launches, {"flash_attention": int(impl is None)},
+                       cfg.n_layers, 1, f"dense llama2-7b {name} prefill",
+                       "1 prefill")
+        # the forward alone (no cache kept): the attention path's own peak
+        _, fwd_ms, fwd_peak = synced(torch, lambda: M.forward(
+            params, {"tokens": tokens}, cfg, kernel_impl=impl)[0][:, -1])
+        report[name] = {"prefill_ms": ms, "peak_bytes_above_params": peak,
+                        "forward_ms": fwd_ms,
+                        "forward_peak_bytes_above_params": fwd_peak}
+        if impl is None:
+            n_flash = launches["flash_attention"]
+    for key in ("peak_bytes_above_params",
+                "forward_peak_bytes_above_params"):
+        report["plain_minus_flash_" + key] = (report["plain"][key]
+                                              - report["flash"][key])
+    cut, ccfg = first_layers(params, cfg, CHECK_DEPTH)
+    report["bf16"] = flash_vs_plain(torch, f"llama2-7b {CHECK_DEPTH} layers "
+                                    f"bf16", cut, ccfg, tokens,
+                                    TOL["bfloat16"])
+    del cut
+    f32 = to_f32(params)
+    del params
+    free(torch)
+    report["f32"] = flash_vs_plain(
+        torch, f"llama2-7b {cfg.n_layers} layers f32", f32,
+        dataclasses.replace(cfg, dtype="float32"), tokens, LOGITS_F32_TOL)
+    del f32
+    free(torch)
+    print(f"dense llama2-7b 1 x {DENSE_S} prefill [{GPU}]: "
+          + json.dumps(report))
+    return report, n_flash
+
+
+def dense_big(torch, arch):
+    """(b), (c): ``arch`` at full width and DENSE_DEPTH layers, bf16:
+    greedy_generate over a 1 x 4096 prompt, and flash against the plain
+    chunked path through its first CHECK_DEPTH layers in bf16 (the
+    tensor-core kernel the prefill runs; granite's rep 48); then at 2
+    layers of full width in f32, flash against the plain chunked path
+    (logits within LOGITS_F32_TOL, greedy tokens equal)."""
+    from repro_torch.configs import get_config
+    full = get_config(arch).n_layers
+    depth = DENSE_DEPTH[arch]
+    if depth < full:
+        print(f"dense {arch}: full width, depth cut to {depth} of {full} "
+              f"layers ({full} do not fit the card in bf16)")
+    cfg, params = dense_model(torch, arch, layers=depth)
+    tokens = dense_tokens(torch, cfg, 1, DENSE_S, seed=2)
+    report, n_flash = dense_generate(torch, arch, params, cfg, tokens,
+                                     DENSE_NEW)
+    report["full_layers"] = full
+    report["bf16"] = flash_vs_plain(torch, f"{arch} {CHECK_DEPTH} layers "
+                                    f"bf16", *first_layers(params, cfg,
+                                                           CHECK_DEPTH),
+                                    tokens, TOL["bfloat16"])
+    del params
+    free(torch)
+    cfg, params = dense_model(torch, arch, layers=2, dtype="float32")
+    report["f32_2_layers"] = flash_vs_plain(torch, f"{arch} 2 layers f32",
+                                            params, cfg, tokens,
+                                            LOGITS_F32_TOL, greedy=DENSE_NEW)
+    del params
+    free(torch)
+    return report, n_flash
+
+
+def dense_gemma(torch):
+    """(d) gemma3-1b at full size, 26 layers: greedy_generate over a 1 x
+    4096 prompt in bf16 (the local layers through flash's window 512);
+    flash against the plain chunked path in bf16 through CHECK_DEPTH
+    layers (two local layers) and in f32 through all 26; then in f32 a
+    448-token prompt and 128 decode steps, which wrap the 512-slot ring
+    at step 64: the tokens equal greedy_generate's, and the logits of
+    decode steps RING_HELD equal the plain forward's over the sequence
+    so far (last row) within LOGITS_F32_TOL.  Returns the report, the
+    model-path flash launches and the f32 backbone (for (e))."""
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.models import model as M
+    cfg, params = dense_model(torch, "gemma3-1b")
+    tokens = dense_tokens(torch, cfg, 1, DENSE_S, seed=3)
+    report, n_flash = dense_generate(torch, "gemma3-1b", params, cfg, tokens,
+                                     GEMMA_NEW)
+    cut, ccfg = first_layers(params, cfg, CHECK_DEPTH)
+    report["bf16"] = flash_vs_plain(torch, f"gemma3-1b {CHECK_DEPTH} layers "
+                                    f"bf16", cut, ccfg, tokens,
+                                    TOL["bfloat16"])
+    del cut
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = to_f32(params)
+    report["f32"] = flash_vs_plain(torch, f"gemma3-1b {cfg.n_layers} layers f32", p32,
+                                   cfg32, tokens, LOGITS_F32_TOL)
+
+    prompt = dense_tokens(torch, cfg, 1, RING_PROMPT, seed=4)
+    want = greedy_generate(p32, {"tokens": prompt}, cfg32, RING_STEPS + 1,
+                           device="cuda")
+    logits, cache = M.prefill(p32, {"tokens": prompt}, cfg32,
+                              cache_len=RING_PROMPT + RING_STEPS + 1)
+    tok = M.argmax_first(logits)
+    seq, held = [tok], {}
+    for i in range(RING_STEPS):
+        logits, cache = M.decode_step(p32, tok, cache, RING_PROMPT + i, cfg32)
+        if i in RING_HELD:
+            held[i] = logits
+        tok = M.argmax_first(logits)
+        seq.append(tok)
+    got = torch.stack(seq, dim=1)
+    check(torch.equal(got, want), f"dense gemma3-1b ring: the decode loop's "
+          f"{RING_STEPS + 1} tokens equal greedy_generate's")
+    errs = {}
+    for i, lg in held.items():
+        full = torch.cat([prompt, got[:, :i + 1]], dim=1)
+        with torch.no_grad():
+            ref = prefill_last(torch, p32, cfg32, full, "torch")
+        errs[i] = rel_err(lg, ref)[0]
+        check(errs[i] <= LOGITS_F32_TOL, f"dense gemma3-1b ring: decode step "
+              f"{i} (position {RING_PROMPT + i}, ring slot "
+              f"{(RING_PROMPT + i) % cfg.sliding_window}) logits vs the plain "
+              f"forward over {full.shape[1]} tokens: {errs[i]:.3e} <= "
+              f"{LOGITS_F32_TOL} of max |logit|")
+    report["ring"] = {"prompt": RING_PROMPT, "steps": RING_STEPS,
+                      "held_rel_err": errs}
+    print(f"dense gemma3-1b ring [{GPU}]: " + json.dumps(report["ring"]))
+    return report, n_flash, params, p32
+
+
+def dense_training(torch, params, p32):
+    """(e) fedlora_opt through run_federated at gemma3-1b full size, bf16,
+    under phase 7's stage checks (``run_checked``): 2 clients x 1 x 4096
+    tokens, 1 round of 2 steps (the first warms up: the first backward
+    at these shapes takes about 10 s once), 1 stage-2 and 1 stage-3
+    step, dropout 0 (training takes the plain chunked, windowed path,
+    each query block under checkpoint; eval batches of 128 tokens: no
+    kernel runs); then the 2 personalized clients served as dora_mag
+    tenants over the f32 backbone through greedy_generate with
+    adapter_idx (bgmv_mag), each row's tokens equal to its merged
+    model's."""
+    from repro_torch.configs import get_config
+    from repro_torch.fed.simulate import FedHyper, client
+    from repro_torch.launch.serve import greedy_generate, merge_adapters
+    from repro_torch.serve import AdapterStore
+    from repro_torch.utils import pytree as pt
+
+    cfg = dataclasses.replace(get_config("gemma3-1b"), lora_dropout=0.0)
+    hp = FedHyper(**DENSE_TRAIN_HP)
+    C = hp.n_clients
+    data = fed_data(cfg, C, hp.batch, DENSE_EVAL_S)
+    free(torch)
+    res, sim, log, wall, peak = run_checked(torch, cfg, params, hp, data)
+    step_ms = [1e3 * s for s in log["stage1_step"]]
+    report = {"config": dict(DENSE_TRAIN_HP, layers=cfg.n_layers,
+                             eval_seq_len=DENSE_EVAL_S),
+              "wall_s": wall, "peak_bytes": peak,
+              "stage1_step_ms": step_ms, "stage1_step_ms_warm": step_ms[-1],
+              "stage_wall_s": {k: v for k, v in log.items() if k != "rounds"},
+              "train_ce": [h["train_ce"] for h in res.history]}
+    print(f"dense training gemma3-1b 2 x 1 x {DENSE_S} [{GPU}]: "
+          + json.dumps(report))
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    server = pt.tree_map(lambda t: t.float(), sim.server_model)
+    store = AdapterStore(p32, cfg32, n_slots=4, kind="dora_mag",
+                         shared=server, device="cuda")
+    tenants = [f"client{c}" for c in range(C)]
+    own = [pt.tree_map(lambda t: t.float(), client(sim.client_adapters, c))
+           for c in range(C)]
+    for t, ad in zip(tenants, own):
+        store.register(t, pt.filter_tree(ad, lambda p: p.endswith("/dB_mag")))
+    prompts = dense_tokens(torch, cfg, C, DENSE_SERVE_PROMPT, seed=5)
+    slots = torch.tensor([store.slot_of(t) for t in tenants], device="cuda")
+    pooled_params = pt.merge_trees(p32, store.overlay())
+    reset_launches()
+    pooled, ms, _ = synced(torch, lambda: greedy_generate(
+        pooled_params, {"tokens": prompts}, cfg32, DENSE_NEW,
+        adapter_idx=slots, device="cuda"))
+    launches = read_launches()
+    check_launches(launches, {"bgmv_mag": 2}, cfg.n_layers, DENSE_NEW,
+                   "dense serve gemma3-1b", f"1 prefill + {DENSE_NEW - 1} "
+                   f"decode steps")
+    for c, ad in enumerate(own):
+        merged = greedy_generate(merge_adapters(p32, ad),
+                                 {"tokens": prompts[c:c + 1]}, cfg32,
+                                 DENSE_NEW, device="cuda")
+        check(torch.equal(pooled[c:c + 1], merged), f"dense serve gemma3-1b: "
+              f"tenant {tenants[c]}'s {DENSE_NEW} tokens through bgmv_mag "
+              f"equal its merged model's")
+    report["serve"] = {"tenants": C, "prompt": DENSE_SERVE_PROMPT,
+                       "new_tokens": DENSE_NEW, "wall_ms": ms,
+                       "tokens_per_s": C * DENSE_NEW / (ms / 1e3)}
+    print(f"dense serve gemma3-1b f32 [{GPU}]: " + json.dumps(report["serve"]))
+    return report, launches["bgmv_mag"]
+
+
+def phase_dense(torch):
+    """Phase 13.  Returns the report and the model path's launches of
+    flash_attention (the timed prefills of (a)-(d)) and bgmv_mag ((e)'s
+    pooled generation)."""
+    report, flash = {}, {}
+    t0 = time.perf_counter()
+    report["llama2-7b"], flash["llama2-7b"] = dense_llama(torch)
+    for arch in ("qwen3-32b", "granite-34b"):
+        report[arch], flash[arch] = dense_big(torch, arch)
+    report["gemma3-1b"], flash["gemma3-1b"], params, p32 = dense_gemma(torch)
+    report["training"], n_mag = dense_training(torch, params, p32)
+    del params, p32
+    free(torch)
+    report["flash_launches"] = flash
+    report["wall_s"] = time.perf_counter() - t0
+    print(f"dense family [{GPU}]: flash_attention launches on the model path "
+          + json.dumps(flash) + f"; phase wall {report['wall_s']:.1f} s")
+    return report, {"flash_attention": sum(flash.values()), "bgmv_mag": n_mag}
 
 
 # --- phase 12: the production round engine (run after phase 11) ------------
@@ -4260,7 +4679,8 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
-    gpu = gpu_line()
+    global GPU
+    gpu = GPU = gpu_line()
     print(f"gpu: {gpu}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
@@ -4365,6 +4785,12 @@ def main():
         t0 = time.perf_counter()
         standalone, launches_6 = phase_standalone(torch)
         print(f"phase 6 took {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        report["dense"], dense_launches = phase_dense(torch)
+        launches["bgmv_mag"] += dense_launches["bgmv_mag"]
+        print(f"phase 13 (dense family) took {time.perf_counter() - t0:.1f} s")
     except CheckFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -4388,6 +4814,7 @@ def main():
              "build": bgmv_build,
              "launches_phase9_fleet_serve": fleet_launches[name],
              **({"launches_phase10_tiered_serve": persist_launches["tiered"],
+                 "launches_phase13_dense_serve": dense_launches["bgmv_mag"],
                  "launches_phase10_flat_serve": persist_launches["flat"],
                  "launches_phase11_telemetry_serve": tel_launches,
                  "launches_phase12_engine_serve": engine_launches}
@@ -4430,10 +4857,13 @@ def main():
     kernels.append(kernel_entry(
         "flash_attention", f"{kdir}/flash_attention/csrc/flash_attention.cu",
         f"{pallas}/flash_attention/flash_attention.py:87",
-        launches_6["flash_attention"], fa["prefill"],
+        dense_launches["flash_attention"], fa["prefill"],
         "llama2-7b prefill: q, k, v (1, 4096, 32, 128) bf16, causal (phase 6 "
-        "runs it with the other configs' shapes)",
-        {"other_shapes": {k: {f: r[f] for f in (
+        "runs it with the other configs' shapes); launches: the prefills of "
+        "phase 13 (llama2-7b, qwen3-32b, granite-34b, gemma3-1b at 1 x 4096)",
+        {"launches_phase6_standalone": launches_6["flash_attention"],
+         "launches_phase13_by_config": report["dense"]["flash_launches"],
+         "other_shapes": {k: {f: r[f] for f in (
             "q", "k", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "f32_core_bound_ms", "eager_ms", "max_abs_err", "bound_ratio",
             "tflops")}

@@ -4,7 +4,7 @@ Each ported architecture is one module exposing ARCH (exact published
 hyperparameters, source cited) and SMOKE (the reduced same-family
 variant used by CPU tests).  ``get_config("<id>")`` resolves either
 spelling (hyphens or underscores).  The reference registers more
-architectures; their non-dense families are not ported yet.
+architectures; their other families are not ported yet.
 """
 from __future__ import annotations
 
@@ -12,12 +12,12 @@ import importlib
 
 from repro_torch.models.config import ArchConfig
 
-ARCH_IDS = ["deepseek-7b", "llama2-7b"]
+ARCH_IDS = ["deepseek-7b", "gemma3-1b", "granite-34b", "llama2-7b",
+            "qwen3-32b"]
 
 # in the reference registry, waiting for their families (ROADMAP A12)
-_NOT_PORTED = {"jamba-v0.1-52b", "seamless-m4t-large-v2", "granite-34b",
-               "qwen3-moe-30b-a3b", "gemma3-1b", "mixtral-8x22b",
-               "mamba2-2.7b", "qwen2-vl-2b", "qwen3-32b"}
+_NOT_PORTED = {"jamba-v0.1-52b", "seamless-m4t-large-v2", "qwen3-moe-30b-a3b",
+               "mixtral-8x22b", "mamba2-2.7b", "qwen2-vl-2b"}
 
 
 def _modname(arch_id: str) -> str:

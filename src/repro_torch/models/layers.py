@@ -36,6 +36,9 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels._wrap import resolve_impl
 
 Params = Any
 
@@ -163,19 +166,23 @@ def linear(p: Params, x, *, lora_scale: float = 0.0, dropout_gen=None,
 # attention
 # ---------------------------------------------------------------------------
 
-def _causal_mask(S_q, S_k, device):
-    """(S_q, S_k) boolean mask; q position i attends k position j ≤ i."""
-    qi = torch.arange(S_q, device=device)[:, None]
+def _causal_window_mask(S_q, S_k, q_offset, window, device):
+    """(S_q, S_k) boolean mask; q position i (+ q_offset) attends k
+    position j ≤ i, and only j > i - window when ``window`` is given."""
+    qi = torch.arange(S_q, device=device)[:, None] + q_offset
     kj = torch.arange(S_k, device=device)[None, :]
-    return kj <= qi
+    m = kj <= qi
+    if window is not None:
+        m = m & (kj > qi - window)
+    return m
 
 
-def _sdpa(q, k, v, mask, softmax_scale):
+def _sdpa(q, k, v, mask, softmax_scale, w_dtype=None):
     """q:(B,Sq,H,dh) k,v:(B,Sk,K,dh) GQA by grouped heads; mask
     (..., Sq, Sk) bool or None.  Scores in f32 (bf16 operands are exact
     in f32, so this is the reference's f32 accumulation), masked to
-    -1e30, softmax in f32, weights cast to v's dtype before the PV
-    product, which accumulates in f32."""
+    -1e30, softmax in f32, weights cast to ``w_dtype`` (v's dtype when
+    None) before the PV product, which accumulates in f32."""
     B, Sq, H, dh = q.shape
     K = k.shape[2]
     rep = H // K
@@ -188,8 +195,55 @@ def _sdpa(q, k, v, mask, softmax_scale):
             m = m[:, :, None]
         scores = torch.where(m, scores, -1e30)
     w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkrqs,bskd->bqkrd", w.to(v.dtype).float(), v.float())
+    out = torch.einsum("bkrqs,bskd->bqkrd", w.to(w_dtype or v.dtype).float(),
+                       v.float())
     return out.reshape(B, Sq, H, dh).to(q.dtype)
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _sdpa_chunked(q, k, v, softmax_scale, window, q_block: int = 512):
+    """Causal attention over 512-row query blocks, each block ``_sdpa``
+    over all Sk keys, masked at its offset: bounds the (bq × Sk) score
+    and weight tensors for long prefills.  Under autograd each block
+    runs under ``torch.utils.checkpoint``, so its scores and weights are
+    recomputed in the backward pass instead of kept (the reference's
+    ``jax.checkpoint``: about 2 GB a layer on 4k × 1152 trains without
+    it)."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    grad = _needs_grad(q, k, v)
+    kf, vf = k.float(), v.float()           # once, not once a block
+    outs = []
+    for q0 in range(0, Sq, q_block):
+        qi = q[:, q0:q0 + q_block]
+        mask = _causal_window_mask(qi.shape[1], Sk, q0, window,
+                                   q.device)[None, None]
+        args = (qi, kf, vf, mask, softmax_scale, v.dtype)
+        outs.append(checkpoint(_sdpa, *args, use_reentrant=False)
+                    if grad else _sdpa(*args))
+    return torch.cat(outs, dim=1)
+
+
+def _long_attention(q, k, v, softmax_scale, window, kernel_impl):
+    """Causal (windowed) prefill attention where the reference takes
+    ``_sdpa_chunked``.  Without a gradient, ``flash_attention`` runs it:
+    kernel_impl None launches the CUDA kernel for a CUDA tensor (the
+    plain chunked path for a CPU one), "cuda" launches it or raises,
+    "torch" takes the plain chunked path.  The kernel defines no
+    backward (as the reference's defines no VJP), so under autograd the
+    plain chunked path runs, and "cuda" raises."""
+    grad = _needs_grad(q, k, v)
+    if grad and kernel_impl == "cuda":
+        raise ValueError("flash_attention defines no backward: training "
+                         "takes the plain chunked path (kernel_impl None "
+                         "or 'torch')")
+    if not grad and resolve_impl(kernel_impl, q, "attention") == "cuda":
+        from repro_torch.kernels.flash_attention.ops import flash_attention
+        return flash_attention(q, k, v, causal=True, window=window,
+                               scale=softmax_scale, impl="cuda")
+    return _sdpa_chunked(q, k, v, softmax_scale, window)
 
 
 def _target_scale(cfg, proj: str, lora_scale: float) -> float:
@@ -202,28 +256,37 @@ def attention(p: Params, x, positions, cfg, *, kind: str = "global",
               return_cache: bool = False, cache_len: int = 0,
               adapter_idx=None, kernel_impl=None):
     """Causal self-attention sublayer (pre-norm outside).  Returns
-    (y, new_cache).
+    (y, new_cache).  ``kind="local"`` attends the last
+    ``cfg.sliding_window`` positions only; ``q_norm`` / ``k_norm`` in
+    ``p`` normalize q and k over the head dim before RoPE (qk-norm).
 
     dropout_gen: torch.Generator for adapter dropout (training) on the
     q/k/v adapters, at cfg.lora_dropout; each projection takes its own
     draw from it.
 
-    cache: dict(k=(B,Sc,K,dh), v=...) — decode buffer.  The port writes
-    the new token's k/v into it IN PLACE (the reference returns a
-    functional copy); the returned cache is the same dict.
+    cache: dict(k=(B,Sc,K,dh), v=...) — decode buffer; a local layer's
+    buffer of ``Sc == window`` slots is a ring (position p at slot
+    p % window).  The port writes the new token's k/v into it IN PLACE
+    (the reference returns a functional copy); the returned cache is the
+    same dict.
     cache_index: int / 0-d tensor shared write position, or (B,) int
     tensor of per-row positions (mixed-tenant serving).  Per-row writes
-    at positions ≥ Sc are dropped, as the reference's scatter drops them.
+    past a linear buffer are dropped, as the reference's scatter drops
+    them.
+    Without a cache, S >= 2048 and S % 512 == 0 (the reference's
+    condition for its chunked path), the prefill runs in 512-row query
+    blocks: through ``flash_attention`` without a gradient, else the
+    plain chunked path (``_long_attention``).
+    return_cache: the prefill's cache; a local layer's holds its last
+    ``window`` keys and values in ring layout, or is zero-padded up to
+    ``window`` (``cache_len`` is for the global layers).
     adapter_idx: (B,) int32 pool slot per row for batched-LoRA serving.
     """
-    if kind == "local" and cfg.sliding_window is not None:
-        raise NotImplementedError("sliding-window attention is not ported "
-                                  "yet (ROADMAP A12)")
-    if "q_norm" in p or cfg.mrope:
-        raise NotImplementedError("qk-norm and M-RoPE are not ported yet "
-                                  "(ROADMAP A12)")
+    if cfg.mrope:
+        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP A12)")
     B, S, D = x.shape
     H, Kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    window = cfg.sliding_window if kind == "local" else None
     scale = 1.0 / math.sqrt(dh)
     kw = dict(fused=cfg.use_fused_dora, adapter_idx=adapter_idx,
               kernel_impl=kernel_impl)
@@ -240,6 +303,9 @@ def attention(p: Params, x, positions, cfg, *, kind: str = "global",
     q = q.reshape(B, S, H, dh)
     k = k.reshape(B, S, Kh, dh)
     v = v.reshape(B, S, Kh, dh)
+    if "q_norm" in p:                      # qwen3 qk-norm, over the head dim
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -247,21 +313,28 @@ def attention(p: Params, x, positions, cfg, *, kind: str = "global",
     if cache is not None:
         ck, cv = cache["k"], cache["v"]
         Sc = ck.shape[1]
+        ring = window is not None and Sc == window
         ar = torch.arange(Sc, device=x.device)
         if torch.is_tensor(cache_index) and cache_index.dim() == 1:
             # per-row write positions (continuous batching): one slot per
-            # row; rows past the buffer keep what they hold
+            # row; on a linear buffer rows past its end keep what they hold
             pos = cache_index.to(torch.int64)
             rows = torch.arange(B, device=x.device)
-            slot = pos.clamp(max=Sc - 1)
-            inside = (pos < Sc)[:, None, None]
-            ck[rows, slot] = torch.where(inside, k[:, 0], ck[rows, slot])
-            cv[rows, slot] = torch.where(inside, v[:, 0], cv[rows, slot])
+            if ring:
+                slot = pos % window
+                ck[rows, slot] = k[:, 0]
+                cv[rows, slot] = v[:, 0]
+            else:
+                slot = pos.clamp(max=Sc - 1)
+                inside = (pos < Sc)[:, None, None]
+                ck[rows, slot] = torch.where(inside, k[:, 0], ck[rows, slot])
+                cv[rows, slot] = torch.where(inside, v[:, 0], cv[rows, slot])
             valid = ar[None, :] < (pos + 1).clamp(max=Sc)[:, None]
             mask = valid[:, None, None, :]                 # (B,1,1,Sc)
         else:
             idx = int(cache_index)
-            start = min(max(idx, 0), Sc - S)               # as dynamic_update_slice clamps
+            slot = idx % window if ring else idx
+            start = min(max(slot, 0), Sc - S)              # as dynamic_update_slice clamps
             ck[:, start:start + S] = k
             cv[:, start:start + S] = v
             valid = ar < min(idx + 1, Sc)
@@ -269,23 +342,37 @@ def attention(p: Params, x, positions, cfg, *, kind: str = "global",
         new_cache = cache
         out = _sdpa(q, ck, cv, mask, scale)
     else:
-        out = _sdpa(q, k, v, _causal_mask(S, S, x.device)[None, None], scale)
+        if S >= 2048 and S % 512 == 0:
+            out = _long_attention(q, k, v, scale, window, kernel_impl)
+        else:
+            mask = _causal_window_mask(S, S, 0, window, x.device)
+            out = _sdpa(q, k, v, mask[None, None], scale)
         if return_cache:
-            pad = max(cache_len, S) - S
-            new_cache = {"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
-                         "v": F.pad(v, (0, 0, 0, 0, 0, pad))}
+            if window is not None and S > window:
+                # the last `window` keys and values, rolled so position p
+                # sits at slot p % window (the ring the decode path reads)
+                new_cache = {"k": torch.roll(k[:, -window:], S % window, 1),
+                             "v": torch.roll(v[:, -window:], S % window, 1)}
+            else:
+                pad = (window if window is not None
+                       else max(cache_len, S)) - S
+                new_cache = {"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
+                             "v": F.pad(v, (0, 0, 0, 0, 0, pad))}
 
     y = linear(p["o_proj"], out.reshape(B, S, H * dh),
                lora_scale=_target_scale(cfg, "o_proj", lora_scale), **kw)
     return y, new_cache
 
 
-def init_attn_cache(cfg, batch, seq_len: int, dtype, device):
-    """Zero k/v buffers of shape (*batch, seq_len, K, dh); ``batch`` is an
-    int or a tuple of leading dims (the stacked superblock axis first).
-    Linear buffers only: sliding-window rings are ROADMAP A12."""
+def init_attn_cache(cfg, batch, seq_len: int, kind: str, dtype, device):
+    """Zero k/v buffers of shape (*batch, Sc, K, dh); ``batch`` is an int
+    or a tuple of leading dims (the stacked superblock axis first).  A
+    local layer's buffer is a ring of Sc = min(seq_len, window) slots, a
+    global layer's a linear buffer of seq_len."""
+    window = cfg.sliding_window if kind == "local" else None
+    Sc = min(seq_len, window) if window is not None else seq_len
     lead = (batch,) if isinstance(batch, int) else tuple(batch)
-    shape = (*lead, seq_len, cfg.n_kv_heads, cfg.head_dim)
+    shape = (*lead, Sc, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 

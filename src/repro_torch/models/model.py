@@ -2,7 +2,10 @@
 
 Layer params are stacked ``(n_superblocks, ...)`` as in the reference;
 the reference's ``lax.scan`` over superblocks is a Python loop over
-``blocks[...][i]`` views here.
+``blocks[...][i]`` views here.  A superblock is ``cfg.pattern()``'s
+sublayers (``sub0``…``sub{P-1}``; gemma3's 5 local + 1 global); layer
+counts the pattern does not divide end in an unstacked ``tail`` that
+runs the pattern's first sublayers.
 
 Entry points:
   init_params(generator, cfg, device=)      → param tree (no adapters)
@@ -36,9 +39,8 @@ def check_supported(cfg: ArchConfig) -> None:
     if cfg.family != "dense" or cfg.n_enc_layers or cfg.frontend:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
                                   f"(ROADMAP A12)")
-    if cfg.sliding_window or cfg.local_global or cfg.qk_norm or cfg.mrope:
-        raise NotImplementedError("sliding-window, local/global, qk-norm and "
-                                  "M-RoPE attention are not ported yet "
+    if cfg.mrope:
+        raise NotImplementedError("M-RoPE attention is not ported yet "
                                   "(ROADMAP A12)")
 
 
@@ -55,34 +57,39 @@ def _normal(g, shape, scale, dtype, device):
             * scale).to(dtype).to(device)
 
 
-def _init_stack(g, n, d_in, d_out, scale, dtype, device):
-    """(n, d_in, d_out) kernel stack drawn layer by layer, so no f32 copy
-    of a whole stack is ever made."""
-    w = torch.empty((n, d_in, d_out), dtype=dtype, device=device)
-    for i in range(n):
+def _init_stack(g, lead, d_in, d_out, scale, dtype, device):
+    """(*lead, d_in, d_out) kernel stack (lead (n,) or ()) drawn layer by
+    layer, so no f32 copy of a whole stack is ever made."""
+    if not lead:
+        return _normal(g, (d_in, d_out), scale, dtype, device)
+    w = torch.empty((*lead, d_in, d_out), dtype=dtype, device=device)
+    for i in range(lead[0]):
         w[i] = _normal(g, (d_in, d_out), scale, dtype, device)
     return w
 
 
-def _init_sublayers(g, cfg: ArchConfig, n: int, dtype, device):
-    """``n`` stacked dense attention sublayers (n_sb, ...)."""
+def _init_sublayers(g, cfg: ArchConfig, lead: tuple, dtype, device):
+    """Dense attention sublayers stacked over ``lead`` ((n_sb,) in the
+    stack, () in the tail)."""
     D, Fd = cfg.d_model, cfg.d_ff
     H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     sc = 0.02
     out_sc = 0.02 / math.sqrt(max(2 * cfg.n_layers, 1))
 
     def lin(d_in, d_out, s):
-        return {"kernel": _init_stack(g, n, d_in, d_out, s, dtype, device)}
+        return {"kernel": _init_stack(g, lead, d_in, d_out, s, dtype, device)}
 
-    def ones():
-        return torch.ones((n, D), dtype=torch.float32, device=device)
+    def ones(d):
+        return torch.ones((*lead, d), dtype=torch.float32, device=device)
 
+    attn = {"q_proj": lin(D, H * dh, sc), "k_proj": lin(D, K * dh, sc),
+            "v_proj": lin(D, K * dh, sc), "o_proj": lin(H * dh, D, out_sc)}
+    if cfg.qk_norm:
+        attn["q_norm"], attn["k_norm"] = ones(dh), ones(dh)
     return {
-        "input_norm": ones(),
-        "attn": {"q_proj": lin(D, H * dh, sc), "k_proj": lin(D, K * dh, sc),
-                 "v_proj": lin(D, K * dh, sc),
-                 "o_proj": lin(H * dh, D, out_sc)},
-        "ffn_norm": ones(),
+        "input_norm": ones(D),
+        "attn": attn,
+        "ffn_norm": ones(D),
         "mlp": {"gate_proj": lin(D, Fd, sc), "up_proj": lin(D, Fd, sc),
                 "down_proj": lin(Fd, D, out_sc)},
     }
@@ -97,16 +104,19 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, *,
     dev = (torch.device("meta") if str(device) == "meta"
            else resolve_device(device))
     dtype = _dtype(cfg)
-    n_sb, _, _ = cfg.blocks_layout()     # dense: one sublayer, no tail
+    n_sb, tail, pattern = cfg.blocks_layout()
     g = generator
     params: dict = {
         "embed": {"embedding": _normal(g, (cfg.vocab_size, cfg.d_model),
                                        0.02, dtype, dev)},
         "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32,
                                  device=dev),
-        "blocks": ({"sub0": _init_sublayers(g, cfg, n_sb, dtype, dev)}
-                   if n_sb else {}),
+        "blocks": ({f"sub{i}": _init_sublayers(g, cfg, (n_sb,), dtype, dev)
+                    for i in range(len(pattern))} if n_sb else {}),
     }
+    if tail:
+        params["tail"] = {f"sub{i}": _init_sublayers(g, cfg, (), dtype, dev)
+                          for i in range(tail)}
     if not cfg.tie_embeddings:
         params["lm_head"] = {"kernel": _normal(
             g, (cfg.d_model, cfg.vocab_size), 0.02, dtype, dev)}
@@ -144,6 +154,8 @@ def _superblock(x, p_sb, cache_sb, pattern, cfg, **kw):
     scale = cfg.lora_alpha / cfg.lora_rank
     for i, sub in enumerate(pattern):
         key = f"sub{i}"
+        if key not in p_sb:                   # the tail runs pattern[:tail]
+            continue
         c = cache_sb.get(key) if cache_sb else None
         x, nc = _apply_sublayer(p_sb[key], x, sub, cfg, cache=c,
                                 lora_scale=scale, **kw)
@@ -194,16 +206,16 @@ def _remat_superblock(x, p_sb, pattern, cfg, remat, kw):
     return y
 
 
-def _run_blocks(blocks, x, pattern, cfg, *, positions, cache=None,
+def _run_blocks(blocks, tail, x, pattern, cfg, *, positions, cache=None,
                 cache_index=None, dropout_gen=None, return_cache=False,
                 cache_len=0, adapter_idx=None, kernel_impl=None,
                 remat=False):
-    """Loop over the stacked superblocks (the dense pattern has one
-    sublayer, so there is no tail; caches keep an empty ``tail`` for the
-    reference's layout).  A decode cache is updated in place and
-    returned; a prefill cache (return_cache) is stacked back to the
-    (n_sb, ...) layout.  ``remat`` (True | "dots" | False): each
-    superblock under ``torch.utils.checkpoint`` (training only)."""
+    """Loop over the stacked superblocks, then the unstacked ``tail``
+    (``{}``: none).  A decode cache is updated in place and returned; a
+    prefill cache (return_cache) is stacked back to the (n_sb, ...)
+    layout, with the tail's beside it.  ``remat`` (True | "dots" |
+    False): each superblock, and the tail, under
+    ``torch.utils.checkpoint`` (training only)."""
     kw = dict(positions=positions, cache_index=cache_index,
               dropout_gen=dropout_gen, return_cache=return_cache,
               cache_len=cache_len,
@@ -229,6 +241,13 @@ def _run_blocks(blocks, x, pattern, cfg, *, positions, cache=None,
         new_cache["blocks"] = pt.tree_map_with_path(
             lambda path, _: torch.stack([pt.tree_get(f, path)
                                          for f in fresh]), fresh[0])
+    if tail:
+        if remat:
+            x = _remat_superblock(x, tail, pattern, cfg, remat, kw)
+        else:
+            x, nc = _superblock(x, tail, cache["tail"] if cache is not None
+                                else None, pattern, cfg, **kw)
+            new_cache["tail"] = nc
     return x, new_cache
 
 
@@ -258,10 +277,11 @@ def forward(params, batch, cfg: ArchConfig, *, rng=None,
         positions = torch.arange(S + n_p, device=x.device)[None].expand(
             B, S + n_p)
     x, cache = _run_blocks(
-        params["blocks"], x, cfg.pattern(), cfg,
+        params["blocks"], params.get("tail", {}), x, cfg.pattern(), cfg,
         positions=positions, dropout_gen=rng, return_cache=return_cache,
-        cache_len=cache_len, adapter_idx=batch.get("adapter_idx"),
-        kernel_impl=kernel_impl, remat=remat)
+        cache_len=cache_len,
+        adapter_idx=batch.get("adapter_idx"), kernel_impl=kernel_impl,
+        remat=remat)
     x = L.rms_norm(x[:, n_p:], params["final_norm"], cfg.norm_eps)
     return x, cache, torch.zeros((), device=x.device)
 
@@ -337,11 +357,15 @@ def argmax_first(logits):
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *, device="cuda"):
     check_supported(cfg)
     dev = resolve_device(device)
-    n_sb, _, pattern = cfg.blocks_layout()
+    n_sb, tail, pattern = cfg.blocks_layout()
+    dtype = _dtype(cfg)
     blocks = {f"sub{i}": {"attn": L.init_attn_cache(
-        cfg, (n_sb, batch), seq_len, _dtype(cfg), dev)}
-        for i in range(len(pattern))} if n_sb else {}
-    return {"blocks": blocks, "tail": {}}
+        cfg, (n_sb, batch), seq_len, sub.attn_kind, dtype, dev)}
+        for i, sub in enumerate(pattern)} if n_sb else {}
+    tail_c = {f"sub{i}": {"attn": L.init_attn_cache(
+        cfg, batch, seq_len, pattern[i].attn_kind, dtype, dev)}
+        for i in range(tail)}
+    return {"blocks": blocks, "tail": tail_c}
 
 
 def decode_step(params, new_token, cache, cache_index, cfg: ArchConfig, *,
@@ -359,7 +383,7 @@ def decode_step(params, new_token, cache, cache_index, cfg: ArchConfig, *,
         positions = torch.full((B, 1), int(cache_index), dtype=torch.int64,
                                device=x.device)
     x, new_cache = _run_blocks(
-        params["blocks"], x, cfg.pattern(), cfg,
+        params["blocks"], params.get("tail", {}), x, cfg.pattern(), cfg,
         positions=positions, cache=cache, cache_index=cache_index,
         adapter_idx=adapter_idx)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -23,14 +23,19 @@ def _leaves_with_path(tree: Tree, prefix: str = ""):
         yield prefix, tree
 
 
+def _map_with_path(fn, node, prefix):
+    if isinstance(node, Mapping):
+        return {k: _map_with_path(fn, v, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in node.items()}
+    return fn(prefix, node)
+
+
 def tree_map_with_path(fn: Callable[[str, Any], Any], tree: Tree) -> Tree:
-    """Map ``fn(path, leaf)`` over a nested dict."""
-    def go(node, prefix):
-        if isinstance(node, Mapping):
-            return {k: go(v, f"{prefix}/{k}" if prefix else str(k))
-                    for k, v in node.items()}
-        return fn(prefix, node)
-    return go(tree, "")
+    """Map ``fn(path, leaf)`` over a nested dict.  The recursion is a
+    module-level function: a nested recursive closure is a reference
+    cycle, and it would keep ``fn`` (and every tensor ``fn`` closes over)
+    alive until Python's cyclic collector runs."""
+    return _map_with_path(fn, tree, "")
 
 
 def tree_map(fn: Callable[[Any], Any], tree: Tree) -> Tree:

@@ -93,7 +93,8 @@ def _layer0_t(tree):
 # configs, bridge, dora, peft
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["llama2-7b", "deepseek-7b"])
+@pytest.mark.parametrize("arch", ["llama2-7b", "deepseek-7b", "granite-34b",
+                                  "qwen3-32b", "gemma3-1b"])
 def test_configs_equal_the_reference(arch):
     from repro.configs import get_config as j_get, get_smoke_config as j_smoke
     assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(j_get(arch))
@@ -226,7 +227,7 @@ def test_linear_refuses_unported_paths():
     """FedALT's dual pair and the Houlsby adapter, which these layers
     refused until ROADMAP A8a, now run and match the reference (the
     fused flag leaves a raw pair on the plain path); what they still
-    refuse (qk-norm, sliding windows) is held by the A12 tests."""
+    refuse (M-RoPE, the other families) is held by the A12 tests."""
     rng = np.random.default_rng(6)
 
     def draw(shapes):                # N(0, 1 / fan_in), O(1) activations
@@ -379,9 +380,11 @@ def test_entry_points_default_to_the_card():
         TM.init_cache(T_SMOKE, 1, 4)
 
 
+# qk-norm, sliding windows and local/global layers are ported (held by
+# tests/test_torch_dense_attention.py); what is still refused:
 @pytest.mark.parametrize("change,item", [
-    (dict(qk_norm=True), "A12"), (dict(local_global=2), "A12"),
-    (dict(sliding_window=8), "A12"), (dict(family="moe", n_experts=2), "A12"),
+    (dict(mrope=True), "A12"), (dict(frontend="vision"), "A12"),
+    (dict(n_enc_layers=2), "A12"), (dict(family="moe", n_experts=2), "A12"),
 ])
 def test_unported_features_raise_not_implemented(change, item):
     cfg = dataclasses.replace(T_SMOKE, **change)
