@@ -104,7 +104,8 @@ Phase 7  training, run between phases 4 and 5 on phase 3's backbone:
          under torch.profiler (device busy share, top kernels), each
          round's train CE and the accuracies (printed only: the weights
          are random), the comm bytes and the serving tokens/s.
-Phase 8  the baselines, run after phase 7 on phase 3's backbone: first the
+Phase 8  the baselines, run after phase 7 on phase 3's backbone cut to its
+         first CUT_DEPTH (8) layers of full width: first the
          card-vs-CPU gradient check of phase 7 on one method of each new
          adapter kind (fedalt's dual pair, adapter's Houlsby bottleneck,
          prompt tuning; the zero-initialized factor drawn nonzero); then
@@ -128,7 +129,7 @@ Phase 8  the baselines, run after phase 7 on phase 3's backbone: first the
          against their aggregate is printed.  Then the global models of
          ffa_lora, fedprox, lora_trimmed, lora_fedbuff, lora_fedavg_q8,
          lora_fedavg_topk and fedalt (its shared pair) serve 8 requests
-         as pairs tenants with the null tenant: bgmv 2 x 32 x (prefills
+         as pairs tenants with the null tenant: bgmv 2 x 8 x (prefills
          + decode steps) launches, the prefill logits held as phase 3's.
          Prints each method's stage walls, stage-1 steps' wall and CPU
          ms, train CE, comm bytes and peak memory, and the serving
@@ -166,7 +167,8 @@ Phase 9  mixed-rank fleets, run after phase 8 on phase 3's backbone:
          Prints each run's stage walls, stage-1 steps' wall and CPU ms,
          peak memory, comm bytes, lora_exact's residuals and the serving
          tokens/s.
-Phase 10 persistence, run after phase 9 on phase 3's backbone, in a work
+Phase 10 persistence, run after phase 9 on phase 3's backbone and phase
+         9's server model, both cut to CUT_DEPTH (8) layers, in a work
          directory under the checkout's build/ that it removes.  (a)
          FedSim resume: fedlora_opt at client ranks 2/4/8/16 with phase
          9's cuts; sim A runs round 1 (2 steps and the aggregate), saves,
@@ -188,25 +190,26 @@ Phase 10 persistence, run after phase 9 on phase 3's backbone, in a work
          exactly: the warm tokens equal a flat 32-slot store's, the Zipf
          tokens a flat store's holding its tenants, the Zipf tokens again
          after a save and a load into a fresh store on the same shards,
-         and both schedules with prefetch a no-op; bgmv_mag 2 x 32 x
+         and both schedules with prefetch a no-op; bgmv_mag 2 x 8 x
          (prefills + decode steps) launches a run.  Prints the save and
          load seconds and MB/s of (a), the registration seconds, the
          shard counts, T0 hits, T1 hits and shard reads, and each run's
          tokens/s.
 Phase 11 telemetry and cohort rounds, run after phase 10 in its work
-         directory.  (a) With ``obs`` enabled (events in the work
-         directory), phase 10's warm and Zipf runs again over its
-         10,000-tenant tiered store: tokens equal those with telemetry
-         off; pool/tier_hits (t0, t1), tier_misses, promotions (t1, t2)
-         and t1_spills equal the checking store's counts of the same
-         runs; span_seconds of serve/prefill and serve/decode_chunk
-         count last_run's prefills and chunks; each serve_run event's
+         directory.  (a) On phase 10's 8-layer cut, with ``obs``
+         enabled (events in the work directory), phase 10's warm and
+         Zipf runs again over its 10,000-tenant tiered store: tokens
+         equal those with telemetry off; pool/tier_hits (t0, t1),
+         tier_misses, promotions (t1, t2) and t1_spills equal the
+         checking store's counts of the same runs; span_seconds of
+         serve/prefill and serve/decode_chunk count last_run's prefills
+         and chunks; each serve_run event's
          tokens are last_run's; one ckpt_restore event per shard read,
          prefetched ones included, all emitted on the serving thread.
          One FedSim save / load: one ckpt_save and one ckpt_restore of
          its file, with its step, leaf count and payload bytes.  One
          prefill + one decode chunk under torch.profiler: as many
-         "kernels/bgmv_mag" ranges as counted bgmv_mag launches (2 x 32
+         "kernels/bgmv_mag" ranges as counted bgmv_mag launches (2 x 8
          a pass), each linked to exactly one bgmv_kernel on the card.
          One warm batch's decode step ms with telemetry off and on, in
          turns (off, on, on, off, ...) on one warm engine, printed
@@ -303,6 +306,32 @@ Phase 13 the rest of the dense family, run after phase 6 (the backbones
          (bgmv_mag 2 x 26 x 16 launches), each row's 16 tokens equal to
          its merged model's.  Every number is printed beside the card's
          nvidia-smi line.
+Phase 14 mixture of experts, run after phase 13 (the backbones drawn
+         anew, full width, random weights): (a) qwen3-moe-30b-a3b (128
+         experts, top 8, qk-norm, rep 8) at all 48 layers, bf16 (61.1
+         GB): greedy_generate over a 1 x 4096 prompt for 1 and 16 tokens
+         (flash_attention once a layer a prefill), the prefill ms,
+         decode step ms and peak; flash held to the plain chunked path
+         through CHECK_DEPTH layers in bf16 (2e-2) and at 2 layers of
+         full width in f32 (logits within 1e-4, 16 greedy tokens equal).
+         (b) One MoE layer of qwen3-moe width at T 512, drop-free: the
+         grouped layer against the dense oracle (every expert on every
+         token) in f32 within 1e-4 of max |y|, the aux within 1e-5; in
+         bf16 within 2e-2 of the f32 oracle on the same rounded inputs
+         over the tokens routed alike (at most 15% routed otherwise);
+         two runs bit-equal in f32, bf16 and bf16 at capacity 1.25.
+         (c) mixtral-8x22b (8 experts in 16 half-d_ff slots, window
+         4096, rep 6) at 10 of its 56 layers (50.9 GB; the cut printed):
+         (a)'s checks over a 1 x 8192 prompt, which the window cuts.
+         (d) qwen3-moe at 8 layers: run_federated fedlora_opt under
+         phase 7's stage checks (4 clients x 4 x 128 tokens, 1 round of
+         2 steps, 1 stage-2 and 1 stage-3 step; the aux in the loss; no
+         kernel launched), the card-vs-CPU gradient check at
+         CHECK_DEPTH layers in f32; the 4 clients as dora_mag tenants
+         through ServeEngine: at the drop-free capacity in f32 each
+         tenant's 16 tokens equal its merged model's; at capacity 1.25
+         in bf16 8 requests twice with the same tokens; bgmv_mag 2 x 8 x
+         (prefills + decode steps) launches a run.
 Every run starts with every launch count at 0.  Each path's prefill
 logits, kernels against plain versions, relative to max |logit|: bf16
 weights through the first CHECK_DEPTH layers within 2e-2, f32 weights
@@ -2949,8 +2978,8 @@ def checked_tiered(torch, paths, ranks, d, counts):
 
 def tier_run(torch, ctx, store, reqs, label):
     """``reqs`` through a ServeEngine over ``store`` with every launch
-    count at 0: bgmv_mag 2 x 32 x (prefills + decode steps) launches, no
-    other kernel.  Returns the tokens, the run's numbers, the launches."""
+    count at 0: bgmv_mag 2 x layers x (prefills + decode steps) launches,
+    no other kernel.  Returns the tokens, the run's numbers, the launches."""
     from repro_torch.serve import ServeEngine
     cfg = ctx["cfg"]
     eng = ServeEngine(ctx["params"], cfg, store, max_rows=TIER_ROWS,
@@ -3900,27 +3929,29 @@ def dense_tokens(torch, cfg, B, S, seed):
                          device="cuda")
 
 
-def flash_vs_plain(torch, label, params, cfg, tokens, tol, greedy=0):
+def flash_vs_plain(torch, label, params, cfg, tokens, tol, greedy=0,
+                   family="dense"):
     """The prefill's last-row logits with flash_attention against the
     plain chunked path, relative to max |logit|, within ``tol``; with
     ``greedy``, also that many greedy tokens equal."""
     from repro_torch.launch.serve import greedy_generate
     err, _ = rel_err(prefill_last(torch, params, cfg, tokens, None),
                      prefill_last(torch, params, cfg, tokens, "torch"))
-    check(err <= tol, f"dense {label}: prefill logits, flash_attention vs "
-          f"the plain chunked path: {err:.3e} <= {tol} of max |logit|")
+    check(err <= tol, f"{family} {label}: prefill logits, flash_attention "
+          f"vs the plain chunked path: {err:.3e} <= {tol} of max |logit|")
     out = {"logits_rel_err": err}
     if greedy:
         a = greedy_generate(params, {"tokens": tokens}, cfg, greedy,
                             device="cuda").cpu().numpy()
         b = greedy_plain(torch, params, cfg, tokens, greedy).cpu().numpy()
-        check(np.array_equal(a, b), f"dense {label}: {greedy} greedy tokens "
-              f"with flash_attention equal the plain chunked path's")
+        check(np.array_equal(a, b), f"{family} {label}: {greedy} greedy "
+              f"tokens with flash_attention equal the plain chunked path's")
         out["greedy_tokens_equal"] = greedy
     return out
 
 
-def dense_generate(torch, label, params, cfg, tokens, n_new):
+def dense_generate(torch, label, params, cfg, tokens, n_new,
+                   family="dense"):
     """``greedy_generate`` timed twice after a warm-up: for 1 token (the
     prefill and its argmax) and for ``n_new``; flash_attention must run
     once a layer in each prefill and nowhere else.  Returns the report
@@ -3935,20 +3966,20 @@ def dense_generate(torch, label, params, cfg, tokens, n_new):
         params, {"tokens": tokens}, cfg, n_new, device="cuda"))
     launches = read_launches()
     check_launches(launches, {"flash_attention": 1}, cfg.n_layers, 2,
-                   f"dense {label}", "2 prefills of greedy_generate")
+                   f"{family} {label}", "2 prefills of greedy_generate")
     toks = toks.cpu().numpy()
     check(toks.shape == (tokens.shape[0], n_new) and toks.min() >= 0
           and toks.max() < cfg.vocab_size
           and np.array_equal(toks[:, :1], toks1.cpu().numpy()),
-          f"dense {label}: {n_new} greedy tokens in the vocabulary, the first "
-          f"the 1-token run's")
+          f"{family} {label}: {n_new} greedy tokens in the vocabulary, the "
+          f"first the 1-token run's")
     report = {"layers": cfg.n_layers, "prompt": list(tokens.shape),
               "prefill_ms": ms1, "generate_ms": ms, "new_tokens": n_new,
               "decode_step_ms": (ms - ms1) / (n_new - 1),
               "tokens_per_s": tokens.shape[0] * n_new / (ms / 1e3),
               "peak_bytes_above_params": max(peak, peak1),
               "allocated_bytes": torch.cuda.memory_allocated()}
-    print(f"dense {label} [{GPU}]: " + json.dumps(report))
+    print(f"{family} {label} [{GPU}]: " + json.dumps(report))
     return report, launches["flash_attention"]
 
 
@@ -4184,6 +4215,344 @@ def phase_dense(torch):
     return report, {"flash_attention": sum(flash.values()), "bgmv_mag": n_mag}
 
 
+# --- phase 14: mixture of experts (run after phase 13) ---------------------
+
+MOE_QWEN, MOE_MIXTRAL = "qwen3-moe-30b-a3b", "mixtral-8x22b"
+MOE_NEW = 16            # greedy tokens after each long prefill
+MIXTRAL_S = 8192        # past mixtral's window of 4096: the window cuts it
+# mixtral at full width: 10 of 56 layers are 50.9 GB in bf16 (56 would be
+# 281 GB; quantize_backbone leaves the experts as they are, in both packages)
+MIXTRAL_DEPTH = 10
+MOE_LAYER_T = 512       # tokens of (b)'s one layer at qwen3-moe width
+MOE_LAYER_TOL = 1e-4    # f32 grouped vs the dense oracle, of max |y|
+MOE_AUX_TOL = 1e-5      # f32 aux vs the oracle's
+# bf16 grouped (bf16 weights, activations and router product) vs the f32
+# oracle on the same rounded weights, router and inputs, of max |y|, over
+# the tokens whose bf16 top-k set is the f32 one; at most MOE_FLIP_SHARE
+# of the tokens route otherwise: the bf16 product rounds each logit by up
+# to 2^-9 of it (~4e-3 at |logit| ~ 1), against a mean gap of ~5e-2
+# between a token's 8th and 9th logit of 128 at these weights
+MOE_BF16_TOL = 2e-2
+MOE_FLIP_SHARE = 0.15
+# bf16 prefill logits, flash against the plain chunked path, are held at
+# 2e-2 through CHECK_DEPTH layers, but through 1 at mixtral: its random
+# model's bf16 runs part by 1.26e-2 of max |logit| through 1 layer, 2.04e-2
+# through 2, 2.34e-2 through 3 and 4.66e-2 through 4, while f32 through 2
+# agrees to 7.0e-6 (PERF.md §6); both models' flash outputs are also
+# held elementwise within bf16_bound_bhsd in each of CHECK_DEPTH layers
+MOE_BF16_DEPTH = {MOE_MIXTRAL: 1}
+MOE_BOUND_ROWS = 512    # the last query rows held within bf16_bound_bhsd
+MOE_TRAIN_DEPTH = 8     # qwen3-moe layers trained and served in (d)
+MOE_TRAIN_HP = dict(method="fedlora_opt", n_clients=4, rounds=1,
+                    local_steps=2, batch=4, seq_len=128, global_steps=1,
+                    personal_steps=1)
+MOE_SERVE_PROMPT = 32   # (d)'s prompts: every row full, no padding
+
+
+def drop_free(cfg):
+    """``cfg`` at capacity E / k: every slot takes all T rows, nothing is
+    dropped, and a token's output is its own whatever the batch."""
+    return dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def flash_within_bound(torch, label, params, cfg, tokens):
+    """A bf16 prefill through flash_attention (``forward``, no cache):
+    in each layer, the kernel's output for the last MOE_BOUND_ROWS query
+    rows of every head, on that layer's own q, k and v, elementwise
+    within ``bf16_bound_bhsd`` of the plain attention in f32 on the same
+    values.  Returns the largest |err| / bound."""
+    from repro_torch.kernels.flash_attention.ref import bf16_bound_bhsd
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    seen = []
+    real = L._long_attention
+
+    def spy(q, k, v, softmax_scale, window, kernel_impl):
+        y = real(q, k, v, softmax_scale, window, kernel_impl)
+        n = MOE_BOUND_ROWS
+        seen.append((q[:, -n:].clone(), k.clone(), v.clone(),
+                     y[:, -n:].clone(), softmax_scale, window))
+        return y
+    L._long_attention = spy
+    try:
+        with torch.no_grad():
+            M.forward(params, {"tokens": tokens}, cfg)
+    finally:
+        L._long_attention = real
+
+    def fold(t):
+        return t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[3]
+                                         ).contiguous()
+    worst = 0.0
+    for i, (q, k, v, y, sc, window) in enumerate(seen):
+        ref, bound = bf16_bound_bhsd(fold(q), fold(k), fold(v), scale=sc,
+                                     causal=True, window=window,
+                                     q_offset=k.shape[1] - q.shape[1])
+        ratio = float(((fold(y).float() - ref).abs() / bound).max())
+        check(ratio <= 1.0, f"moe {label} bf16 layer {i}: flash_attention's "
+              f"last {q.shape[1]} rows of {q.shape[2]} heads within "
+              f"bf16_bound_bhsd (largest |err| / bound {ratio:.3f})")
+        worst = max(worst, ratio)
+        del ref, bound
+    check(len(seen) == cfg.n_layers, f"moe {label}: one long attention a "
+          f"layer ({len(seen)})")
+    return worst
+
+
+def moe_generate(torch, arch, layers=None):
+    """(a) / (c): ``arch`` at full width (``layers`` deep), bf16, a 1 x S
+    prompt through ``greedy_generate`` (flash_attention once a layer in
+    each prefill); flash within ``bf16_bound_bhsd`` in each of
+    CHECK_DEPTH layers and against the plain chunked path through
+    MOE_BF16_DEPTH layers in bf16; then 2 layers of full width in f32,
+    flash against the plain chunked path (logits within LOGITS_F32_TOL,
+    MOE_NEW greedy tokens equal)."""
+    from repro_torch.configs import get_config
+    full = get_config(arch).n_layers
+    S = MIXTRAL_S if arch == MOE_MIXTRAL else DENSE_S
+    if layers and layers < full:
+        print(f"moe {arch}: full width, depth cut to {layers} of {full} "
+              f"layers ({full} do not fit the card)")
+    cfg, params = dense_model(torch, arch, layers=layers)
+    tokens = dense_tokens(torch, cfg, 1, S, seed=6)
+    report, n_flash = dense_generate(torch, arch, params, cfg, tokens,
+                                     MOE_NEW, family="moe")
+    report["full_layers"] = full
+    depth = MOE_BF16_DEPTH.get(arch, CHECK_DEPTH)
+    cut, ccfg = first_layers(params, cfg, CHECK_DEPTH)
+    report["bf16_bound_ratio"] = flash_within_bound(
+        torch, f"{arch} {CHECK_DEPTH} layers", cut, ccfg, tokens)
+    report["bf16"] = flash_vs_plain(torch, f"{arch} {depth} layers bf16",
+                                    *first_layers(params, cfg, depth),
+                                    tokens, TOL["bfloat16"], family="moe")
+    if depth < CHECK_DEPTH:
+        report["bf16_rel_err_at_check_depth"] = rel_err(
+            prefill_last(torch, cut, ccfg, tokens, None),
+            prefill_last(torch, cut, ccfg, tokens, "torch"))[0]
+        print(f"moe {arch} {CHECK_DEPTH} layers bf16: prefill logits, flash "
+              f"vs plain {report['bf16_rel_err_at_check_depth']:.3e} of max "
+              f"|logit| (printed; held through {depth})")
+    del params, cut
+    free(torch)
+    cfg, params = dense_model(torch, arch, layers=2, dtype="float32")
+    report["f32_2_layers"] = flash_vs_plain(
+        torch, f"{arch} 2 layers f32", params, cfg, tokens, LOGITS_F32_TOL,
+        greedy=MOE_NEW, family="moe")
+    del params
+    free(torch)
+    return report, n_flash
+
+
+def moe_layer_inputs(torch, cfg, seed=0):
+    """One MoE layer of ``cfg``'s width in f32 drawn on the card (the
+    router N(0, 0.02²), the experts N(0, 0.02²)) and x (1, T, D) N(0, 1)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    D, E, F = cfg.d_model, cfg.n_experts, cfg.d_ff
+
+    def n(*shape):
+        return 0.02 * torch.randn(shape, generator=g, device="cuda")
+    p = {"router": {"kernel": n(D, E)},
+         "experts": {"gate": n(E, D, F), "up": n(E, D, F), "down": n(E, F, D)}}
+    x = torch.randn((1, MOE_LAYER_T, D), generator=g, device="cuda")
+    return p, x
+
+
+def moe_layer_check(torch):
+    """(b) One layer of qwen3-moe width (128 experts, top 8, D 2048, F
+    768) at T = 512, drop-free: the grouped layer (``moe_ffn_local``)
+    in f32 against ``moe_ffn_dense_ref`` within MOE_LAYER_TOL, its aux
+    within MOE_AUX_TOL; in bf16 against the f32 oracle on the same
+    rounded weights, router and inputs within MOE_BF16_TOL over the
+    tokens that route alike; two runs bit-equal in f32, in bf16 and in
+    bf16 at the published capacity (the fixed-order combine)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.utils import pytree as pt
+    cfg = dataclasses.replace(get_config(MOE_QWEN), dtype="float32")
+    free_cfg = drop_free(cfg)
+    p, x = moe_layer_inputs(torch, cfg)
+    with torch.no_grad():
+        y, aux = L.moe_ffn_local(p, x, free_cfg)
+        yo, auxo = L.moe_ffn_dense_ref(p, x, free_cfg)
+        err, _ = rel_err(y, yo)
+        aux_err = abs(float(aux) - float(auxo))
+        check(err <= MOE_LAYER_TOL, f"moe layer f32, T {MOE_LAYER_T}: grouped "
+              f"vs the dense oracle {err:.3e} <= {MOE_LAYER_TOL} of max |y|")
+        check(aux_err <= MOE_AUX_TOL, f"moe layer f32: aux {float(aux):.6f} "
+              f"vs the oracle's {float(auxo):.6f}: {aux_err:.2e} <= "
+              f"{MOE_AUX_TOL}")
+        check(torch.equal(L.moe_ffn_local(p, x, free_cfg)[0], y),
+              "moe layer f32: two runs bit-equal")
+        # bf16: the experts and x rounded, the router kept in f32 (its
+        # product runs in bf16, as the model's)
+        p16 = {"router": p["router"], "experts": pt.tree_map(
+            lambda t: t.to(torch.bfloat16), p["experts"])}
+        x16 = x.to(torch.bfloat16)
+        cfg16 = dataclasses.replace(free_cfg, dtype="bfloat16")
+        pr = {"router": {"kernel": p["router"]["kernel"].to(
+            torch.bfloat16).float()}, "experts": pt.tree_map(
+            lambda t: t.float(), p16["experts"])}
+        yr, _ = L.moe_ffn_dense_ref(pr, x16.float(), free_cfg)
+        (y16, aux16), ms, _ = synced(torch, lambda: L.moe_ffn_local(
+            p16, x16, cfg16))
+        xt = x16.reshape(-1, cfg.d_model)
+        i16 = L.moe_router(p16, xt, cfg16)[0].sort(-1).values
+        i32 = L.moe_router(pr, xt.float(), free_cfg)[0].sort(-1).values
+        same = (i16 == i32).all(-1)
+        flips = int((~same).sum())
+        d = (y16.float() - yr).abs().reshape(-1, cfg.d_model)[same]
+        err16 = float(d.max() / yr.abs().max())
+        check(flips <= MOE_FLIP_SHARE * MOE_LAYER_T, f"moe layer bf16: "
+              f"{flips} of {MOE_LAYER_T} tokens route otherwise than in f32 "
+              f"<= {MOE_FLIP_SHARE:.0%}")
+        check(err16 <= MOE_BF16_TOL, f"moe layer bf16 vs the f32 oracle over "
+              f"the {int(same.sum())} tokens routed alike: {err16:.3e} <= "
+              f"{MOE_BF16_TOL} of max |y|")
+        y16b, aux16b = L.moe_ffn_local(p16, x16, cfg16)
+        check(torch.equal(y16, y16b) and torch.equal(aux16, aux16b),
+              "moe layer bf16: two runs bit-equal")
+        pub = dataclasses.replace(cfg16, capacity_factor=cfg.capacity_factor)
+        ya, _ = L.moe_ffn_local(p16, x16, pub)
+        yb, _ = L.moe_ffn_local(p16, x16, pub)
+        check(torch.equal(ya, yb), f"moe layer bf16 at capacity "
+              f"{cfg.capacity_factor} (drops): two runs bit-equal")
+    out = {"tokens": MOE_LAYER_T, "f32_rel_err": err, "aux": float(aux),
+           "aux_err": aux_err, "bf16_rel_err_routed_alike": err16,
+           "bf16_tokens_routed_otherwise": flips, "bf16_ms": ms,
+           "capacity_drop_free": L.moe_capacity(cfg16, MOE_LAYER_T),
+           "capacity_published": L.moe_capacity(pub, MOE_LAYER_T)}
+    print(f"moe layer {MOE_QWEN} width [{GPU}]: " + json.dumps(out))
+    del p, x, p16, pr
+    free(torch)
+    return out
+
+
+def moe_training(torch):
+    """(d) qwen3-moe at full width and MOE_TRAIN_DEPTH layers, bf16:
+    fedlora_opt through run_federated under phase 7's stage checks
+    (``run_checked``; 4 clients x 4 x 128 tokens, 1 round of 2 steps, 1
+    stage-2 and 1 stage-3 step; the aux in every stage's loss); the
+    card-vs-CPU gradient check at CHECK_DEPTH layers in f32; then the 4
+    clients served as dora_mag tenants through ``ServeEngine``
+    (``bgmv_mag``): at the drop-free capacity in f32 each tenant's
+    tokens equal its merged model's greedy tokens; at the published
+    capacity in bf16 two runs of the same requests give the same
+    tokens.  Returns the report and the bgmv_mag launches."""
+    from repro_torch.fed.simulate import FedHyper, client
+    from repro_torch.launch.serve import greedy_generate, merge_adapters
+    from repro_torch.serve import AdapterStore, ServeEngine
+    from repro_torch.utils import pytree as pt
+    cfg, params = dense_model(torch, MOE_QWEN, layers=MOE_TRAIN_DEPTH)
+    report = {"grad_check": grad_check(torch, cfg, params)}
+    free(torch)
+    hp = FedHyper(**MOE_TRAIN_HP)
+    C, B, S = hp.n_clients, hp.batch, hp.seq_len
+    data = fed_data(cfg, C, B, S)
+    res, sim, log, wall, peak = run_checked(torch, cfg, params, hp, data)
+    step_ms = [1e3 * s for s in log["stage1_step"]]
+    report.update({
+        "config": dict(MOE_TRAIN_HP, layers=cfg.n_layers),
+        "wall_s": wall, "peak_bytes": peak, "stage1_step_ms": step_ms,
+        "stage_wall_s": {k: v for k, v in log.items() if k != "rounds"},
+        "train_ce": [h["train_ce"] for h in res.history],
+        "global_acc": res.global_acc, "local_acc": res.local_acc})
+    print(f"moe training {MOE_QWEN} {cfg.n_layers} layers [{GPU}]: "
+          + json.dumps(report))
+    server = sim.server_model
+    own = [client(sim.client_adapters, c) for c in range(C)]
+    tenants = [f"client{c}" for c in range(C)]
+    del res, sim
+    free(torch)
+
+    def store_of(tree, dt):
+        st = AdapterStore(tree, cfg, n_slots=C, kind="dora_mag",
+                          shared=pt.tree_map(lambda t: t.to(dt), server),
+                          device="cuda")
+        for t, ad in zip(tenants, own):
+            st.register(t, pt.filter_tree(
+                pt.tree_map(lambda x: x.to(dt), ad),
+                lambda p: p.endswith("/dB_mag")))
+        return st
+
+    launches = 0
+    # drop-free, f32: the pooled batch against each tenant's merged model
+    cfg32 = dataclasses.replace(drop_free(cfg), dtype="float32")
+    p32 = to_f32(params)
+    store = store_of(p32, torch.float32)
+    prompts = dense_tokens(torch, cfg, C, MOE_SERVE_PROMPT, seed=7).cpu(
+        ).numpy().astype(np.int32)
+    eng = ServeEngine(p32, cfg32, store, max_rows=C,
+                      max_prompt_len=MOE_SERVE_PROMPT,
+                      max_len=MOE_SERVE_PROMPT + MOE_NEW, decode_chunk=CHUNK,
+                      device="cuda")
+    reset_launches()
+    outs, ms, _ = synced(torch, lambda: eng.generate(
+        list(zip(tenants, prompts)), MOE_NEW))
+    n = read_launches()
+    st = eng.last_run
+    check_launches(n, {"bgmv_mag": 2}, cfg.n_layers,
+                   st["prefills"] + st["decode_steps"], "moe serve f32",
+                   f"{st['prefills']} prefills + {st['decode_steps']} decode "
+                   f"steps")
+    launches += n["bgmv_mag"]
+    for c, ad in enumerate(own):
+        merged = greedy_generate(merge_adapters(p32, pt.tree_map(
+            lambda t: t.float(), ad)), {"tokens": prompts[c:c + 1]}, cfg32,
+            MOE_NEW, device="cuda")
+        check(np.array_equal(outs[c], merged[0].cpu().numpy()),
+              f"moe serve f32 drop-free: tenant {tenants[c]}'s {MOE_NEW} "
+              f"tokens through ServeEngine (bgmv_mag) equal its merged "
+              f"model's")
+    report["serve_f32"] = {"tenants": C, "prompt": MOE_SERVE_PROMPT,
+                           "new_tokens": MOE_NEW, "wall_ms": ms,
+                           "capacity_factor": cfg32.capacity_factor}
+    del eng, store, p32
+    free(torch)
+    # the published capacity, bf16: drops make a row depend on its batch,
+    # so the check is that two runs of one request set agree
+    store = store_of(params, torch.bfloat16)
+    rng = np.random.default_rng(9)
+    reqs = [(tenants[i % C] if i % 5 else None,
+             rng.integers(0, cfg.vocab_size,
+                          size=int(rng.integers(16, PAD_W + 1))
+                          ).astype(np.int32)) for i in range(ROWS)]
+    runs = []
+    for _ in range(2):
+        outs, st, n = serve(torch, engine(params, cfg, store), reqs,
+                            "moe serve bf16", expect={"bgmv_mag": 2})
+        launches += n["bgmv_mag"]
+        runs.append(outs)
+    check(all(np.array_equal(a, b) for a, b in zip(*runs)),
+          f"moe serve bf16 at capacity {cfg.capacity_factor}: two runs of "
+          f"{len(reqs)} requests give the same tokens")
+    report["serve_bf16"] = engine_report("moe bf16", st, len(reqs),
+                                         torch.cuda.max_memory_allocated())
+    del store, params
+    free(torch)
+    print(f"moe serve {MOE_QWEN} [{GPU}]: " + json.dumps(
+        {k: report[k] for k in ("serve_f32", "serve_bf16")}))
+    return report, launches
+
+
+def phase_moe(torch):
+    """Phase 14.  Returns the report and the MoE path's launches of
+    flash_attention ((a) and (c)'s timed prefills) and bgmv_mag ((d)'s
+    serving)."""
+    report, flash = {}, {}
+    t0 = time.perf_counter()
+    report[MOE_QWEN], flash[MOE_QWEN] = moe_generate(torch, MOE_QWEN)
+    report["layer"] = moe_layer_check(torch)
+    report[MOE_MIXTRAL], flash[MOE_MIXTRAL] = moe_generate(
+        torch, MOE_MIXTRAL, layers=MIXTRAL_DEPTH)
+    report["training"], n_mag = moe_training(torch)
+    report["flash_launches"] = flash
+    report["wall_s"] = time.perf_counter() - t0
+    print(f"moe [{GPU}]: flash_attention launches on the MoE path "
+          + json.dumps(flash) + f", bgmv_mag {n_mag}; phase wall "
+          f"{report['wall_s']:.1f} s")
+    return report, {"flash_attention": sum(flash.values()), "bgmv_mag": n_mag}
+
+
 # --- phase 12: the production round engine (run after phase 11) ------------
 
 ENGINE_HP = dict(method="fedlora_opt", n_clients=4, local_steps=2, batch=4,
@@ -4325,6 +4694,19 @@ def engine_stage2(group, cfg, settings, params, aggregated, server_batches):
     agg, _, _ = pipe.global_step(params, agg,
                                  pt.tree_map(lambda x: x[None], agg), sb)
     return pt.tree_map(lambda x: x.detach().cpu(), agg)
+
+
+CUT_DEPTH = 8           # layers of full width in phases 8, 10 and 11 (a)
+
+
+def cut_ctx(ctx, layers):
+    """``ctx`` with its backbone (and phase 9's server model, where there)
+    cut to the first ``layers`` superblocks, and the config to match."""
+    out = dict(ctx, cfg=dataclasses.replace(ctx["cfg"], n_layers=layers),
+               params=depth_cut(ctx["params"], layers))
+    if "fleet_server" in ctx:
+        out["fleet_server"] = depth_cut(ctx["fleet_server"], layers)
+    return out
 
 
 def depth_cut(tree, layers, dtype=None):
@@ -4728,7 +5110,8 @@ def main():
         launches["bgmv_mag"] += train_launches
         print(f"phase 7 (training) took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        report["baselines"], baseline_launches = phase_baselines(torch, ctx)
+        report["baselines"], baseline_launches = phase_baselines(
+            torch, cut_ctx(ctx, CUT_DEPTH))
         launches["bgmv"] += baseline_launches
         print(f"phase 8 (baselines) took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
@@ -4742,16 +5125,17 @@ def main():
         workdir.mkdir(parents=True)
         try:
             t0 = time.perf_counter()
+            ctx_cut = cut_ctx(ctx, CUT_DEPTH)     # phase 11 (a) serves it too
             report["persistence"], persist_launches, tier = \
-                phase_persistence(torch, ctx, workdir)
+                phase_persistence(torch, ctx_cut, workdir)
             launches["bgmv_mag"] += sum(persist_launches.values())
             print(f"phase 10 (persistence) took "
                   f"{time.perf_counter() - t0:.1f} s")
             t0 = time.perf_counter()
             report["telemetry"], tel_launches = phase_telemetry(
-                torch, ctx, workdir, tier)
+                torch, ctx_cut, workdir, tier)
             launches["bgmv_mag"] += tel_launches
-            del tier
+            del tier, ctx_cut
             gc.collect()
             torch.cuda.empty_cache()
             print(f"phase 11 (a) (telemetry) took "
@@ -4791,6 +5175,13 @@ def main():
         report["dense"], dense_launches = phase_dense(torch)
         launches["bgmv_mag"] += dense_launches["bgmv_mag"]
         print(f"phase 13 (dense family) took {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        report["moe"], moe_launches = phase_moe(torch)
+        launches["bgmv_mag"] += moe_launches["bgmv_mag"]
+        print(f"phase 14 (mixture of experts) took "
+              f"{time.perf_counter() - t0:.1f} s")
     except CheckFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -4817,7 +5208,8 @@ def main():
                  "launches_phase13_dense_serve": dense_launches["bgmv_mag"],
                  "launches_phase10_flat_serve": persist_launches["flat"],
                  "launches_phase11_telemetry_serve": tel_launches,
-                 "launches_phase12_engine_serve": engine_launches}
+                 "launches_phase12_engine_serve": engine_launches,
+                 "launches_phase14_moe_serve": moe_launches["bgmv_mag"]}
                 if name == "bgmv_mag" else
                 {"launches_phase11_cohort_serve": cohort_launches}),
              **({"launches_phase7_training_serve": train_launches}
@@ -4857,12 +5249,15 @@ def main():
     kernels.append(kernel_entry(
         "flash_attention", f"{kdir}/flash_attention/csrc/flash_attention.cu",
         f"{pallas}/flash_attention/flash_attention.py:87",
-        dense_launches["flash_attention"], fa["prefill"],
+        dense_launches["flash_attention"] + moe_launches["flash_attention"],
+        fa["prefill"],
         "llama2-7b prefill: q, k, v (1, 4096, 32, 128) bf16, causal (phase 6 "
         "runs it with the other configs' shapes); launches: the prefills of "
-        "phase 13 (llama2-7b, qwen3-32b, granite-34b, gemma3-1b at 1 x 4096)",
+        "phase 13 (llama2-7b, qwen3-32b, granite-34b, gemma3-1b at 1 x 4096) "
+        "and phase 14 (qwen3-moe-30b-a3b 1 x 4096, mixtral-8x22b 1 x 8192)",
         {"launches_phase6_standalone": launches_6["flash_attention"],
          "launches_phase13_by_config": report["dense"]["flash_launches"],
+         "launches_phase14_by_config": report["moe"]["flash_launches"],
          "other_shapes": {k: {f: r[f] for f in (
             "q", "k", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "f32_core_bound_ms", "eager_ms", "max_abs_err", "bound_ratio",

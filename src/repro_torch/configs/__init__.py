@@ -13,11 +13,11 @@ import importlib
 from repro_torch.models.config import ArchConfig
 
 ARCH_IDS = ["deepseek-7b", "gemma3-1b", "granite-34b", "llama2-7b",
-            "qwen3-32b"]
+            "mixtral-8x22b", "qwen3-32b", "qwen3-moe-30b-a3b"]
 
 # in the reference registry, waiting for their families (ROADMAP A12)
-_NOT_PORTED = {"jamba-v0.1-52b", "seamless-m4t-large-v2", "qwen3-moe-30b-a3b",
-               "mixtral-8x22b", "mamba2-2.7b", "qwen2-vl-2b"}
+_NOT_PORTED = {"jamba-v0.1-52b", "seamless-m4t-large-v2", "mamba2-2.7b",
+               "qwen2-vl-2b"}
 
 
 def _modname(arch_id: str) -> str:

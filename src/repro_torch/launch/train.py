@@ -62,10 +62,15 @@ rank, and a stage-2 seed forces its replicated path.  ``FedSim`` draws
 its masks client after client from one generator, so the two engines
 agree mask for mask only at ``lora_dropout = 0`` (ROADMAP C).
 
-Not ported: mixture-of-experts configs (ROADMAP A12; the reference's
-``base_manual_specs`` shards expert slots over the data axes, the only
-base leaves it does not replicate).  There is no jit: ``round_step_raw``
-is ``round_step``.
+Mixture of experts: each rank runs ``layers.moe_ffn_local`` on its own
+micro-batch (and on its slice in the sharded stage 2), with the
+capacity from those tokens.  That is what the reference's
+``moe_ffn_manual`` computes: a per-shard grouping, an all-to-all to the
+slots' owners and the same all-to-all back.  The ranks share one
+backbone on one card, so every expert slot is resident on every rank
+and there is no exchange; the reference's ``base_manual_specs`` (slots
+sharded over the data axes) has no counterpart.  There is no jit:
+``round_step_raw`` is ``round_step``.
 """
 from __future__ import annotations
 
@@ -319,10 +324,7 @@ def make_fed_pipeline_step(cfg: ArchConfig, mesh, settings: TrainSettings,
         raise ValueError(
             "use_fused_dora is forward/serving-only (the Pallas kernel "
             "defines no VJP); the train step requires the jnp adapter path")
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "mixture-of-experts configs are not ported yet (ROADMAP A12): "
-            "the production engine runs dense configs")
+    M.check_supported(cfg)
     dev = resolve_device(device)
     group = data_axes(mesh)
     dp = dp_size(mesh)

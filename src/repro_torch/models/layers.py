@@ -403,3 +403,136 @@ def dense_ffn(p: Params, x, cfg, lora_scale: float = 0.0, adapter_idx=None,
                    approximate="tanh").to(y.dtype)
         y = y + a @ p["adapter_up"].to(y.dtype)
     return y
+
+
+# ---------------------------------------------------------------------------
+# MoE FFN: sort + capacity grouped matmul
+# ---------------------------------------------------------------------------
+
+def moe_capacity(cfg, T: int) -> int:
+    """Rows a slot takes from T tokens: ceil(top_k · T · capacity_factor
+    / n_experts), at least 1 and at most T (logical experts, whatever
+    the slot layout)."""
+    C = max(1, int(math.ceil(cfg.top_k * T * cfg.capacity_factor
+                             / cfg.n_experts)))
+    return min(C, T)
+
+
+def moe_router(p: Params, xt, cfg):
+    """(top_i (T, k) int64, top_w (T, k) in xt's dtype, aux 0-d f32).
+
+    Router logits are ``xt @ router`` in xt's dtype, read in f32.  The
+    top-k is a stable descending sort, so equal logits go to the lower
+    expert index first, as ``lax.top_k`` orders them (bf16 logits over
+    128 experts tie often; ``torch.topk`` promises no order).  The
+    weights are a softmax over the top-k.  aux is the Switch load-balance
+    loss E · Σ_e f_e · p_e, with f_e the share of the (logical) top-k
+    picks that went to e and p_e the mean router probability."""
+    logits = (xt @ p["router"]["kernel"].to(xt.dtype)).float()
+    top_i = torch.sort(logits, dim=-1, descending=True,
+                       stable=True).indices[:, :cfg.top_k]
+    top_w = torch.softmax(torch.gather(logits, -1, top_i), dim=-1).to(
+        xt.dtype)
+    probs = torch.softmax(logits, dim=-1)
+    # counts by index_add_ (integers, exact in f32 in any order), not
+    # bincount, which reads its input's max back to the host
+    counts = torch.zeros(cfg.n_experts, dtype=torch.float32,
+                         device=xt.device).index_add_(
+        0, top_i.reshape(-1), torch.ones(top_i.numel(), device=xt.device))
+    f = counts / torch.clamp(counts.sum(), min=1.0)
+    aux = cfg.n_experts * torch.sum(f * probs.mean(0))
+    return top_i, top_w, aux
+
+
+def _group_by_expert(xt, top_i, top_w, E_slots: int, C: int, fsplit: int):
+    """Token grouping → (xg (E_slots·C, D), combine info).
+
+    Tokens routed to logical expert e are duplicated onto the fsplit
+    slots [e·fsplit, (e+1)·fsplit), each a 1/fsplit slice of d_ff; the
+    weight is repeated, not divided (the slices' down-projections are
+    partial sums).  The (token, pick) pairs are sorted by slot, stably
+    (token order within a slot); a pair's place in its slot is its rank
+    there, and pairs past C rows go to a dump row that is dropped."""
+    T, k = top_i.shape
+    dev = xt.device
+    if fsplit > 1:
+        top_i = (top_i[..., None] * fsplit
+                 + torch.arange(fsplit, device=dev)).reshape(T, k * fsplit)
+        top_w = torch.repeat_interleave(top_w, fsplit, dim=-1)
+        k = k * fsplit
+    flat_e = top_i.reshape(-1)
+    flat_t = torch.arange(T, device=dev).repeat_interleave(k)
+    flat_w = top_w.reshape(-1)
+    order = torch.sort(flat_e, stable=True).indices
+    se, st, sw = flat_e[order], flat_t[order], flat_w[order]
+    first = torch.searchsorted(se, se, side="left")
+    pos = torch.arange(T * k, device=dev) - first
+    keep = pos < C
+    dest = torch.where(keep, se * C + pos, E_slots * C)      # dump row
+    xg = xt.new_zeros((E_slots * C + 1, xt.shape[-1]))
+    xg = xg.index_copy(0, dest, xt[st])      # kept rows are distinct
+    return xg[:-1], (order, sw, dest, keep)
+
+
+def _combine_from_expert(yg, combine, T: int):
+    """y (T, D) = Σ over each token's k·fsplit picks of weight · its
+    slot row (0 for a dropped pick).  The sort is undone first, so each
+    token's picks are summed in one fixed order (its top-k order), not
+    by a scatter-add whose order a CUDA atomic leaves open."""
+    order, sw, dest, keep = combine
+    D = yg.shape[-1]
+    yg1 = torch.cat([yg, yg.new_zeros((1, D))], dim=0)
+    vals = yg1[dest] * (sw * keep).to(yg.dtype)[:, None]
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=order.device)
+    return vals[inv].reshape(T, -1, D).sum(dim=1)
+
+
+def _expert_mlp(xg, wg, wu, wd):
+    """SwiGLU per slot: xg (E, C, D); weights (E, D, F) / (E, F, D)."""
+    g = torch.bmm(xg, wg.to(xg.dtype))
+    u = torch.bmm(xg, wu.to(xg.dtype))
+    h = F.silu(g.float()).to(xg.dtype) * u
+    return torch.bmm(h, wd.to(xg.dtype))
+
+
+def moe_ffn_local(p: Params, x, cfg):
+    """Sort + capacity grouped-matmul MoE over x (B, S, D) → (y, aux).
+
+    Expert weights are stored in slot layout (E·fsplit, D, F/fsplit)
+    (``cfg.ep_fsplit``; plain for 1).  Every slot computes its C rows
+    (C from this call's T tokens, ``moe_capacity``), so a token's output
+    depends on the batch whenever capacity drops picks.  The production
+    engine runs it on each rank's own micro-batch: every slot is
+    resident on every rank (one card), which is what the reference's
+    per-shard grouping and all-to-all compute (``moe_ffn_manual``)."""
+    B, S, D = x.shape
+    T = B * S
+    xt = x.reshape(T, D)
+    fsplit = cfg.ep_fsplit
+    E_slots = cfg.n_experts * fsplit
+    C = moe_capacity(cfg, T)
+    top_i, top_w, aux = moe_router(p, xt, cfg)
+    xg, combine = _group_by_expert(xt, top_i, top_w, E_slots, C, fsplit)
+    e = p["experts"]
+    yg = _expert_mlp(xg.reshape(E_slots, C, D), e["gate"], e["up"],
+                     e["down"]).reshape(E_slots * C, D)
+    y = _combine_from_expert(yg, combine, T)
+    return y.reshape(B, S, D), aux
+
+
+def moe_ffn_dense_ref(p: Params, x, cfg):
+    """Oracle: every expert on every token, weighted by the router's
+    top-k (no capacity).  O(E·T·D·F); ep_fsplit 1 only; for tests."""
+    B, S, D = x.shape
+    xt = x.reshape(B * S, D)
+    top_i, top_w, aux = moe_router(p, xt, cfg)
+    e = p["experts"]
+    g = torch.einsum("td,edf->tef", xt, e["gate"].to(xt.dtype))
+    u = torch.einsum("td,edf->tef", xt, e["up"].to(xt.dtype))
+    h = F.silu(g.float()).to(xt.dtype) * u
+    y_all = torch.einsum("tef,efd->ted", h, e["down"].to(xt.dtype))
+    gates = torch.zeros((xt.shape[0], cfg.n_experts), dtype=xt.dtype,
+                        device=xt.device).scatter_add(1, top_i, top_w)
+    y = torch.einsum("ted,te->td", y_all, gates.to(y_all.dtype))
+    return y.reshape(B, S, D), aux

@@ -1,11 +1,15 @@
-"""Dense decoder (port of ``repro/models/model.py``, dense family).
+"""Decoder (port of ``repro/models/model.py``: the dense and MoE
+families).
 
 Layer params are stacked ``(n_superblocks, ...)`` as in the reference;
 the reference's ``lax.scan`` over superblocks is a Python loop over
 ``blocks[...][i]`` views here.  A superblock is ``cfg.pattern()``'s
 sublayers (``sub0``…``sub{P-1}``; gemma3's 5 local + 1 global); layer
 counts the pattern does not divide end in an unstacked ``tail`` that
-runs the pattern's first sublayers.
+runs the pattern's first sublayers.  An MoE sublayer's FFN is
+``layers.moe_ffn_local``; its load-balance aux is summed over the
+sublayers, the stack and the tail, and ``loss_and_metrics`` adds
+``aux_weight · aux`` to the CE.
 
 Entry points:
   init_params(generator, cfg, device=)      → param tree (no adapters)
@@ -36,7 +40,8 @@ def _dtype(cfg):
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise NotImplementedError for what this port does not cover yet."""
-    if cfg.family != "dense" or cfg.n_enc_layers or cfg.frontend:
+    if (cfg.family not in ("dense", "moe") or cfg.n_enc_layers
+            or cfg.frontend):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
                                   f"(ROADMAP A12)")
     if cfg.mrope:
@@ -57,27 +62,31 @@ def _normal(g, shape, scale, dtype, device):
             * scale).to(dtype).to(device)
 
 
-def _init_stack(g, lead, d_in, d_out, scale, dtype, device):
-    """(*lead, d_in, d_out) kernel stack (lead (n,) or ()) drawn layer by
-    layer, so no f32 copy of a whole stack is ever made."""
+def _init_stack(g, lead, shape, scale, dtype, device):
+    """(*lead, *shape) stack (lead (n,) or ()) drawn layer by layer, so
+    no f32 copy of more than one layer's ``shape`` is ever made."""
     if not lead:
-        return _normal(g, (d_in, d_out), scale, dtype, device)
-    w = torch.empty((*lead, d_in, d_out), dtype=dtype, device=device)
+        return _normal(g, shape, scale, dtype, device)
+    w = torch.empty((*lead, *shape), dtype=dtype, device=device)
     for i in range(lead[0]):
-        w[i] = _normal(g, (d_in, d_out), scale, dtype, device)
+        w[i] = _normal(g, shape, scale, dtype, device)
     return w
 
 
-def _init_sublayers(g, cfg: ArchConfig, lead: tuple, dtype, device):
-    """Dense attention sublayers stacked over ``lead`` ((n_sb,) in the
-    stack, () in the tail)."""
+def _init_sublayers(g, cfg: ArchConfig, sub: SubLayer, lead: tuple, dtype,
+                    device):
+    """An attention sublayer with a dense or MoE FFN, stacked over
+    ``lead`` ((n_sb,) in the stack, () in the tail).  MoE: an f32 router
+    (D, E) and expert slots (E·fsplit, D, F/fsplit) / (E·fsplit,
+    F/fsplit, D) in the model dtype."""
     D, Fd = cfg.d_model, cfg.d_ff
     H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     sc = 0.02
     out_sc = 0.02 / math.sqrt(max(2 * cfg.n_layers, 1))
 
     def lin(d_in, d_out, s):
-        return {"kernel": _init_stack(g, lead, d_in, d_out, s, dtype, device)}
+        return {"kernel": _init_stack(g, lead, (d_in, d_out), s, dtype,
+                                      device)}
 
     def ones(d):
         return torch.ones((*lead, d), dtype=torch.float32, device=device)
@@ -86,13 +95,23 @@ def _init_sublayers(g, cfg: ArchConfig, lead: tuple, dtype, device):
             "v_proj": lin(D, K * dh, sc), "o_proj": lin(H * dh, D, out_sc)}
     if cfg.qk_norm:
         attn["q_norm"], attn["k_norm"] = ones(dh), ones(dh)
-    return {
-        "input_norm": ones(D),
-        "attn": attn,
-        "ffn_norm": ones(D),
-        "mlp": {"gate_proj": lin(D, Fd, sc), "up_proj": lin(D, Fd, sc),
-                "down_proj": lin(Fd, D, out_sc)},
-    }
+    p = {"input_norm": ones(D), "attn": attn, "ffn_norm": ones(D)}
+    if sub.ffn == "moe":
+        E, fs = cfg.n_experts * cfg.ep_fsplit, cfg.ep_fsplit
+        p["moe"] = {
+            "router": {"kernel": _init_stack(g, lead, (D, cfg.n_experts), sc,
+                                             torch.float32, device)},
+            "experts": {
+                "gate": _init_stack(g, lead, (E, D, Fd // fs), sc, dtype,
+                                    device),
+                "up": _init_stack(g, lead, (E, D, Fd // fs), sc, dtype,
+                                  device),
+                "down": _init_stack(g, lead, (E, Fd // fs, D), out_sc, dtype,
+                                    device)}}
+    else:
+        p["mlp"] = {"gate_proj": lin(D, Fd, sc), "up_proj": lin(D, Fd, sc),
+                    "down_proj": lin(Fd, D, out_sc)}
+    return p
 
 
 def init_params(generator: torch.Generator, cfg: ArchConfig, *,
@@ -111,11 +130,13 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, *,
                                        0.02, dtype, dev)},
         "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32,
                                  device=dev),
-        "blocks": ({f"sub{i}": _init_sublayers(g, cfg, (n_sb,), dtype, dev)
-                    for i in range(len(pattern))} if n_sb else {}),
+        "blocks": ({f"sub{i}": _init_sublayers(g, cfg, sub, (n_sb,), dtype,
+                                               dev)
+                    for i, sub in enumerate(pattern)} if n_sb else {}),
     }
     if tail:
-        params["tail"] = {f"sub{i}": _init_sublayers(g, cfg, (), dtype, dev)
+        params["tail"] = {f"sub{i}": _init_sublayers(g, cfg, pattern[i], (),
+                                                     dtype, dev)
                           for i in range(tail)}
     if not cfg.tie_embeddings:
         params["lm_head"] = {"kernel": _normal(
@@ -144,24 +165,36 @@ def _apply_sublayer(p, x, sub: SubLayer, cfg, *, positions, cache=None,
         new_cache["attn"] = nc
     x = x + y
     h = L.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    if sub.ffn == "moe":
+        y, aux = L.moe_ffn_local(p["moe"], h, cfg)
+        return x + y, new_cache, aux
     x = x + L.dense_ffn(p["mlp"], h, cfg, lora_scale, adapter_idx=adapter_idx,
                         kernel_impl=kernel_impl)
-    return x, new_cache
+    return x, new_cache, None
+
+
+def _add_aux(total, a):
+    """Running sum of the MoE sublayers' aux (None: none yet)."""
+    if a is None:
+        return total
+    return a if total is None else total + a
 
 
 def _superblock(x, p_sb, cache_sb, pattern, cfg, **kw):
-    new_cache = {}
+    """→ (x, new_cache, aux summed over its MoE sublayers or None)."""
+    new_cache, aux = {}, None
     scale = cfg.lora_alpha / cfg.lora_rank
     for i, sub in enumerate(pattern):
         key = f"sub{i}"
         if key not in p_sb:                   # the tail runs pattern[:tail]
             continue
         c = cache_sb.get(key) if cache_sb else None
-        x, nc = _apply_sublayer(p_sb[key], x, sub, cfg, cache=c,
-                                lora_scale=scale, **kw)
+        x, nc, a = _apply_sublayer(p_sb[key], x, sub, cfg, cache=c,
+                                   lora_scale=scale, **kw)
+        aux = _add_aux(aux, a)
         if nc:
             new_cache[key] = nc
-    return x, new_cache
+    return x, new_cache, aux
 
 
 def _dots_saveable():
@@ -181,29 +214,31 @@ def _remat_superblock(x, p_sb, pattern, cfg, remat, kw):
     restores only the default generators' state, so the recomputation
     rewinds it to where the forward pass started the block (the same
     masks) and puts it back afterwards; after the block it stands where
-    the forward pass left it."""
+    the forward pass left it.  Returns (y, aux): the MoE aux comes out of
+    the checkpointed body too."""
     gen = kw.get("dropout_gen")
     start = gen.get_state() if gen is not None else None
     after = []
 
     def body(h):
         if gen is None:
-            return _superblock(h, p_sb, None, pattern, cfg, **kw)[0]
+            y, _, aux = _superblock(h, p_sb, None, pattern, cfg, **kw)
+            return y, aux
         here = gen.get_state()
         gen.set_state(start)
         try:        # a recomputation may stop early, by an exception
-            y, _ = _superblock(h, p_sb, None, pattern, cfg, **kw)
+            y, _, aux = _superblock(h, p_sb, None, pattern, cfg, **kw)
             if not after:
                 after.append(gen.get_state())
-            return y
+            return y, aux
         finally:
             gen.set_state(here)
 
     extra = {} if remat is True else {"context_fn": _dots_saveable}
-    y = checkpoint(body, x, use_reentrant=False, **extra)
+    y, aux = checkpoint(body, x, use_reentrant=False, **extra)
     if gen is not None:
         gen.set_state(after[0])
-    return y
+    return y, aux
 
 
 def _run_blocks(blocks, tail, x, pattern, cfg, *, positions, cache=None,
@@ -215,7 +250,9 @@ def _run_blocks(blocks, tail, x, pattern, cfg, *, positions, cache=None,
     prefill cache (return_cache) is stacked back to the (n_sb, ...)
     layout, with the tail's beside it.  ``remat`` (True | "dots" |
     False): each superblock, and the tail, under
-    ``torch.utils.checkpoint`` (training only)."""
+    ``torch.utils.checkpoint`` (training only).  Returns (x, cache,
+    aux), aux summed over the MoE sublayers of the stack and the tail (a
+    0-d f32 zero without one)."""
     kw = dict(positions=positions, cache_index=cache_index,
               dropout_gen=dropout_gen, return_cache=return_cache,
               cache_len=cache_len,
@@ -224,15 +261,17 @@ def _run_blocks(blocks, tail, x, pattern, cfg, *, positions, cache=None,
         raise ValueError("remat is for training; it keeps no cache")
     leaves = pt.tree_leaves(blocks)
     n_sb = leaves[0].shape[0] if leaves else 0
-    fresh = []
+    fresh, aux = [], None
     for i in range(n_sb):
         p_sb = pt.tree_map(lambda t: t[i], blocks)
         if remat:
-            x = _remat_superblock(x, p_sb, pattern, cfg, remat, kw)
+            x, a = _remat_superblock(x, p_sb, pattern, cfg, remat, kw)
+            aux = _add_aux(aux, a)
             continue
         c_sb = (pt.tree_map(lambda t: t[i], cache["blocks"])
                 if cache is not None else None)
-        x, nc = _superblock(x, p_sb, c_sb, pattern, cfg, **kw)
+        x, nc, a = _superblock(x, p_sb, c_sb, pattern, cfg, **kw)
+        aux = _add_aux(aux, a)
         fresh.append(nc)
     new_cache = {"blocks": None, "tail": {}}
     if cache is not None:
@@ -243,12 +282,15 @@ def _run_blocks(blocks, tail, x, pattern, cfg, *, positions, cache=None,
                                          for f in fresh]), fresh[0])
     if tail:
         if remat:
-            x = _remat_superblock(x, tail, pattern, cfg, remat, kw)
+            x, a = _remat_superblock(x, tail, pattern, cfg, remat, kw)
         else:
-            x, nc = _superblock(x, tail, cache["tail"] if cache is not None
-                                else None, pattern, cfg, **kw)
+            x, nc, a = _superblock(x, tail, cache["tail"] if cache is not None
+                                   else None, pattern, cfg, **kw)
             new_cache["tail"] = nc
-    return x, new_cache
+        aux = _add_aux(aux, a)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, new_cache, aux
 
 
 def forward(params, batch, cfg: ArchConfig, *, rng=None,
@@ -276,14 +318,14 @@ def forward(params, batch, cfg: ArchConfig, *, rng=None,
     if positions is None:
         positions = torch.arange(S + n_p, device=x.device)[None].expand(
             B, S + n_p)
-    x, cache = _run_blocks(
+    x, cache, aux = _run_blocks(
         params["blocks"], params.get("tail", {}), x, cfg.pattern(), cfg,
         positions=positions, dropout_gen=rng, return_cache=return_cache,
         cache_len=cache_len,
         adapter_idx=batch.get("adapter_idx"), kernel_impl=kernel_impl,
         remat=remat)
     x = L.rms_norm(x[:, n_p:], params["final_norm"], cfg.norm_eps)
-    return x, cache, torch.zeros((), device=x.device)
+    return x, cache, aux
 
 
 def _head_kernel(params, cfg):
@@ -382,7 +424,7 @@ def decode_step(params, new_token, cache, cache_index, cfg: ArchConfig, *,
     else:
         positions = torch.full((B, 1), int(cache_index), dtype=torch.int64,
                                device=x.device)
-    x, new_cache = _run_blocks(
+    x, new_cache, _ = _run_blocks(
         params["blocks"], params.get("tail", {}), x, cfg.pattern(), cfg,
         positions=positions, cache=cache, cache_index=cache_index,
         adapter_idx=adapter_idx)

@@ -60,6 +60,12 @@ TINY = dict(name="t", family="dense", n_layers=1, d_model=32, n_heads=2,
             n_kv_heads=1, d_ff=64, vocab_size=64, dtype="float32",
             lora_rank=4, lora_dropout=0.0)
 CFG = ArchConfig(**TINY)
+# the same at MoE, 4 experts top-2 at the published capacity factor: each
+# rank's capacity comes from its own micro-batch (a stage-2 slice of 16
+# tokens takes 10 rows a slot, FedSim's whole batch 40)
+TINY_MOE = dict(TINY, family="moe", n_experts=4, top_k=2,
+                capacity_factor=1.25)
+CFG_MOE = ArchConfig(**TINY_MOE)
 HP = dict(n_clients=C, local_steps=T, batch=B, seq_len=S, lr=1e-2,
           server_lr=5e-3, global_steps=TG, personal_steps=TP, lam=1e-2)
 TOL = 1e-9
@@ -454,8 +460,13 @@ def test_fed_train_step_rejects_bad_fleets():
     with pytest.raises(ValueError, match="use_fused_dora"):
         make_fed_train_step(dataclasses.replace(CFG, use_fused_dora=True),
                             mesh, TrainSettings(), device="cpu")
+    # MoE configs build (each rank runs moe_ffn_local on its own
+    # micro-batch); the families still to port are refused
+    step_fn, opt_init = make_fed_train_step(CFG_MOE, mesh, TrainSettings(),
+                                            device="cpu")
+    assert callable(step_fn) and callable(opt_init)
     with pytest.raises(NotImplementedError, match="A12"):
-        make_fed_train_step(dataclasses.replace(CFG, n_experts=4), mesh,
+        make_fed_train_step(dataclasses.replace(CFG, family="ssm"), mesh,
                             TrainSettings(), device="cpu")
     custom = FedMethod(name="custom", make_adapter=lambda *a, **k: {},
                        train_mask=lambda t: t, aggregate=lambda t: t)
@@ -651,6 +662,24 @@ for r in range(2):
 put("pipe/ad", na)
 put("pipe/agg", agg)
 
+cfg_moe = ArchConfig(**TINY_MOE)
+msim = FedSim(cfg_moe, FedHyper(method="fedlora_opt", **HP))
+put("moe/base", msim.base)
+put("moe/ad0", msim.client_adapters)
+pipe = make_fed_pipeline_step(cfg_moe, mesh, TrainSettings(**ST_PIPE))
+na, no, step = msim.client_adapters, msim.opt_state, 0
+for r in range(2):
+    out[f"moe/cb{r}"], cb = batch((C, T * B, S))
+    out[f"moe/sb{r}"], sb = batch((TG * 4, S))
+    out[f"moe/pb{r}"], pb = batch((C, TP * B, S))
+    na, no, agg, met = pipe.round_step(msim.base, na, no, jnp.int32(step), cb)
+    out[f"moe/aux{r}"] = np.asarray(met["aux"])
+    agg, na, _ = pipe.global_step(msim.base, agg, na, sb)
+    na, _ = pipe.personal_step(msim.base, na, pb)
+    step += T
+put("moe/ad", na)
+put("moe/agg", agg)
+
 sim = FedSim(cfg, FedHyper(method="lora_fedbuff", **HP), base=sim.base)
 put("fault/ad0", sim.client_adapters)
 step_fn, _ = make_fed_train_step(cfg, mesh, TrainSettings(**ST_FAULT))
@@ -679,7 +708,7 @@ def jax_engines(tmp_path_factory):
         return
     path = str(tmp_path_factory.mktemp("jax") / "engines.npz")
     head = "\n".join([
-        f"TINY = {TINY!r}", f"HP = {HP!r}",
+        f"TINY = {TINY!r}", f"TINY_MOE = {TINY_MOE!r}", f"HP = {HP!r}",
         f"C, T, B, S, TG, TP = {C}, {T}, {B}, {S}, {TG}, {TP}",
         f"ST_PIPE = {settings('fedlora_opt')!r}",
         f"ST_FAULT = {settings('lora_fedbuff')!r}",
@@ -754,6 +783,40 @@ def test_pipeline_matches_the_jax_engine(pool, jax_run):
                if k.startswith("pipe/ad/")}
     want_agg = {k[len("pipe/agg/"):]: v for k, v in jax_run.items()
                 if k.startswith("pipe/agg/")}
+    assert_close_or_witness(R.stack(out[torch.float32]), want_ad,
+                            R.stack(out[torch.float64]), "client adapters")
+    assert_close_or_witness(out[torch.float32][0][2], want_agg,
+                            out[torch.float64][0][2], "server model")
+
+
+def test_moe_pipeline_matches_the_jax_engine(pool, jax_run):
+    """fedlora_opt at MoE (capacity 1.25), 2 iterations with the sharded
+    stage 2, f32 on 4 ranks, each running ``moe_ffn_local`` on its own
+    micro-batch and slice, against the reference's engine on 4 devices,
+    where ``moe_ffn_manual`` groups each shard's tokens at that shard's
+    capacity and exchanges them by all-to-all; the round metrics carry
+    the aux, the shards' mean."""
+    def iters(run, dt):
+        def b(k):
+            tok = torch.as_tensor(run[k].astype(np.int64))
+            return {"tokens": tok, "loss_mask": torch.ones(tok.shape,
+                                                           dtype=dt)}
+        return [(b(f"moe/cb{r}"), b(f"moe/sb{r}"), b(f"moe/pb{r}"))
+                for r in range(2)]
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        out[dt] = pool.run(R.pipeline, CFG_MOE, settings("fedlora_opt"),
+                           tree_of(jax_run, "moe/base", dt),
+                           tree_of(jax_run, "moe/ad0", dt), None,
+                           iters(jax_run, dt))
+    for r in range(2):
+        got = np.mean([res[3][r]["round"]["aux"]
+                       for res in out[torch.float32]])
+        np.testing.assert_allclose(got, jax_run[f"moe/aux{r}"], rtol=1e-5)
+    want_ad = {k[len("moe/ad/"):]: v for k, v in jax_run.items()
+               if k.startswith("moe/ad/")}
+    want_agg = {k[len("moe/agg/"):]: v for k, v in jax_run.items()
+                if k.startswith("moe/agg/")}
     assert_close_or_witness(R.stack(out[torch.float32]), want_ad,
                             R.stack(out[torch.float64]), "client adapters")
     assert_close_or_witness(out[torch.float32][0][2], want_agg,
