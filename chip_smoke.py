@@ -332,6 +332,41 @@ Phase 14 mixture of experts, run after phase 13 (the backbones drawn
          tenant's 16 tokens equal its merged model's; at capacity 1.25
          in bf16 8 requests twice with the same tokens; bgmv_mag 2 x 8 x
          (prefills + decode steps) launches a run.
+Phase 15 SSM and hybrid models, run after phase 14 (the backbones drawn
+         anew, full width, random weights): (a) mamba2-2.7b at all 64
+         layers, bf16 (5.66 GB): greedy_generate over a 1 x 4096 prompt
+         for 1 and 16 tokens (ssd_scan once a layer a prefill through
+         the mixer's kernel branch, never in a decode step), the prefill
+         ms, decode step ms and peak; every ssd_scan output of the first
+         CHECK_DEPTH layers, on that layer's own padded inputs, within
+         ``ssd_scan/ref.py::bf16_bound`` and ``cast_point_interval``;
+         the kernel path against the plain path (``kernel_impl="torch"``)
+         through CHECK_DEPTH layers in bf16 (2e-2) and all 64 in f32
+         (logits within 1e-4, 16 greedy tokens equal); in f32 the cache
+         of a 4095-token prefill and one decode step against a 4096-token
+         prefill's (state and conv states within 1e-4 of max).  (b)
+         jamba-v0.1-52b at 16 of its 32 layers (two superblocks of 1
+         attention + 7 Mamba sublayers, 4 dense and 4 MoE FFNs each; 52.0
+         GB; the cut printed): (a)'s checks in bf16 (ssd_scan 14 and
+         flash_attention 2 launches a prefill; the flash output of the
+         first CHECK_DEPTH layers also within ``bf16_bound_bhsd``), and
+         at 2 layers of full width in f32 (attention + dense, Mamba +
+         MoE) logits within 1e-4 and 16 greedy tokens equal.  (c)
+         mamba2 at 8 layers: the card-vs-CPU gradient check at
+         CHECK_DEPTH layers in f32 (x_proj / out_proj B_mag nonzero),
+         run_federated fedlora_opt under phase 7's stage checks (4
+         clients x 4 x 128 tokens, 1 round of 2 steps, 1 stage-2 and 1
+         stage-3 step): under autograd the plain scan runs, so ssd_scan
+         launches only in the eval forwards (counted); the 4 clients'
+         merged models in f32 through greedy_generate, 16 tokens each
+         equal to the plain path's.  (d) jamba at 2 layers of full width
+         in f32 at the drop-free capacity: two dora_mag tenants with
+         random ΔB_M on q / v served in one batch through
+         greedy_generate with adapter_idx (bgmv_mag 2 x 1 attention
+         layer x 16 launches), each row's tokens equal to its merged
+         model's.  (a) and (b) also profile one prefill (the device's
+         busy ms against the unprofiled wall; the scan's, flash's and
+         the GEMMs' ms).  The phase takes at most 90 s.
 Every run starts with every launch count at 0.  Each path's prefill
 logits, kernels against plain versions, relative to max |logit|: bf16
 weights through the first CHECK_DEPTH layers within 2e-2, f32 weights
@@ -1924,7 +1959,8 @@ def checked_sim(torch, log, hooks=None):
     (also on a copy of the clients whose keep-local leaves are nonzero);
     and each stage's wall time, host clock around work that ends in a
     sync (stage 1 timed step by step, with the process's CPU time beside
-    each step's wall time).  On a mixed-rank fleet each client's
+    each step's wall time), and the kernel launches in each stage
+    (``<stage>_launches``).  On a mixed-rank fleet each client's
     rebroadcast leaf is the aggregate (or its own keep-local leaf) cut
     to its rank (``rank_rows``).  ``hooks``: {"round": fn(sim, batches),
     "aggregate": fn(sim, clients, aggregated), "stage": fn(sim, what)},
@@ -1940,11 +1976,16 @@ def checked_sim(torch, log, hooks=None):
 
     def timed(name, fn):
         torch.cuda.synchronize()
+        n0 = read_launches()
         t0, c0 = time.perf_counter(), time.process_time()
         out = fn()
         torch.cuda.synchronize()
         log.setdefault(name, []).append(time.perf_counter() - t0)
         log.setdefault(name + "_cpu", []).append(time.process_time() - c0)
+        n1 = read_launches()
+        for k in n1:
+            n = log.setdefault(name + "_launches", {})
+            n[k] = n.get(k, 0) + n1[k] - n0[k]
         return out
 
     class CheckedSim(FedSim):
@@ -2138,11 +2179,13 @@ def fed_data(cfg, C, B, S):
     return cds, sds, ev_g, ev_l
 
 
-def run_checked(torch, cfg, params, hp, data, hooks=None):
+def run_checked(torch, cfg, params, hp, data, hooks=None, eval_kernels=()):
     """``run_federated`` on the card through a checking FedSim swapped
     into ``core.fedlora`` for the call, with every launch count at 0
     before it and the peak memory reset; the training path must launch
-    no hand-written kernel.  Returns (result, sim, stage log, wall s,
+    no hand-written kernel: every launch in the call is one of the eval
+    forwards' (no gradient), and of a kernel ``eval_kernels`` names (an
+    SSM model's ssd_scan).  Returns (result, sim, stage log, wall s,
     peak bytes)."""
     from repro_torch.core import fedlora
     log = {}
@@ -2160,9 +2203,14 @@ def run_checked(torch, cfg, params, hp, data, hooks=None):
         fedlora.FedSim = real
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    check_launches(read_launches(), {}, cfg.n_layers, 1,
-                   f"training {hp.method}",
-                   "the training path launches no hand-written kernel")
+    evals = log.get("eval_launches", {})
+    check(all(n == 0 or k in eval_kernels for k, n in evals.items()),
+          f"training {hp.method}: the eval forwards launch only "
+          f"{list(eval_kernels)} ({evals})")
+    for k, n in read_launches().items():
+        check(n == evals.get(k, 0), f"training {hp.method}: {k} launched "
+              f"{n} times, all by the eval forwards ({evals.get(k, 0)}): "
+              f"the training path launches no hand-written kernel")
     hist = res.history
     check(all(np.isfinite([h["train_ce"], h["ce"], h["acc"]]).all()
               for h in hist) and np.isfinite(res.local_acc)
@@ -3930,32 +3978,36 @@ def dense_tokens(torch, cfg, B, S, seed):
 
 
 def flash_vs_plain(torch, label, params, cfg, tokens, tol, greedy=0,
-                   family="dense"):
-    """The prefill's last-row logits with flash_attention against the
-    plain chunked path, relative to max |logit|, within ``tol``; with
-    ``greedy``, also that many greedy tokens equal."""
+                   family="dense", kernels="flash_attention"):
+    """The prefill's last-row logits with the hand-written kernels
+    (``kernels`` names them: flash_attention, and ssd_scan on an SSM
+    path) against the plain path (``kernel_impl="torch"``), relative to
+    max |logit|, within ``tol``; with ``greedy``, also that many greedy
+    tokens equal."""
     from repro_torch.launch.serve import greedy_generate
     err, _ = rel_err(prefill_last(torch, params, cfg, tokens, None),
                      prefill_last(torch, params, cfg, tokens, "torch"))
-    check(err <= tol, f"{family} {label}: prefill logits, flash_attention "
-          f"vs the plain chunked path: {err:.3e} <= {tol} of max |logit|")
+    check(err <= tol, f"{family} {label}: prefill logits, {kernels} "
+          f"vs the plain path: {err:.3e} <= {tol} of max |logit|")
     out = {"logits_rel_err": err}
     if greedy:
         a = greedy_generate(params, {"tokens": tokens}, cfg, greedy,
                             device="cuda").cpu().numpy()
         b = greedy_plain(torch, params, cfg, tokens, greedy).cpu().numpy()
         check(np.array_equal(a, b), f"{family} {label}: {greedy} greedy "
-              f"tokens with flash_attention equal the plain chunked path's")
+              f"tokens with {kernels} equal the plain path's")
         out["greedy_tokens_equal"] = greedy
     return out
 
 
 def dense_generate(torch, label, params, cfg, tokens, n_new,
-                   family="dense"):
+                   family="dense", per_prefill=None):
     """``greedy_generate`` timed twice after a warm-up: for 1 token (the
-    prefill and its argmax) and for ``n_new``; flash_attention must run
-    once a layer in each prefill and nowhere else.  Returns the report
-    and the launches of the two timed runs."""
+    prefill and its argmax) and for ``n_new``; each kernel must launch
+    ``per_prefill[name]`` times in each prefill (default flash_attention
+    once a layer) and nowhere else, so never in a decode step.  Returns
+    the report (with the launches) and flash_attention's launches of the
+    two timed runs."""
     from repro_torch.launch.serve import greedy_generate
     greedy_generate(params, {"tokens": tokens[:, :2048]}, cfg, 2,
                     device="cuda")                          # warm-up
@@ -3965,8 +4017,8 @@ def dense_generate(torch, label, params, cfg, tokens, n_new,
     toks, ms, peak = synced(torch, lambda: greedy_generate(
         params, {"tokens": tokens}, cfg, n_new, device="cuda"))
     launches = read_launches()
-    check_launches(launches, {"flash_attention": 1}, cfg.n_layers, 2,
-                   f"{family} {label}", "2 prefills of greedy_generate")
+    check_launches(launches, per_prefill or {"flash_attention": cfg.n_layers},
+                   1, 2, f"{family} {label}", "2 prefills of greedy_generate")
     toks = toks.cpu().numpy()
     check(toks.shape == (tokens.shape[0], n_new) and toks.min() >= 0
           and toks.max() < cfg.vocab_size
@@ -3978,7 +4030,8 @@ def dense_generate(torch, label, params, cfg, tokens, n_new,
               "decode_step_ms": (ms - ms1) / (n_new - 1),
               "tokens_per_s": tokens.shape[0] * n_new / (ms / 1e3),
               "peak_bytes_above_params": max(peak, peak1),
-              "allocated_bytes": torch.cuda.memory_allocated()}
+              "allocated_bytes": torch.cuda.memory_allocated(),
+              "launches": {k: v for k, v in launches.items() if v}}
     print(f"{family} {label} [{GPU}]: " + json.dumps(report))
     return report, launches["flash_attention"]
 
@@ -4255,12 +4308,13 @@ def drop_free(cfg):
     return dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
 
 
-def flash_within_bound(torch, label, params, cfg, tokens):
+def flash_within_bound(torch, label, params, cfg, tokens, n_attn=None):
     """A bf16 prefill through flash_attention (``forward``, no cache):
     in each layer, the kernel's output for the last MOE_BOUND_ROWS query
     rows of every head, on that layer's own q, k and v, elementwise
     within ``bf16_bound_bhsd`` of the plain attention in f32 on the same
-    values.  Returns the largest |err| / bound."""
+    values; ``n_attn`` such layers (default every layer).  Returns the
+    largest |err| / bound."""
     from repro_torch.kernels.flash_attention.ref import bf16_bound_bhsd
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
@@ -4289,13 +4343,14 @@ def flash_within_bound(torch, label, params, cfg, tokens):
                                      causal=True, window=window,
                                      q_offset=k.shape[1] - q.shape[1])
         ratio = float(((fold(y).float() - ref).abs() / bound).max())
-        check(ratio <= 1.0, f"moe {label} bf16 layer {i}: flash_attention's "
+        check(ratio <= 1.0, f"{label} layer {i}: flash_attention's "
               f"last {q.shape[1]} rows of {q.shape[2]} heads within "
               f"bf16_bound_bhsd (largest |err| / bound {ratio:.3f})")
         worst = max(worst, ratio)
         del ref, bound
-    check(len(seen) == cfg.n_layers, f"moe {label}: one long attention a "
-          f"layer ({len(seen)})")
+    want = cfg.n_layers if n_attn is None else n_attn
+    check(len(seen) == want, f"{label}: one long attention an attention "
+          f"layer ({len(seen)} of {want})")
     return worst
 
 
@@ -4321,7 +4376,7 @@ def moe_generate(torch, arch, layers=None):
     depth = MOE_BF16_DEPTH.get(arch, CHECK_DEPTH)
     cut, ccfg = first_layers(params, cfg, CHECK_DEPTH)
     report["bf16_bound_ratio"] = flash_within_bound(
-        torch, f"{arch} {CHECK_DEPTH} layers", cut, ccfg, tokens)
+        torch, f"moe {arch} {CHECK_DEPTH} layers bf16", cut, ccfg, tokens)
     report["bf16"] = flash_vs_plain(torch, f"{arch} {depth} layers bf16",
                                     *first_layers(params, cfg, depth),
                                     tokens, TOL["bfloat16"], family="moe")
@@ -4551,6 +4606,350 @@ def phase_moe(torch):
           + json.dumps(flash) + f", bgmv_mag {n_mag}; phase wall "
           f"{report['wall_s']:.1f} s")
     return report, {"flash_attention": sum(flash.values()), "bgmv_mag": n_mag}
+
+
+# --- phase 15: SSM and hybrid models (run after phase 14) ------------------
+
+SSM_MAMBA, SSM_JAMBA = "mamba2-2.7b", "jamba-v0.1-52b"
+SSM_NEW = 16            # greedy tokens after each long prefill
+# jamba at full width: 16 of its 32 layers (two superblocks of 1 attention
+# + 7 Mamba sublayers, 4 dense and 4 MoE FFNs each) are 52.0 GB in bf16;
+# all 32 would be 102.9 GB
+JAMBA_DEPTH = 16
+SSM_TRAIN_DEPTH = 8     # mamba2 layers trained and served in (c)
+SSM_TRAIN_HP = dict(method="fedlora_opt", n_clients=4, rounds=1,
+                    local_steps=2, batch=4, seq_len=128, global_steps=1,
+                    personal_steps=1)
+SSM_SERVE_PROMPT = 200  # (c) and (d)'s prompts, padded to 256 in the scan
+SSM_CACHE_TOL = 1e-4    # f32 prefill + decode cache vs one prefill's, of max
+SSM_BUDGET_S = 90       # the phase's wall time
+
+
+def mixer_counts(cfg):
+    """{"attn": n, "ssm": n}: the sublayers of ``cfg``'s n_layers by mixer."""
+    n_sb, tail, pattern = cfg.blocks_layout()
+    subs = pattern * n_sb + pattern[:tail]
+    return {m: sum(s.mixer == m for s in subs) for m in ("attn", "ssm")}
+
+
+def ssd_within_bound(torch, label, params, cfg, tokens):
+    """A bf16 prefill through ``forward`` (no cache): each SSM layer's
+    ssd_scan call (the kernel branch of ``models/ssm._ssd``), on that
+    layer's own padded inputs, elementwise within
+    ``ssd_scan/ref.py::bf16_bound`` of the f32 scan of the same values and
+    inside ``cast_point_interval``.  Returns the largest |err| / bound."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import (bf16_bound,
+                                                  cast_point_interval)
+    from repro_torch.models import model as M
+    seen = []
+    real = ops.ssd_scan
+
+    def spy(x, dt, A_log, B, C, *, chunk, impl):
+        y, st = real(x, dt, A_log, B, C, chunk=chunk, impl=impl)
+        seen.append((x, dt, A_log, B, C, chunk, y))
+        return y, st
+    ops.ssd_scan = spy
+    try:
+        with torch.no_grad():
+            M.forward(params, {"tokens": tokens}, cfg)
+    finally:
+        ops.ssd_scan = real
+    worst = 0.0
+    for i, (x, dt, A_log, B, C, Q, y) in enumerate(seen):
+        ref, bound = bf16_bound(x, dt, A_log, B, C, Q)
+        ratio = float(((y.float() - ref).abs() / bound).max())
+        del ref, bound
+        lo, hi = cast_point_interval(x, dt, A_log, B, C, Q)
+        outside = int(((y < lo) | (y > hi)).sum())
+        del lo, hi
+        check(ratio <= 1.0 and outside == 0, f"{label}: ssd_scan call {i} "
+              f"(x {tuple(x.shape)}, chunk {Q}) within bf16_bound (largest "
+              f"|err| / bound {ratio:.3f}) and cast_point_interval "
+              f"({outside} outside)")
+        worst = max(worst, ratio)
+    n = mixer_counts(cfg)["ssm"]
+    check(len(seen) == n, f"{label}: one ssd_scan an SSM layer "
+          f"({len(seen)} of {n})")
+    return worst
+
+
+def prefill_profile(torch, label, params, cfg, tokens, wall_ms):
+    """One prefill (``greedy_generate`` for 1 token) under torch.profiler:
+    the device's busy ms (its kernels' summed time) against ``wall_ms``,
+    the same prefill's wall time without the profiler, and the ms of the
+    ssd_scan, flash_attention and GEMM kernels and of the rest."""
+    from repro_torch.launch.serve import greedy_generate
+
+    def run():
+        greedy_generate(params, {"tokens": tokens}, cfg, 1, device="cuda")
+        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    by_name, counts = profiled(run)
+    busy = sum(by_name.values())
+
+    def part(*keys):
+        return sum(v for k, v in by_name.items()
+                   if any(key in k.lower() for key in keys))
+    out = {"device_busy_ms": busy, "wall_ms": wall_ms,
+           "busy_share": busy / wall_ms, "kernels": sum(counts.values()),
+           "ssd_scan_ms": part("ssd_"), "flash_attention_ms": part("flash_"),
+           "gemm_ms": part("gemm", "xmma", "cutlass", "nvjet")}
+    out["other_ms"] = busy - sum(out[k] for k in (
+        "ssd_scan_ms", "flash_attention_ms", "gemm_ms"))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out["top_kernels_ms"] = {k[:80]: v for k, v in top}
+    print(f"{label} prefill profile [{GPU}]: " + json.dumps(out))
+    return out
+
+
+def ssm_cache_check(torch, params, cfg, tokens):
+    """The cache after a prefill of all tokens but the last and one decode
+    step of it against one prefill of them all: the SSM state and conv
+    states (and attention k / v) within SSM_CACHE_TOL of each leaf's max
+    (the padded chunk of the shorter prefill, the in-place update)."""
+    from repro_torch.models import model as M
+    from repro_torch.utils import pytree as pt
+    S = tokens.shape[1]
+    with torch.no_grad():
+        _, c1 = M.prefill(params, {"tokens": tokens[:, :-1]}, cfg,
+                          cache_len=S)
+        _, c1 = M.decode_step(params, tokens[:, -1], c1, S - 1, cfg)
+        _, c2 = M.prefill(params, {"tokens": tokens}, cfg, cache_len=S)
+    errs = {p: rel_err(pt.tree_get(c1, p), x)[0]
+            for p, x in pt.tree_leaves_with_path(c2)}
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= SSM_CACHE_TOL, f"ssm {cfg.name} {cfg.n_layers} "
+          f"layers f32: the cache of a {S - 1}-token prefill and a decode "
+          f"step vs a {S}-token prefill's, {len(errs)} leaves within "
+          f"{SSM_CACHE_TOL} of max (worst {worst}: {errs[worst]:.3e})")
+    return {"worst": worst, "worst_rel_err": errs[worst],
+            "leaves": len(errs)}
+
+
+def ssm_generate(torch, arch, layers=None):
+    """(a) / (b): ``arch`` at full width (``layers`` deep), bf16, a 1 x
+    4096 prompt through ``greedy_generate``: ssd_scan once an SSM layer
+    and flash_attention once an attention layer in each prefill, neither
+    in a decode step; every ssd_scan (and flash_attention) output of the
+    first CHECK_DEPTH layers within its bound on its own inputs; the
+    kernels against the plain path (``kernel_impl="torch"``) through
+    CHECK_DEPTH layers in bf16.  mamba2 then in f32 through all its
+    layers: logits within LOGITS_F32_TOL, SSM_NEW greedy tokens equal,
+    and the cache of a 4095-token prefill and a decode step against a
+    4096-token prefill's.  Returns the report, the launches of the timed
+    prefills, and the prompt."""
+    from repro_torch.configs import get_config
+    full = get_config(arch).n_layers
+    if layers and layers < full:
+        print(f"ssm {arch}: full width, depth cut to {layers} of {full} "
+              f"layers ({full} do not fit the card)")
+    cfg, params = dense_model(torch, arch, layers=layers)
+    tokens = dense_tokens(torch, cfg, 1, DENSE_S, seed=8)
+    n = mixer_counts(cfg)
+    report, _ = dense_generate(
+        torch, arch, params, cfg, tokens, SSM_NEW, family="ssm",
+        per_prefill={"ssd_scan": n["ssm"], "flash_attention": n["attn"]})
+    report["full_layers"] = full
+    report["profile"] = prefill_profile(torch, f"ssm {arch}", params, cfg,
+                                        tokens, report["prefill_ms"])
+    cut, ccfg = first_layers(params, cfg, CHECK_DEPTH)
+    label = f"ssm {arch} {CHECK_DEPTH} layers bf16"
+    report["bf16_ssd_bound_ratio"] = ssd_within_bound(torch, label, cut,
+                                                      ccfg, tokens)
+    n_attn = mixer_counts(ccfg)["attn"]
+    if n_attn:
+        report["bf16_flash_bound_ratio"] = flash_within_bound(
+            torch, label, cut, ccfg, tokens, n_attn=n_attn)
+    kernels = "ssd_scan" + (" and flash_attention" if n["attn"] else "")
+    report["bf16"] = flash_vs_plain(
+        torch, f"{arch} {CHECK_DEPTH} layers bf16", cut, ccfg, tokens,
+        TOL["bfloat16"], family="ssm", kernels=kernels)
+    del cut
+    if arch == SSM_MAMBA:
+        p32 = to_f32(params)
+        del params
+        free(torch)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        report["f32"] = flash_vs_plain(
+            torch, f"{arch} {cfg.n_layers} layers f32", p32, cfg32, tokens,
+            LOGITS_F32_TOL, greedy=SSM_NEW, family="ssm", kernels=kernels)
+        report["f32_cache"] = ssm_cache_check(torch, p32, cfg32, tokens)
+        del p32
+    else:
+        del params
+    free(torch)
+    print(f"ssm {arch} checks [{GPU}]: " + json.dumps(
+        {k: v for k, v in report.items() if k.startswith(("bf16", "f32"))}))
+    return report, report["launches"], tokens
+
+
+def ssm_training(torch):
+    """(c) mamba2 at full width and SSM_TRAIN_DEPTH layers, bf16, adapters
+    on x_proj / out_proj: the card-vs-CPU gradient check at CHECK_DEPTH
+    layers in f32 (x_proj's and out_proj's B_mag drawn nonzero); then
+    fedlora_opt through run_federated under phase 7's stage checks (4
+    clients x 4 x 128 tokens, 1 round of 2 steps, 1 stage-2 and 1
+    stage-3 step): under autograd the plain scan runs, so ssd_scan
+    launches only in the eval forwards; then the 4 clients' merged
+    models in f32 through greedy_generate (the kernel path), SSM_NEW
+    tokens each equal to the plain path's.  Returns the report and the
+    ssd_scan launches of the eval forwards and of the serving."""
+    from repro_torch.fed.simulate import FedHyper, client
+    from repro_torch.launch.serve import greedy_generate, merge_adapters
+    from repro_torch.utils import pytree as pt
+    cfg, params = dense_model(torch, SSM_MAMBA, layers=SSM_TRAIN_DEPTH)
+    report = {"grad_check": grad_check(torch, cfg, params)}
+    free(torch)
+    hp = FedHyper(**SSM_TRAIN_HP)
+    C, B, S = hp.n_clients, hp.batch, hp.seq_len
+    data = fed_data(cfg, C, B, S)
+    res, sim, log, wall, peak = run_checked(torch, cfg, params, hp, data,
+                                            eval_kernels=("ssd_scan",))
+    n_eval = log.get("eval_launches", {}).get("ssd_scan", 0)
+    check(n_eval > 0 and n_eval % cfg.n_layers == 0, f"ssm training: the "
+          f"eval forwards launch ssd_scan once a layer ({n_eval})")
+    step_ms = [1e3 * s for s in log["stage1_step"]]
+    report.update({
+        "config": dict(SSM_TRAIN_HP, layers=cfg.n_layers),
+        "wall_s": wall, "peak_bytes": peak, "stage1_step_ms": step_ms,
+        "stage1_step_ms_warm": step_ms[-1],
+        "eval_ssd_scan_launches": n_eval,
+        "stage_launches": {k: v for k, v in log.items()
+                           if k.endswith("_launches")},
+        "stage_wall_s": {k: v for k, v in log.items()
+                         if k != "rounds" and not k.endswith("_launches")},
+        "train_ce": [h["train_ce"] for h in res.history]})
+    print(f"ssm training {SSM_MAMBA} {cfg.n_layers} layers [{GPU}]: "
+          + json.dumps(report))
+    own = [pt.tree_map(lambda t: t.float(), client(sim.client_adapters, c))
+           for c in range(C)]
+    del res, sim
+    p32 = to_f32(params)
+    del params
+    free(torch)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    prompts = dense_tokens(torch, cfg, C, SSM_SERVE_PROMPT, seed=9)
+    n_serve, ms = 0, []
+    for c, ad in enumerate(own):
+        merged = merge_adapters(p32, ad)
+        reset_launches()
+        got, t, _ = synced(torch, lambda: greedy_generate(
+            merged, {"tokens": prompts[c:c + 1]}, cfg32, SSM_NEW,
+            device="cuda"))
+        launches = read_launches()
+        check_launches(launches, {"ssd_scan": cfg.n_layers}, 1, 1,
+                       f"ssm serve client{c}", "1 prefill")
+        n_serve += launches["ssd_scan"]
+        ms.append(t)
+        want = greedy_plain(torch, merged, cfg32, prompts[c:c + 1], SSM_NEW)
+        check(torch.equal(got, want), f"ssm serve f32: client{c}'s merged "
+              f"model's {SSM_NEW} tokens through ssd_scan equal the plain "
+              f"path's")
+    report["serve_f32"] = {"clients": C, "prompt": SSM_SERVE_PROMPT,
+                           "new_tokens": SSM_NEW, "wall_ms": ms,
+                           "ssd_scan_launches": n_serve}
+    print(f"ssm serve {SSM_MAMBA} f32 [{GPU}]: "
+          + json.dumps(report["serve_f32"]))
+    del p32, own
+    free(torch)
+    return report, n_eval, n_serve
+
+
+def jamba_f32(torch, tokens):
+    """(b)'s f32 check and (d): jamba at 2 layers of full width in f32
+    (sublayer 0 attention + dense, sublayer 1 Mamba + MoE): the 1 x 4096
+    prefill's logits with the kernels against the plain path within
+    LOGITS_F32_TOL and SSM_NEW greedy tokens equal; then, at the
+    drop-free capacity (at 1.25 a row's MoE output depends on the rows
+    beside it), two dora_mag tenants with random ΔB_M on q / v in an
+    AdapterStore, served in one batch through greedy_generate with
+    adapter_idx (bgmv_mag 2 targets x 1 attention layer x SSM_NEW
+    passes), each row's tokens equal to its merged model's.  Returns the
+    report and the launches of the pooled run."""
+    from repro_torch.core.peft import add_lora
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.serve import AdapterStore
+    from repro_torch.utils import pytree as pt
+    cfg, params = dense_model(torch, SSM_JAMBA, layers=2, dtype="float32")
+    report = {"f32_2_layers": flash_vs_plain(
+        torch, f"{SSM_JAMBA} 2 layers f32", params, cfg, tokens,
+        LOGITS_F32_TOL, greedy=SSM_NEW, family="ssm",
+        kernels="ssd_scan and flash_attention")}
+    cfg = drop_free(cfg)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    shared = pt.tree_map_with_path(
+        lambda p, x: x + 0.25 if p.endswith("/B_mag") else x,
+        add_lora(params, cfg, g, decomposed=True))
+    store = AdapterStore(params, cfg, n_slots=2, kind="dora_mag",
+                         shared=shared, device="cuda")
+    deltas = [pt.tree_map(lambda x: torch.randn(x.shape, generator=g,
+                                                device="cuda"),
+                          pt.filter_tree(shared,
+                                         lambda p: p.endswith("/dB_mag")))
+              for _ in range(2)]
+    tenants = ["t0", "t1"]
+    for t, d in zip(tenants, deltas):
+        store.register(t, d)
+    slots = torch.tensor([store.slot_of(t) for t in tenants], device="cuda")
+    prompts = dense_tokens(torch, cfg, 2, SSM_SERVE_PROMPT, seed=12)
+    pooled_params = pt.merge_trees(params, store.overlay())
+    reset_launches()
+    pooled, ms, _ = synced(torch, lambda: greedy_generate(
+        pooled_params, {"tokens": prompts}, cfg, SSM_NEW, adapter_idx=slots,
+        device="cuda"))
+    launches = read_launches()
+    n = mixer_counts(cfg)
+    check_launches(launches, {"bgmv_mag": 2 * n["attn"] * SSM_NEW,
+                              "ssd_scan": n["ssm"]}, 1, 1,
+                   "ssm serve jamba tenants", f"1 prefill + {SSM_NEW - 1} "
+                   f"decode steps; bgmv_mag 2 targets x {n['attn']} "
+                   f"attention layer x {SSM_NEW} passes, ssd_scan "
+                   f"{n['ssm']} in the prefill")
+    for i, (t, d) in enumerate(zip(tenants, deltas)):
+        merged = greedy_generate(
+            pt.merge_trees(params, pt.merge_trees(shared, d)),
+            {"tokens": prompts[i:i + 1]}, cfg, SSM_NEW, device="cuda")
+        check(torch.equal(pooled[i:i + 1], merged), f"ssm serve jamba: "
+              f"tenant {t}'s {SSM_NEW} tokens through bgmv_mag equal its "
+              f"merged model's")
+    report["serve"] = {"tenants": 2, "prompt": SSM_SERVE_PROMPT,
+                       "new_tokens": SSM_NEW, "wall_ms": ms,
+                       "capacity_factor": cfg.capacity_factor,
+                       "launches": {k: v for k, v in launches.items() if v}}
+    print(f"ssm jamba 2 layers f32 [{GPU}]: " + json.dumps(report))
+    del params, pooled_params, store, shared
+    free(torch)
+    return report, launches
+
+
+def phase_ssm(torch):
+    """Phase 15.  Returns the report and the SSM path's launches of
+    ssd_scan ((a) and (b)'s timed prefills, (c)'s eval forwards and
+    serving, (d)'s pooled prefill), flash_attention ((b)'s timed
+    prefills) and bgmv_mag ((d)'s pooled run)."""
+    report, prefill = {}, {}
+    t0 = time.perf_counter()
+    report[SSM_MAMBA], prefill[SSM_MAMBA], _ = ssm_generate(torch, SSM_MAMBA)
+    report[SSM_JAMBA], prefill[SSM_JAMBA], tokens = ssm_generate(
+        torch, SSM_JAMBA, layers=JAMBA_DEPTH)
+    report["training"], n_eval, n_serve = ssm_training(torch)
+    report["jamba_f32"], served = jamba_f32(torch, tokens)
+    ssd = {a: prefill[a].get("ssd_scan", 0) for a in prefill}
+    ssd_other = {"training_eval": n_eval, "mamba2_serve": n_serve,
+                 "jamba_serve": served["ssd_scan"]}
+    flash = {a: prefill[a].get("flash_attention", 0) for a in prefill}
+    report["launches"] = {"ssd_scan_prefill": ssd,
+                          "ssd_scan_eval_and_serve": ssd_other,
+                          "flash_attention": flash,
+                          "bgmv_mag": served["bgmv_mag"]}
+    report["wall_s"] = time.perf_counter() - t0
+    print(f"ssm [{GPU}]: launches on the SSM path "
+          + json.dumps(report["launches"]) + f"; phase wall "
+          f"{report['wall_s']:.1f} s")
+    return report, {"ssd_scan": sum(ssd.values()) + sum(ssd_other.values()),
+                    "flash_attention": sum(flash.values()),
+                    "bgmv_mag": served["bgmv_mag"]}
 
 
 # --- phase 12: the production round engine (run after phase 11) ------------
@@ -5182,6 +5581,15 @@ def main():
         launches["bgmv_mag"] += moe_launches["bgmv_mag"]
         print(f"phase 14 (mixture of experts) took "
               f"{time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        report["ssm"], ssm_launches = phase_ssm(torch)
+        launches["bgmv_mag"] += ssm_launches["bgmv_mag"]
+        t_ssm = time.perf_counter() - t0
+        print(f"phase 15 (SSM and hybrid) took {t_ssm:.1f} s")
+        check(t_ssm <= SSM_BUDGET_S, f"phase 15 took {t_ssm:.1f} s <= "
+              f"{SSM_BUDGET_S} s")
     except CheckFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -5209,7 +5617,8 @@ def main():
                  "launches_phase10_flat_serve": persist_launches["flat"],
                  "launches_phase11_telemetry_serve": tel_launches,
                  "launches_phase12_engine_serve": engine_launches,
-                 "launches_phase14_moe_serve": moe_launches["bgmv_mag"]}
+                 "launches_phase14_moe_serve": moe_launches["bgmv_mag"],
+                 "launches_phase15_jamba_serve": ssm_launches["bgmv_mag"]}
                 if name == "bgmv_mag" else
                 {"launches_phase11_cohort_serve": cohort_launches}),
              **({"launches_phase7_training_serve": train_launches}
@@ -5249,15 +5658,19 @@ def main():
     kernels.append(kernel_entry(
         "flash_attention", f"{kdir}/flash_attention/csrc/flash_attention.cu",
         f"{pallas}/flash_attention/flash_attention.py:87",
-        dense_launches["flash_attention"] + moe_launches["flash_attention"],
+        dense_launches["flash_attention"] + moe_launches["flash_attention"]
+        + ssm_launches["flash_attention"],
         fa["prefill"],
         "llama2-7b prefill: q, k, v (1, 4096, 32, 128) bf16, causal (phase 6 "
         "runs it with the other configs' shapes); launches: the prefills of "
-        "phase 13 (llama2-7b, qwen3-32b, granite-34b, gemma3-1b at 1 x 4096) "
-        "and phase 14 (qwen3-moe-30b-a3b 1 x 4096, mixtral-8x22b 1 x 8192)",
+        "phase 13 (llama2-7b, qwen3-32b, granite-34b, gemma3-1b at 1 x "
+        "4096), phase 14 (qwen3-moe-30b-a3b 1 x 4096, mixtral-8x22b 1 x "
+        "8192) and phase 15 (jamba-v0.1-52b's attention layers, 1 x 4096)",
         {"launches_phase6_standalone": launches_6["flash_attention"],
          "launches_phase13_by_config": report["dense"]["flash_launches"],
          "launches_phase14_by_config": report["moe"]["flash_launches"],
+         "launches_phase15_by_config":
+             report["ssm"]["launches"]["flash_attention"],
          "other_shapes": {k: {f: r[f] for f in (
             "q", "k", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "f32_core_bound_ms", "eager_ms", "max_abs_err", "bound_ratio",
@@ -5269,11 +5682,19 @@ def main():
     sd = rows["ssd_scan"]
     kernels.append(kernel_entry(
         "ssd_scan", f"{kdir}/ssd_scan/csrc/ssd_scan.cu",
-        f"{pallas}/ssd_scan/ssd_scan.py:85", launches_6["ssd_scan"],
+        f"{pallas}/ssd_scan/ssd_scan.py:85", ssm_launches["ssd_scan"],
         sd["mamba2 bf16"],
         "mamba2-2.7b: x (1, 4096, 80, 64) bf16, B and C (1, 4096, 1, 128), "
-        "chunk 128; library_ms null: no single PyTorch call computes the scan",
-        {"f32_core_bound_ms": sd["mamba2 bf16"]["f32_core_bound_ms"],
+        "chunk 128; library_ms null: no single PyTorch call computes the "
+        "scan; launches: phase 15's SSM path (the 1 x 4096 prefills of "
+        "mamba2-2.7b and jamba-v0.1-52b, mamba2's eval forwards in "
+        "training and its served clients, jamba's pooled prefill)",
+        {"launches_phase15_ssm_prefill":
+             report["ssm"]["launches"]["ssd_scan_prefill"],
+         "launches_phase15_eval_and_serve":
+             report["ssm"]["launches"]["ssd_scan_eval_and_serve"],
+         "launches_phase6_standalone": launches_6["ssd_scan"],
+         "f32_core_bound_ms": sd["mamba2 bf16"]["f32_core_bound_ms"],
          "variant": sd["mamba2 bf16"]["variant"],
          "blocks": sd["mamba2 bf16"]["blocks"],
          "bound_ratio": sd["mamba2 bf16"]["bound_ratio"],

@@ -12,12 +12,12 @@ import importlib
 
 from repro_torch.models.config import ArchConfig
 
-ARCH_IDS = ["deepseek-7b", "gemma3-1b", "granite-34b", "llama2-7b",
-            "mixtral-8x22b", "qwen3-32b", "qwen3-moe-30b-a3b"]
+ARCH_IDS = ["deepseek-7b", "gemma3-1b", "granite-34b", "jamba-v0.1-52b",
+            "llama2-7b", "mamba2-2.7b", "mixtral-8x22b", "qwen3-32b",
+            "qwen3-moe-30b-a3b"]
 
-# in the reference registry, waiting for their families (ROADMAP A12)
-_NOT_PORTED = {"jamba-v0.1-52b", "seamless-m4t-large-v2", "mamba2-2.7b",
-               "qwen2-vl-2b"}
+# in the reference registry, waiting for their families (ROADMAP A12e)
+_NOT_PORTED = {"seamless-m4t-large-v2", "qwen2-vl-2b"}
 
 
 def _modname(arch_id: str) -> str:
@@ -29,7 +29,7 @@ def _module(arch_id: str):
     if _modname(arch_id) not in known:
         if _modname(arch_id) in {_modname(a) for a in _NOT_PORTED}:
             raise NotImplementedError(
-                f"architecture {arch_id!r} is not ported yet (ROADMAP A12)")
+                f"architecture {arch_id!r} is not ported yet (ROADMAP A12e)")
         raise KeyError(f"unknown architecture {arch_id!r}")
     return importlib.import_module(f"repro_torch.configs.{_modname(arch_id)}")
 

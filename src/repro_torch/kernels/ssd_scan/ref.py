@@ -16,7 +16,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.ssm import _ssd_chunked
+# the module, not the name: models/ssm.py imports models/layers.py, which
+# imports this package, so either may be imported first
+from repro_torch.models import ssm as _ssm
 
 BF16_UNIT = 2.0 ** -8    # bf16's unit roundoff: 8 significant bits
 # an f32 add's relative error: 2^-24 rounding to nearest, 2^-23 for the
@@ -27,7 +29,7 @@ F32_SUM_UNIT = 2.0 ** -23
 def ssd_ref(x, dt, A_log, B, C, chunk: int):
     """x (b,S,H,P); dt (b,S,H); B,C (b,S,G,N) → (y (b,S,H,P) f32,
     final state (b,H,P,N) f32)."""
-    return _ssd_chunked(x, dt, A_log, B, C, chunk)
+    return _ssm._ssd_chunked(x, dt, A_log, B, C, chunk)
 
 
 def ssd_naive(x, dt, A_log, B, C):

@@ -1,1 +1,1 @@
-"""Dense decoder of the port (config, layers, model)."""
+"""Decoder of the port (config, layers, the SSM mixer, model)."""

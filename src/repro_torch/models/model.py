@@ -1,12 +1,15 @@
-"""Decoder (port of ``repro/models/model.py``: the dense and MoE
-families).
+"""Decoder (port of ``repro/models/model.py``: the dense, MoE, SSM and
+hybrid families).
 
 Layer params are stacked ``(n_superblocks, ...)`` as in the reference;
 the reference's ``lax.scan`` over superblocks is a Python loop over
 ``blocks[...][i]`` views here.  A superblock is ``cfg.pattern()``'s
 sublayers (``sub0``…``sub{P-1}``; gemma3's 5 local + 1 global); layer
 counts the pattern does not divide end in an unstacked ``tail`` that
-runs the pattern's first sublayers.  An MoE sublayer's FFN is
+runs the pattern's first sublayers.  A sublayer's mixer is attention
+or the Mamba-2 mixer (``models/ssm.py``; mamba2's pattern is one SSM
+sublayer with no FFN, jamba's 1 attention + 7 SSM sublayers); its FFN
+is dense, MoE or none.  An MoE sublayer's FFN is
 ``layers.moe_ffn_local``; its load-balance aux is summed over the
 sublayers, the stack and the tail, and ``loss_and_metrics`` adds
 ``aux_weight · aux`` to the CE.
@@ -28,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.config import ArchConfig, SubLayer
 from repro_torch.utils import pytree as pt
 
@@ -39,14 +43,15 @@ def _dtype(cfg):
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for what this port does not cover yet."""
-    if (cfg.family not in ("dense", "moe") or cfg.n_enc_layers
-            or cfg.frontend):
+    """Raise NotImplementedError for what this port does not cover yet:
+    encoder-decoder models, the frontends and M-RoPE."""
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
+            or cfg.n_enc_layers or cfg.frontend):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  f"(ROADMAP A12)")
+                                  f"(ROADMAP A12e)")
     if cfg.mrope:
         raise NotImplementedError("M-RoPE attention is not ported yet "
-                                  "(ROADMAP A12)")
+                                  "(ROADMAP A12e)")
 
 
 # ---------------------------------------------------------------------------
@@ -75,10 +80,13 @@ def _init_stack(g, lead, shape, scale, dtype, device):
 
 def _init_sublayers(g, cfg: ArchConfig, sub: SubLayer, lead: tuple, dtype,
                     device):
-    """An attention sublayer with a dense or MoE FFN, stacked over
-    ``lead`` ((n_sb,) in the stack, () in the tail).  MoE: an f32 router
-    (D, E) and expert slots (E·fsplit, D, F/fsplit) / (E·fsplit,
-    F/fsplit, D) in the model dtype."""
+    """An attention or Mamba-2 sublayer with a dense, MoE or no FFN,
+    stacked over ``lead`` ((n_sb,) in the stack, () in the tail).  MoE:
+    an f32 router (D, E) and expert slots (E·fsplit, D, F/fsplit) /
+    (E·fsplit, F/fsplit, D) in the model dtype.  SSM: the projections and
+    the depthwise convs (N(0, 0.1²)) in the model dtype, and the
+    reference's fixed f32 A_log = log(linspace(1, 16, H)), D_skip = 1,
+    dt_bias = −2 and norm_w = 1."""
     D, Fd = cfg.d_model, cfg.d_ff
     H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     sc = 0.02
@@ -88,14 +96,37 @@ def _init_sublayers(g, cfg: ArchConfig, sub: SubLayer, lead: tuple, dtype,
         return {"kernel": _init_stack(g, lead, (d_in, d_out), s, dtype,
                                       device)}
 
-    def ones(d):
-        return torch.ones((*lead, d), dtype=torch.float32, device=device)
+    def fill(values):
+        return values.to(device).expand((*lead, values.shape[0])).clone()
 
-    attn = {"q_proj": lin(D, H * dh, sc), "k_proj": lin(D, K * dh, sc),
-            "v_proj": lin(D, K * dh, sc), "o_proj": lin(H * dh, D, out_sc)}
-    if cfg.qk_norm:
-        attn["q_norm"], attn["k_norm"] = ones(dh), ones(dh)
-    p = {"input_norm": ones(D), "attn": attn, "ffn_norm": ones(D)}
+    def ones(d):
+        return fill(torch.ones(d))
+
+    p = {"input_norm": ones(D)}
+    if sub.mixer == "ssm":
+        Hs = D * cfg.ssm_expand // cfg.ssm_headdim
+        d_inner, GN = Hs * cfg.ssm_headdim, cfg.ssm_groups * cfg.ssm_state
+        k = cfg.ssm_conv
+        p["ssm"] = {
+            "z_proj": lin(D, d_inner, sc), "x_proj": lin(D, d_inner, sc),
+            "B_proj": lin(D, GN, sc), "C_proj": lin(D, GN, sc),
+            "dt_proj": lin(D, Hs, sc),
+            "conv_x": _init_stack(g, lead, (d_inner, k), 0.1, dtype, device),
+            "conv_B": _init_stack(g, lead, (GN, k), 0.1, dtype, device),
+            "conv_C": _init_stack(g, lead, (GN, k), 0.1, dtype, device),
+            "A_log": fill(torch.log(torch.linspace(1.0, 16.0, Hs))),
+            "D_skip": ones(Hs), "dt_bias": fill(torch.full((Hs,), -2.0)),
+            "norm_w": ones(d_inner), "out_proj": lin(d_inner, D, out_sc)}
+    else:
+        p["attn"] = {"q_proj": lin(D, H * dh, sc),
+                     "k_proj": lin(D, K * dh, sc),
+                     "v_proj": lin(D, K * dh, sc),
+                     "o_proj": lin(H * dh, D, out_sc)}
+        if cfg.qk_norm:
+            p["attn"]["q_norm"], p["attn"]["k_norm"] = ones(dh), ones(dh)
+    if sub.ffn == "none":
+        return p
+    p["ffn_norm"] = ones(D)
     if sub.ffn == "moe":
         E, fs = cfg.n_experts * cfg.ep_fsplit, cfg.ep_fsplit
         p["moe"] = {
@@ -152,18 +183,30 @@ def _apply_sublayer(p, x, sub: SubLayer, cfg, *, positions, cache=None,
                     cache_index=None, lora_scale=0.0, dropout_gen=None,
                     return_cache=False, cache_len=0, adapter_idx=None,
                     kernel_impl=None):
+    """One sublayer: its mixer (attention, or the Mamba-2 mixer, to which
+    the reference passes no ``adapter_idx``), then its FFN (dense, MoE or
+    none).  Returns (x, new_cache, aux: the MoE aux, None without one)."""
     new_cache = {}
     h = L.rms_norm(x, p["input_norm"], cfg.norm_eps)
-    acache = cache.get("attn") if cache else None
-    y, nc = L.attention(p["attn"], h, positions, cfg, kind=sub.attn_kind,
-                        cache=acache, cache_index=cache_index,
-                        lora_scale=lora_scale, dropout_gen=dropout_gen,
-                        return_cache=return_cache,
-                        cache_len=cache_len, adapter_idx=adapter_idx,
-                        kernel_impl=kernel_impl)
+    key = "ssm" if sub.mixer == "ssm" else "attn"
+    mcache = cache.get(key) if cache else None
+    if key == "ssm":
+        y, nc = S.mamba2_mixer(p["ssm"], h, cfg, cache=mcache,
+                               lora_scale=lora_scale, dropout_gen=dropout_gen,
+                               return_cache=return_cache,
+                               kernel_impl=kernel_impl)
+    else:
+        y, nc = L.attention(p["attn"], h, positions, cfg, kind=sub.attn_kind,
+                            cache=mcache, cache_index=cache_index,
+                            lora_scale=lora_scale, dropout_gen=dropout_gen,
+                            return_cache=return_cache,
+                            cache_len=cache_len, adapter_idx=adapter_idx,
+                            kernel_impl=kernel_impl)
     if nc is not None:
-        new_cache["attn"] = nc
+        new_cache[key] = nc
     x = x + y
+    if sub.ffn == "none":
+        return x, new_cache, None
     h = L.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
     if sub.ffn == "moe":
         y, aux = L.moe_ffn_local(p["moe"], h, cfg)
@@ -397,16 +440,23 @@ def argmax_first(logits):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *, device="cuda"):
+    """Zero decode caches, per sublayer {"attn": k/v buffers} or {"ssm":
+    state and conv states}, stacked (n_sb, batch, ...) in ``blocks`` and
+    (batch, ...) in ``tail``.  (The reference drops a sublayer with no
+    cache, its cross-attention; every sublayer here has one.)"""
     check_supported(cfg)
     dev = resolve_device(device)
     n_sb, tail, pattern = cfg.blocks_layout()
     dtype = _dtype(cfg)
-    blocks = {f"sub{i}": {"attn": L.init_attn_cache(
-        cfg, (n_sb, batch), seq_len, sub.attn_kind, dtype, dev)}
-        for i, sub in enumerate(pattern)} if n_sb else {}
-    tail_c = {f"sub{i}": {"attn": L.init_attn_cache(
-        cfg, batch, seq_len, pattern[i].attn_kind, dtype, dev)}
-        for i in range(tail)}
+
+    def one(sub, lead):
+        if sub.mixer == "ssm":
+            return {"ssm": S.init_ssm_cache(cfg, lead, dtype, dev)}
+        return {"attn": L.init_attn_cache(cfg, lead, seq_len, sub.attn_kind,
+                                          dtype, dev)}
+    blocks = ({f"sub{i}": one(sub, (n_sb, batch))
+               for i, sub in enumerate(pattern)} if n_sb else {})
+    tail_c = {f"sub{i}": one(pattern[i], batch) for i in range(tail)}
     return {"blocks": blocks, "tail": tail_c}
 
 

@@ -1,21 +1,64 @@
-"""Mamba-2 SSD forward, the chunked (state-space duality) form.
+"""Mamba-2 (SSD, state-space duality) mixer: port of
+``repro/models/ssm.py``.
 
-Port of ``repro/models/ssm.py::_ssd_chunked`` only: the plain version
-that ``kernels/ssd_scan/ref.py::ssd_ref`` holds the CUDA scan against.
-``_causal_conv`` and ``mamba2_mixer`` wait for ROADMAP A12 (the SSM
-family).
+Separate projections instead of mamba_ssm's fused in_proj, as the
+reference's (the depthwise convs over concat(x, B, C) factor into one
+conv a segment):
 
-Cast points are the reference's: B, C, x·dt, the Q×Q decay and the
-per-step segment decay in x's dtype (``cdt``); the log-decay, its
-cumulative sum and every product's accumulation in f32 (the cumulative
-sum is accumulated in f64 and rounded once to f32).  The reference
-carries the state across chunks with a log-depth ``associative_scan``;
-here a loop over chunks computes the same recurrence
-S_c = exp(l_Q)·S_{c−1} + states_c, with its sums in another order.
+  z_proj (D, d_inner)   gate
+  x_proj (D, d_inner)   the adapters' "in" projection
+  B_proj (D, G*N)   C_proj (D, G*N)   dt_proj (D, H)
+  conv_x (d_inner, k)  conv_B (G*N, k)  conv_C (G*N, k)   [depthwise causal]
+  A_log (H,)  D_skip (H,)  dt_bias (H,)  norm_w (d_inner,)
+  out_proj (d_inner, D)
+
+with d_inner = expand*D, H = d_inner/headdim heads, G groups, N state dim.
+
+A prefill runs the chunked scan (``_ssd`` below): without a gradient on
+a CUDA tensor through the ``ssd_scan`` kernel, else through the plain
+``_ssd_chunked``; a decode step runs the one-token recurrence on the
+cache, written in place (the port's convention for every decode cache).
+
+``_ssd_chunked``'s cast points are the reference's: B, C, x·dt, the Q×Q
+decay and the per-step segment decay in x's dtype (``cdt``); the
+log-decay, its cumulative sum and every product's accumulation in f32
+(the cumulative sum is accumulated in f64 and rounded once to f32).  The
+reference carries the state across chunks with a log-depth
+``associative_scan``; here a loop over chunks computes the same
+recurrence S_c = exp(l_Q)·S_{c−1} + states_c, with its sums in another
+order.
 """
 from __future__ import annotations
 
+from typing import Any, Optional
+
 import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels._wrap import resolve_impl
+# the module, not its names: models/layers.py imports the kernels
+# package, whose ssd_scan/ref.py imports this module
+from repro_torch.models import layers as L
+
+Params = Any
+
+
+def _causal_conv(x, w, state=None):
+    """Depthwise causal conv.  x: (B, S, C); w: (C, k); state: (B, k−1, C)
+    trailing context (decode) or None (zero padding).  The k shifted
+    products are summed in f32 (no (B, S, k, C) gather) and the result
+    is cast to x's dtype.  Returns (y, new_state), new_state the padded
+    input's trailing k − 1 rows (a copy, not a view of it)."""
+    B, S, C = x.shape
+    k = w.shape[-1]
+    pad = (x.new_zeros((B, k - 1, C)) if state is None
+           else state.to(x.dtype))
+    xp = torch.cat([pad, x], dim=1)                      # (B, S+k-1, C)
+    wf = w.float()
+    y = torch.zeros((B, S, C), dtype=torch.float32, device=x.device)
+    for j in range(k):
+        y = y + xp[:, j:j + S].float() * wf[:, j]
+    return y.to(x.dtype), xp[:, S:].clone()
 
 
 def _ssd_chunked(x, dt, A_log, B, C, chunk: int):
@@ -73,3 +116,148 @@ def _ssd_chunked(x, dt, A_log, B, C, chunk: int):
                            torch.exp(ld), s_in)
     y = (y_intra + y_inter).reshape(b, S, H, Pd)
     return y, s.transpose(2, 3)                             # (b,H,P,N)
+
+
+def _ssd(x, dt, A_log, B, C, chunk: int, kernel_impl=None):
+    """A prefill's scan at the reference's chunk Q = min(chunk, S), over S
+    zero-padded to a multiple of Q (a padded row, x = 0 and dt = 0, adds
+    nothing to the state and does not decay it, so the final state is
+    the unpadded run's).  Returns (y (b, S, H, P), final state (b, H, P,
+    N) f32).
+
+    Without a gradient, ``ssd_scan``'s CUDA kernel runs it: kernel_impl
+    None launches it for a CUDA tensor, "cuda" launches it or raises.
+    Its y comes back rounded to x's dtype, where ``_ssd_chunked``'s is
+    f32: the mixer then adds D_skip·x in f32 to either, so in bf16 the
+    kernel path rounds y once more than the plain path (one bf16 ulp of
+    |y|, on top of the kernel's own ``bf16_bound``).  The kernel defines
+    no backward (as the reference's defines no VJP), so under autograd
+    the plain ``_ssd_chunked`` runs and "cuda" raises; on a CPU tensor,
+    or with kernel_impl "torch", it runs too."""
+    grad = L._needs_grad(x, dt, A_log, B, C)
+    if grad and kernel_impl == "cuda":
+        raise ValueError("ssd_scan defines no backward: training takes the "
+                         "plain _ssd_chunked (kernel_impl None or 'torch')")
+    S = x.shape[1]
+    Q = min(chunk, S)
+    pad = -S % Q
+    if pad:
+        x, dt, B, C = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                       for t in (x, dt, B, C))
+    if not grad and resolve_impl(kernel_impl, x, "ssd_scan") == "cuda":
+        # imported here: ssd_scan/ref.py imports this module
+        from repro_torch.kernels.ssd_scan import ops
+        y, st = ops.ssd_scan(x, dt, A_log, B, C, chunk=Q, impl="cuda")
+    else:
+        y, st = _ssd_chunked(x, dt, A_log, B, C, Q)
+    return y[:, :S], st
+
+
+def _recurrent_step(cache, xh, dt, A_log, Bh, Ch):
+    """One token of the recurrence in f32: state ← exp(−exp(A_log)·dt)·
+    state + (x·dt) Bᵀ, y = state·C.  xh (B, 1, H, P), dt (B, 1, H) f32,
+    Bh / Ch (B, 1, G, N).  Writes the state back into ``cache["state"]``
+    in place, in the cache's dtype (as the reference stores it).
+    Returns y (B, 1, H, P) f32."""
+    f32 = torch.float32
+    H, G = xh.shape[2], Bh.shape[2]
+    rep = H // G
+    st = cache["state"].to(f32)                                   # (B,H,P,N)
+    af = torch.exp(-torch.exp(A_log.to(f32)) * dt[:, 0])          # (B,H)
+    Bt = Bh[:, 0].repeat_interleave(rep, dim=1).to(f32)           # (B,H,N)
+    Ct = Ch[:, 0].repeat_interleave(rep, dim=1).to(f32)
+    xt = xh[:, 0].to(f32) * dt[:, 0][..., None]                   # (B,H,P)
+    st = af[..., None, None] * st + torch.einsum("bhp,bhn->bhpn", xt, Bt)
+    cache["state"].copy_(st)
+    return torch.einsum("bhpn,bhn->bhp", st, Ct)[:, None]
+
+
+def _refuse_pooled(p: Params) -> None:
+    """The reference's mixer passes no ``adapter_idx`` to its projections,
+    and its ``linear`` adds nothing for pooled leaves without ``A_dir``
+    or ``lora_A``: a pooled tree there serves the bare projection to
+    every tenant.  The port refuses it (ROADMAP C)."""
+    for name in ("x_proj", "out_proj"):
+        if L._has_pooled(p[name]):
+            raise ValueError(
+                f"mamba2_mixer: {name} carries pooled adapter leaves, but "
+                f"the SSM mixer takes no per-row adapters (the reference "
+                f"would serve every tenant the bare projection); serve "
+                f"merged per-tenant models instead (merge_adapters + "
+                f"greedy_generate)")
+
+
+def mamba2_mixer(p: Params, x, cfg, *, cache: Optional[dict] = None,
+                 lora_scale: float = 0.0, dropout_gen=None,
+                 return_cache: bool = False, kernel_impl=None):
+    """The Mamba-2 block body (the pre-norm is the caller's).  Returns
+    (y (B, S, D), cache).
+
+    Adapters attach to x_proj (the "in" projection, with adapter dropout
+    from ``dropout_gen`` at cfg.lora_dropout) and out_proj when
+    cfg.lora_targets name them.  Without a cache the sequence runs
+    through ``_ssd`` (``kernel_impl`` as there); ``return_cache`` returns
+    the final state in x's dtype and the three convs' trailing k − 1
+    rows.  With a cache (one token: decode) the state and the conv states
+    are written into it in place and the same dict is returned."""
+    _refuse_pooled(p)
+    f32 = torch.float32
+    B, S, D = x.shape
+    H = cfg.d_model * cfg.ssm_expand // cfg.ssm_headdim
+    Pd, G, N = cfg.ssm_headdim, cfg.ssm_groups, cfg.ssm_state
+    tgt = cfg.lora_targets
+    z = L.linear(p["z_proj"], x)
+    xi = L.linear(p["x_proj"], x,
+                  lora_scale=(lora_scale if "x_proj" in tgt
+                              or "in_proj" in tgt else 0.0),
+                  dropout_gen=dropout_gen, dropout=cfg.lora_dropout)
+    Bv = L.linear(p["B_proj"], x)
+    Cv = L.linear(p["C_proj"], x)
+    dt = L.linear(p["dt_proj"], x)
+
+    names = ("conv_x", "conv_B", "conv_C")
+    convs = [_causal_conv(t, p[n], None if cache is None else cache[n])
+             for t, n in zip((xi, Bv, Cv), names)]
+    xi, Bv, Cv = (F.silu(y.to(f32)).to(x.dtype) for y, _ in convs)
+    dt = F.softplus(dt.to(f32) + p["dt_bias"].to(f32))            # (B,S,H)
+    xh = xi.reshape(B, S, H, Pd)
+    Bh = Bv.reshape(B, S, G, N)
+    Ch = Cv.reshape(B, S, G, N)
+
+    if cache is None:
+        y, st = _ssd(xh, dt, p["A_log"], Bh, Ch, cfg.ssm_chunk, kernel_impl)
+        new_cache = None
+        if return_cache:
+            new_cache = {"state": st.to(x.dtype),
+                         **{n: s for n, (_, s) in zip(names, convs)}}
+    else:
+        y = _recurrent_step(cache, xh, dt, p["A_log"], Bh, Ch)
+        for n, (_, s) in zip(names, convs):
+            cache[n].copy_(s)
+        new_cache = cache
+
+    y = y.to(f32) + p["D_skip"].to(f32)[None, None, :, None] * xh.to(f32)
+    y = y.reshape(B, S, H * Pd).to(x.dtype)
+    # gated RMSNorm (mamba2): norm(y * silu(z)) * w
+    y = y * F.silu(z.to(f32)).to(x.dtype)
+    y = L.rms_norm(y, p["norm_w"], cfg.norm_eps)
+    y = L.linear(p["out_proj"], y,
+                 lora_scale=lora_scale if "out_proj" in tgt else 0.0)
+    return y, new_cache
+
+
+def init_ssm_cache(cfg, batch, dtype, device):
+    """Zero state (*lead, H, P, N) and conv states (*lead, k−1, d_inner) /
+    (*lead, k−1, G·N) in ``dtype``; ``batch`` is an int or a tuple of
+    leading dims (the stacked superblock axis first), as
+    ``layers.init_attn_cache`` takes it."""
+    H = cfg.d_model * cfg.ssm_expand // cfg.ssm_headdim
+    lead = (batch,) if isinstance(batch, int) else tuple(batch)
+    GN = cfg.ssm_groups * cfg.ssm_state
+    k = cfg.ssm_conv
+
+    def z(*shape):
+        return torch.zeros((*lead, *shape), dtype=dtype, device=device)
+    return {"state": z(H, cfg.ssm_headdim, cfg.ssm_state),
+            "conv_x": z(k - 1, H * cfg.ssm_headdim),
+            "conv_B": z(k - 1, GN), "conv_C": z(k - 1, GN)}

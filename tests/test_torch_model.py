@@ -95,7 +95,8 @@ def _layer0_t(tree):
 
 @pytest.mark.parametrize("arch", ["llama2-7b", "deepseek-7b", "granite-34b",
                                   "qwen3-32b", "gemma3-1b",
-                                  "qwen3-moe-30b-a3b", "mixtral-8x22b"])
+                                  "qwen3-moe-30b-a3b", "mixtral-8x22b",
+                                  "mamba2-2.7b", "jamba-v0.1-52b"])
 def test_configs_equal_the_reference(arch):
     from repro.configs import get_config as j_get, get_smoke_config as j_smoke
     assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(j_get(arch))
@@ -110,7 +111,7 @@ def test_configs_equal_the_reference(arch):
 
 def test_unported_architectures_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="A12"):
-        get_config("mamba2-2.7b")
+        get_config("qwen2-vl-2b")
     with pytest.raises(KeyError):
         get_config("no-such-model")
 
@@ -382,11 +383,12 @@ def test_entry_points_default_to_the_card():
 
 
 # qk-norm, sliding windows and local/global layers (tests/
-# test_torch_dense_attention.py) and MoE (tests/test_torch_moe.py) are
-# ported; what is still refused:
+# test_torch_dense_attention.py), MoE (tests/test_torch_moe.py) and the
+# SSM and hybrid families (tests/test_torch_ssm.py) are ported; what is
+# still refused:
 @pytest.mark.parametrize("change,item", [
     (dict(mrope=True), "A12"), (dict(frontend="vision"), "A12"),
-    (dict(n_enc_layers=2), "A12"), (dict(family="ssm"), "A12"),
+    (dict(n_enc_layers=2), "A12"), (dict(family="vlm"), "A12"),
 ])
 def test_unported_features_raise_not_implemented(change, item):
     cfg = dataclasses.replace(T_SMOKE, **change)

@@ -13,7 +13,9 @@ Against the port's ``FedSim``, in f64 (backbone and adapters), so that
 AdamW's eps regime cannot hide a wrong collective: every client leaf and
 every leaf of the server model within 1e-9 of the leaf's max |value|
 (``lora_exact``: the products A·B of each pair; its factors are fixed up
-to a sign per rank column).  Measured: 0 on every leaf of every case
+to a sign per rank column).  One ``fedlora_opt`` pipeline runs at
+jamba-v0.1-52b's SMOKE config instead (the hybrid family: attention,
+Mamba and MoE sublayers).  Measured: 0 on every leaf of every case
 but two kinds, each held at its own stated tolerance: the weighted
 fleets (TOL_WEIGHTED: FedSim normalizes the weights in f32) and the
 sharded stage 2 over ragged loss masks (TOL_RAGGED: the CE runs in f32).
@@ -41,6 +43,7 @@ import pytest
 import torch
 
 import torch_engine_ranks as R
+from repro_torch.configs import get_smoke_config
 from repro_torch.core import aggregation as agg
 from repro_torch.core import peft
 from repro_torch.core.methods import FedMethod, available_methods, get_method
@@ -66,6 +69,9 @@ CFG = ArchConfig(**TINY)
 TINY_MOE = dict(TINY, family="moe", n_experts=4, top_k=2,
                 capacity_factor=1.25)
 CFG_MOE = ArchConfig(**TINY_MOE)
+# jamba's SMOKE config, the hybrid family: 2 layers of d 256, vocab 512
+CFG_JAMBA = dataclasses.replace(get_smoke_config("jamba-v0.1-52b"),
+                                lora_dropout=0.0)
 HP = dict(n_clients=C, local_steps=T, batch=B, seq_len=S, lr=1e-2,
           server_lr=5e-3, global_steps=TG, personal_steps=TP, lam=1e-2)
 TOL = 1e-9
@@ -111,11 +117,11 @@ def settings(name, **kw):
                 global_steps=TG, personal_steps=TP, lam=HP["lam"], **kw)
 
 
-def sim64(name, **kw):
+def sim64(name, cfg=CFG, **kw):
     """The port's FedSim on the CPU with its backbone, adapters and
     optimizer state in f64."""
-    base = M.init_params(torch.Generator().manual_seed(0), CFG, device="cpu")
-    sim = FedSim(CFG, FedHyper(method=name, **HP, **kw),
+    base = M.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    sim = FedSim(cfg, FedHyper(method=name, **HP, **kw),
                  base=pt.tree_map(torch.Tensor.double, base), device="cpu")
     sim.client_adapters = pt.tree_map(torch.Tensor.double,
                                       sim.client_adapters)
@@ -194,16 +200,16 @@ def run_rounds(pool, name, *, ranks=None, weights=None, micro=1):
 
 
 def run_pipeline(pool, name, *, ranks=None, weights=None, server_rows=B,
-                 ragged=False):
+                 ragged=False, cfg=CFG):
     kw = dict(prox_mu=prox(name), client_ranks=ranks, client_weights=weights)
-    sim, rng = sim64(name, **kw), data(name)
+    sim, rng = sim64(name, cfg, **kw), data(name)
     iters = []
     for _ in range(ROUNDS):
         cb = client_batches(rng)
         sb = server_batches(rng, server_rows, ragged)
         pb = client_batches(rng, TP)
         iters.append((cb, sb, pb))
-    res = pool.run(R.pipeline, CFG, settings(name, **kw), sim.base,
+    res = pool.run(R.pipeline, cfg, settings(name, **kw), sim.base,
                    sim.client_adapters, sim.opt_state,
                    [(cat(cb, 1), cat(sb, 0), cat(pb, 1))
                     for cb, sb, pb in iters])
@@ -308,6 +314,14 @@ HET_CASES = (("fedlora_opt", (1, 2, 3, 4), None),
                          ids=[c[0] for c in HET_CASES])
 def test_pipeline_parity_het_and_weighted_fleets(pool, name, ranks, weights):
     run_pipeline(pool, name, ranks=ranks, weights=weights)
+
+
+def test_hybrid_pipeline_parity(pool):
+    """fedlora_opt at jamba's SMOKE config (an attention + dense and a
+    Mamba + MoE sublayer; adapters on q / v): each rank runs the plain
+    scan under autograd and ``moe_ffn_local`` on its own micro-batch
+    (capacity 8: nothing dropped), two iterations == FedSim's."""
+    run_pipeline(pool, "fedlora_opt", cfg=CFG_JAMBA)
 
 
 @pytest.mark.parametrize("name", ("lora", "fedlora_opt"))
@@ -466,7 +480,7 @@ def test_fed_train_step_rejects_bad_fleets():
                                             device="cpu")
     assert callable(step_fn) and callable(opt_init)
     with pytest.raises(NotImplementedError, match="A12"):
-        make_fed_train_step(dataclasses.replace(CFG, family="ssm"), mesh,
+        make_fed_train_step(dataclasses.replace(CFG, family="vlm"), mesh,
                             TrainSettings(), device="cpu")
     custom = FedMethod(name="custom", make_adapter=lambda *a, **k: {},
                        train_mask=lambda t: t, aggregate=lambda t: t)
