@@ -367,6 +367,35 @@ Phase 15 SSM and hybrid models, run after phase 14 (the backbones drawn
          model's.  (a) and (b) also profile one prefill (the device's
          busy ms against the unprofiled wall; the scan's, flash's and
          the GEMMs' ms).  The phase takes at most 90 s.
+Phase 16 vision-language and encoder-decoder models, run after phase 15
+         (full width, full depth, random weights): (a) qwen2-vl-2b, 28
+         layers, bf16: greedy_generate over 1 x (1024 patch embeddings +
+         3072 tokens) with 3-section M-RoPE positions (the patches a 32 x
+         32 grid at t = 0, the text from 32 on) for 1 and 16 tokens
+         (flash_attention once a layer a prefill, causal), the prefill
+         ms, decode step ms and peak; (b) seamless-m4t-large-v2, 24 + 24
+         layers, bf16: 1 x 4096 frames into the encoder and 1 x 2048
+         tokens into the decoder, 16 greedy tokens with the encoder's
+         output in every decode step (flash 72 launches a prefill: the
+         non-causal encoder 24, the causal self-attention 24, the
+         non-causal cross-attention of 2048 over 4096 24).  Each: the
+         flash output of the first CHECK_DEPTH layers within
+         ``bf16_bound_bhsd`` of its own mask, the kernels against the
+         plain path through CHECK_DEPTH layers in bf16 (2e-2) and through
+         every layer in f32 (1e-4); seamless's f32 decode step (with
+         enc_out) against its full forward's last row (1e-4).  (c) each
+         at 4 layers (seamless 4 + 4) in f32: the card-vs-CPU gradient
+         check at CHECK_DEPTH layers with frontend_emb in the batch, one
+         fedlora_opt pipeline round through FedSim (4 clients x 2 rows
+         of 128 patches / frames + 128 tokens; 2 stage-1 steps, 1
+         stage-2, 1 stage-3), each stage timed, every stage's leaves
+         moved (seamless's encoder's in stage 1), no kernel launched.
+         (d) at 2 layers, f32: qwen2-vl's clients 0 and 1 as dora_mag
+         tenants in one batch through greedy_generate with adapter_idx
+         (bgmv_mag 2 x 2 x 16 launches), each row's tokens equal to its
+         merged model's; seamless's pooled tree refused (its encoder
+         takes no per-row adapters), a tenant served merged.  (a) and
+         (b) also profile one prefill.  The phase takes at most 90 s.
 Every run starts with every launch count at 0.  Each path's prefill
 logits, kernels against plain versions, relative to max |logit|: bf16
 weights through the first CHECK_DEPTH layers within 2e-2, f32 weights
@@ -407,6 +436,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -1845,25 +1875,33 @@ GRAD_TOL = 1e-4         # card vs CPU, relative to each leaf's max |g|
 
 
 def grad_check(torch, cfg, params, method="fedlora_opt", nonzero="/B_mag",
-               scale=0.5):
+               scale=0.5, extra=None):
     """One stage-1 step's loss and gradients of every adapter leaf of
     ``method`` on the card against the CPU's: the first CHECK_DEPTH
-    layers of the backbone cast to f32, one client, 1 x 64 tokens of the
-    dolly data, dropout 0, the zero-initialized leaves ending in
-    ``nonzero`` drawn N(0, scale²) (so every leaf has a gradient), TF32
-    off."""
+    layers of the backbone (and of an encoder) cast to f32, one client,
+    1 x 64 tokens of the dolly data (with ``extra``'s numpy arrays in the
+    batch beside them: a frontend's embeddings), dropout 0, the
+    zero-initialized leaves ending in ``nonzero`` drawn N(0, scale²) (so
+    every leaf has a gradient), TF32 off."""
     from repro_torch.data import (SyntheticInstructionDataset, to_device,
                                   make_dataset_family, specialist_partition)
     from repro_torch.fed.simulate import FedHyper, FedSim
     from repro_torch.utils import pytree as pt
 
     cfg2 = dataclasses.replace(cfg, n_layers=CHECK_DEPTH, dtype="float32",
+                               n_enc_layers=min(cfg.n_enc_layers,
+                                                CHECK_DEPTH),
                                lora_dropout=0.0)
-    base = to_f32(dict(params, blocks=pt.tree_map(
-        lambda t: t[:CHECK_DEPTH], params["blocks"])))
+    base = dict(params, blocks=pt.tree_map(lambda t: t[:CHECK_DEPTH],
+                                           params["blocks"]))
+    if "encoder" in params:
+        base["encoder"] = dict(params["encoder"], blocks=pt.tree_map(
+            lambda t: t[:CHECK_DEPTH], params["encoder"]["blocks"]))
+    base = to_f32(base)
     fam = make_dataset_family("dolly", vocab_size=cfg.vocab_size)
     ds = SyntheticInstructionDataset(fam, specialist_partition(1, 4)[0])
-    batch = ds.sample_batch(np.random.default_rng(1), 1, 64)
+    batch = dict(ds.sample_batch(np.random.default_rng(1), 1, 64),
+                 **(extra or {}))
     hp = FedHyper(method=method, n_clients=1)
     sims = {dev: FedSim(cfg2, hp, base=pt.tree_map(lambda t: t.to(dev), base),
                         device=dev) for dev in ("cuda", "cpu")}
@@ -3894,13 +3932,16 @@ DENSE_SERVE_PROMPT = 64
 
 
 def dense_model(torch, arch, layers=None, dtype=None, seed=0):
-    """``arch``'s config (at ``layers``, in ``dtype`` when given, dropout
-    0) and its random backbone from a seeded generator on the card."""
+    """``arch``'s config (at ``layers``, an encoder's too, in ``dtype``
+    when given, dropout 0) and its random backbone from a seeded
+    generator on the card."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     kw = {"lora_dropout": 0.0}
     if layers:
         kw["n_layers"] = layers
+        if get_config(arch).n_enc_layers:
+            kw["n_enc_layers"] = layers
     if dtype:
         kw["dtype"] = dtype
     cfg = dataclasses.replace(get_config(arch), **kw)
@@ -3908,15 +3949,24 @@ def dense_model(torch, arch, layers=None, dtype=None, seed=0):
     t0 = time.perf_counter()
     params = M.init_params(g, cfg, device="cuda")
     torch.cuda.synchronize()
-    print(f"{arch} ({cfg.n_layers} layers, {cfg.dtype}) drawn on the card in "
-          f"{time.perf_counter() - t0:.2f} s")
+    enc = f" + {cfg.n_enc_layers}" if cfg.n_enc_layers else ""
+    print(f"{arch} ({cfg.n_layers}{enc} layers, {cfg.dtype}) drawn on the "
+          f"card in {time.perf_counter() - t0:.2f} s")
     return cfg, params
 
 
 def first_layers(params, cfg, depth):
     """``params`` cut to its first ``depth`` layers (whole superblocks in
-    the stack, the rest as a tail) and the config to match."""
+    the stack, the rest as a tail; an encoder-decoder's encoder and
+    decoder layers each) and the config to match."""
     from repro_torch.utils import pytree as pt
+    if cfg.n_enc_layers:
+        cut = dict(params, blocks=pt.tree_map(lambda t: t[:depth],
+                                              params["blocks"]),
+                   encoder=dict(params["encoder"], blocks=pt.tree_map(
+                       lambda t: t[:depth], params["encoder"]["blocks"])))
+        return cut, dataclasses.replace(cfg, n_layers=depth,
+                                        n_enc_layers=depth)
     n_sb, _, pattern = cfg.blocks_layout(depth)
     tail = depth - n_sb * len(pattern)
     cut = dict(params, blocks=pt.tree_map(lambda t: t[:n_sb],
@@ -4308,29 +4358,31 @@ def drop_free(cfg):
     return dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
 
 
-def flash_within_bound(torch, label, params, cfg, tokens, n_attn=None):
-    """A bf16 prefill through flash_attention (``forward``, no cache):
-    in each layer, the kernel's output for the last MOE_BOUND_ROWS query
-    rows of every head, on that layer's own q, k and v, elementwise
-    within ``bf16_bound_bhsd`` of the plain attention in f32 on the same
-    values; ``n_attn`` such layers (default every layer).  Returns the
-    largest |err| / bound."""
+def flash_within_bound(torch, label, params, cfg, tokens, n_attn=None,
+                       batch=None):
+    """A bf16 prefill through flash_attention (``forward`` of ``tokens``,
+    or of ``batch`` when given, no cache): in each layer, the kernel's
+    output for the last MOE_BOUND_ROWS query rows of every head, on that
+    layer's own q, k and v and mask (causal or not), elementwise within
+    ``bf16_bound_bhsd`` of the plain attention in f32 on the same values;
+    ``n_attn`` such layers (default every layer).  Returns the largest
+    |err| / bound."""
     from repro_torch.kernels.flash_attention.ref import bf16_bound_bhsd
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
     seen = []
     real = L._long_attention
 
-    def spy(q, k, v, softmax_scale, window, kernel_impl):
-        y = real(q, k, v, softmax_scale, window, kernel_impl)
+    def spy(q, k, v, softmax_scale, window, kernel_impl, causal=True):
+        y = real(q, k, v, softmax_scale, window, kernel_impl, causal)
         n = MOE_BOUND_ROWS
         seen.append((q[:, -n:].clone(), k.clone(), v.clone(),
-                     y[:, -n:].clone(), softmax_scale, window))
+                     y[:, -n:].clone(), softmax_scale, window, causal))
         return y
     L._long_attention = spy
     try:
         with torch.no_grad():
-            M.forward(params, {"tokens": tokens}, cfg)
+            M.forward(params, batch or {"tokens": tokens}, cfg)
     finally:
         L._long_attention = real
 
@@ -4338,9 +4390,9 @@ def flash_within_bound(torch, label, params, cfg, tokens, n_attn=None):
         return t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[3]
                                          ).contiguous()
     worst = 0.0
-    for i, (q, k, v, y, sc, window) in enumerate(seen):
+    for i, (q, k, v, y, sc, window, causal) in enumerate(seen):
         ref, bound = bf16_bound_bhsd(fold(q), fold(k), fold(v), scale=sc,
-                                     causal=True, window=window,
+                                     causal=causal, window=window,
                                      q_offset=k.shape[1] - q.shape[1])
         ratio = float(((fold(y).float() - ref).abs() / bound).max())
         check(ratio <= 1.0, f"{label} layer {i}: flash_attention's "
@@ -4674,15 +4726,17 @@ def ssd_within_bound(torch, label, params, cfg, tokens):
     return worst
 
 
-def prefill_profile(torch, label, params, cfg, tokens, wall_ms):
-    """One prefill (``greedy_generate`` for 1 token) under torch.profiler:
-    the device's busy ms (its kernels' summed time) against ``wall_ms``,
-    the same prefill's wall time without the profiler, and the ms of the
-    ssd_scan, flash_attention and GEMM kernels and of the rest."""
+def prefill_profile(torch, label, params, cfg, tokens, wall_ms, batch=None):
+    """One prefill (``greedy_generate`` for 1 token, of ``tokens`` or of
+    ``batch`` when given) under torch.profiler: the device's busy ms (its
+    kernels' summed time) against ``wall_ms``, the same prefill's wall
+    time without the profiler, and the ms of the ssd_scan,
+    flash_attention and GEMM kernels and of the rest."""
     from repro_torch.launch.serve import greedy_generate
 
     def run():
-        greedy_generate(params, {"tokens": tokens}, cfg, 1, device="cuda")
+        greedy_generate(params, batch or {"tokens": tokens}, cfg, 1,
+                        device="cuda")
         torch.cuda.synchronize()
     torch.cuda.synchronize()
     by_name, counts = profiled(run)
@@ -4950,6 +5004,349 @@ def phase_ssm(torch):
     return report, {"ssd_scan": sum(ssd.values()) + sum(ssd_other.values()),
                     "flash_attention": sum(flash.values()),
                     "bgmv_mag": served["bgmv_mag"]}
+
+
+# --- phase 16: vision-language and encoder-decoder models (after 15) -------
+
+MM_VL, MM_ENC = "qwen2-vl-2b", "seamless-m4t-large-v2"
+MM_NEW = 16             # greedy tokens after each long prefill
+MM_GRID = 32            # qwen2-vl's patches: a 32 x 32 grid at t = 0 ...
+MM_TEXT = 3072          # ... then its tokens: 4096 rows in all
+MM_FRAMES, MM_DEC = 4096, 2048   # seamless's encoder frames, decoder tokens
+MM_TRAIN_DEPTH = 4      # layers in (c) (seamless: encoder and decoder each)
+MM_TRAIN_HP = dict(method="fedlora_opt", n_clients=4, batch=2, seq_len=128,
+                   local_steps=2, global_steps=1, personal_steps=1)
+MM_TRAIN_FRONT = 128    # (c) and (d)'s patches / frames a row
+MM_GRAD_FRONT = 32      # the grad check's patches / frames beside 64 tokens
+MM_SERVE_DEPTH = 2      # (d)'s layers, f32
+MM_SERVE_PROMPT = 64    # (d)'s tokens a row
+MM_BUDGET_S = 90        # the phase's wall time
+
+
+def mrope_positions(torch, B, F, S, grid):
+    """Qwen2-VL-style (B, F + S, 3) (t, h, w) ids: F patches of a grid x
+    F / grid image at t = 0 (h = i // grid, w = i % grid), then S text
+    positions from ``grid`` on with all three components equal."""
+    i = torch.arange(F, device="cuda")
+    img = torch.stack([torch.zeros_like(i), i // grid, i % grid], -1)
+    txt = (grid + torch.arange(S, device="cuda"))[:, None].expand(S, 3)
+    return torch.cat([img, txt])[None].expand(B, F + S, 3).contiguous()
+
+
+def mm_batch(torch, cfg, B, front, S, seed, positions=False):
+    """B rows of ``front`` frontend embeddings (N(0, 1), f32: the model
+    casts them) and S random tokens, with M-RoPE positions when asked."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                     device="cuda"),
+             "frontend_emb": torch.randn((B, front, cfg.d_model),
+                                         generator=g, device="cuda")}
+    if positions:
+        batch["positions"] = mrope_positions(torch, B, front, S, MM_GRID)
+    return batch
+
+
+def mm_rows(cfg, batch):
+    """The rows a prefill's cache holds: F + S, or S for an
+    encoder-decoder."""
+    S = batch["tokens"].shape[1]
+    return S if cfg.n_enc_layers else S + batch["frontend_emb"].shape[1]
+
+
+def mm_last(torch, params, cfg, batch, impl):
+    """The prefill's work through ``forward`` at ``impl`` (with the cache,
+    MM_NEW slots of headroom); the last row's logits, f32."""
+    from repro_torch.models import model as M
+    h, _, _ = M.forward(params, batch, cfg, return_cache=True,
+                        cache_len=mm_rows(cfg, batch) + MM_NEW,
+                        kernel_impl=impl)
+    return (h[:, -1] @ M._head_kernel(params, cfg).to(h.dtype)).float()
+
+
+def mm_vs_plain(torch, label, params, cfg, batch, tol):
+    err, _ = rel_err(mm_last(torch, params, cfg, batch, None),
+                     mm_last(torch, params, cfg, batch, "torch"))
+    check(err <= tol, f"mm {label}: prefill logits, flash_attention vs the "
+          f"plain path: {err:.3e} <= {tol} of max |logit|")
+    return {"logits_rel_err": err}
+
+
+def mm_flash_per_prefill(cfg):
+    """flash_attention launches a long prefill makes: one a decoder
+    layer, and for an encoder-decoder one an encoder layer and two a
+    decoder layer (self- and cross-attention)."""
+    return (cfg.n_enc_layers + 2 * cfg.n_layers if cfg.n_enc_layers
+            else cfg.n_layers)
+
+
+def mm_generate(torch, arch, batch):
+    """(a) / (b): ``arch`` at full width and depth, bf16, ``batch``
+    through ``greedy_generate``, timed for 1 token and for MM_NEW after a
+    warm-up: flash_attention mm_flash_per_prefill times in each prefill
+    and never in a decode step; then the kernels against the plain path
+    through CHECK_DEPTH layers in bf16 (each flash output within
+    ``bf16_bound_bhsd``), and through every layer in f32; one prefill
+    profiled.  Returns the report and the launches of the two timed
+    runs."""
+    from repro_torch.launch.serve import greedy_generate
+    cfg, params = dense_model(torch, arch)
+    greedy_generate(params, batch, cfg, 2, device="cuda")      # warm-up
+    per = mm_flash_per_prefill(cfg)
+    reset_launches()
+    toks1, ms1, peak1 = synced(torch, lambda: greedy_generate(
+        params, batch, cfg, 1, device="cuda"))
+    toks, ms, peak = synced(torch, lambda: greedy_generate(
+        params, batch, cfg, MM_NEW, device="cuda"))
+    launches = read_launches()
+    check_launches(launches, {"flash_attention": per}, 1, 2, f"mm {arch}",
+                   "2 prefills of greedy_generate")
+    toks = toks.cpu().numpy()
+    check(toks.shape == (1, MM_NEW) and toks.min() >= 0
+          and toks.max() < cfg.vocab_size
+          and np.array_equal(toks[:, :1], toks1.cpu().numpy()),
+          f"mm {arch}: {MM_NEW} greedy tokens in the vocabulary, the first "
+          f"the 1-token run's")
+    report = {"layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
+              "frontend_rows": batch["frontend_emb"].shape[1],
+              "tokens": batch["tokens"].shape[1],
+              "prefill_ms": ms1, "generate_ms": ms, "new_tokens": MM_NEW,
+              "decode_step_ms": (ms - ms1) / (MM_NEW - 1),
+              "peak_bytes_above_params": max(peak, peak1),
+              "allocated_bytes": torch.cuda.memory_allocated(),
+              "flash_per_prefill": per,
+              "launches": {k: v for k, v in launches.items() if v}}
+    print(f"mm {arch} [{GPU}]: " + json.dumps(report))
+    report["profile"] = prefill_profile(torch, f"mm {arch}", params, cfg,
+                                        None, ms1, batch=batch)
+    cut, ccfg = first_layers(params, cfg, CHECK_DEPTH)
+    label = f"{arch} {CHECK_DEPTH} layers bf16"
+    report["bf16_flash_bound_ratio"] = flash_within_bound(
+        torch, f"mm {label}", cut, ccfg, None,
+        n_attn=mm_flash_per_prefill(ccfg), batch=batch)
+    report["bf16"] = mm_vs_plain(torch, label, cut, ccfg, batch,
+                                 TOL["bfloat16"])
+    del cut
+    p32 = to_f32(params)
+    del params
+    free(torch)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    report["f32"] = mm_vs_plain(torch, f"{arch} {cfg.n_layers} layers f32",
+                                p32, cfg32, batch, LOGITS_F32_TOL)
+    if cfg.n_enc_layers:
+        report["f32"]["decode_vs_forward"] = mm_decode_check(torch, p32,
+                                                             cfg32, batch)
+    del p32
+    free(torch)
+    print(f"mm {arch} checks [{GPU}]: " + json.dumps(
+        {k: v for k, v in report.items() if k.startswith(("bf16", "f32"))}))
+    return report, launches
+
+
+def mm_decode_check(torch, params, cfg, batch):
+    """An encoder-decoder in f32: a decode step of the last token, with
+    the encoder's output, after a prefill of the rest, against the full
+    forward's last row within LOGITS_F32_TOL of max |logit| (the check
+    the reference's greedy_generate, which drops enc_out, would fail)."""
+    from repro_torch.models import model as M
+    S = batch["tokens"].shape[1]
+    with torch.no_grad():
+        enc = M._encode(params, batch["frontend_emb"], cfg)
+        _, cache = M.prefill(params, dict(batch, tokens=batch["tokens"][
+            :, :-1]), cfg, cache_len=S, enc_out=enc)
+        dlog, _ = M.decode_step(params, batch["tokens"][:, -1], cache, S - 1,
+                                cfg, enc_out=enc)
+        del cache, enc
+        full = mm_last(torch, params, cfg, batch, None)
+    err, _ = rel_err(dlog, full)
+    check(err <= LOGITS_F32_TOL, f"mm {cfg.name} f32: a decode step with "
+          f"enc_out after {S - 1} tokens vs the {S}-token forward's last "
+          f"row: {err:.3e} <= {LOGITS_F32_TOL} of max |logit|")
+    return err
+
+
+def mm_training(torch, arch):
+    """(c) ``arch`` at full width and MM_TRAIN_DEPTH layers (seamless:
+    MM_TRAIN_DEPTH + MM_TRAIN_DEPTH), f32: the card-vs-CPU gradient check
+    at CHECK_DEPTH layers (frontend_emb in its batch); then one
+    fedlora_opt pipeline round through FedSim (4 clients x 2 rows of
+    MM_TRAIN_FRONT frontend rows + 128 tokens, 2 stage-1 steps, 1
+    stage-2 and 1 stage-3 step), each stage timed and synced, with no
+    kernel launch anywhere (under autograd the plain paths run, and no
+    row reaches the chunked length): every stage moves its leaves
+    (seamless: the encoder's in stage 1).  Returns the report, the
+    server model, the clients' adapters, the backbone and the config."""
+    from repro_torch.fed.simulate import FedHyper, FedSim
+    from repro_torch.utils import pytree as pt
+    cfg, params = dense_model(torch, arch, layers=MM_TRAIN_DEPTH,
+                           dtype="float32")
+    extra = {"frontend_emb": np.random.default_rng(3).normal(
+        size=(1, MM_GRAD_FRONT, cfg.d_model)).astype(np.float32)}
+    report = {"grad_check": grad_check(torch, cfg, params, extra=extra)}
+    free(torch)
+    hp = FedHyper(**MM_TRAIN_HP)
+    C, B, S = hp.n_clients, hp.batch, hp.seq_len
+    sim = FedSim(cfg, hp, base=params, device="cuda")
+    seeds = iter(range(100, 200))
+
+    def batch(lead):
+        g = torch.Generator(device="cuda").manual_seed(next(seeds))
+        return {"tokens": torch.randint(0, cfg.vocab_size, (*lead, S),
+                                        generator=g, device="cuda"),
+                "loss_mask": torch.ones((*lead, S), device="cuda"),
+                "frontend_emb": torch.randn(
+                    (*lead, MM_TRAIN_FRONT, cfg.d_model), generator=g,
+                    device="cuda")}
+
+    def leaves(rx):
+        return {p: x.clone() for p, x in
+                pt.tree_leaves_with_path(sim.client_adapters)
+                if re.search(rx, p)}
+
+    def moved(before, what):
+        n = sum(not torch.equal(x, pt.tree_get(sim.client_adapters, p))
+                for p, x in before.items())
+        check(before and n == len(before), f"mm training {arch}: {what} "
+              f"moved all {len(before)} leaves ({n})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    walls, step_ms, ce = {}, [], []
+    enc_rx = r"^encoder/" if cfg.n_enc_layers else r"/A_dir$"
+    stage1 = leaves(r"/(A_mag|A_dir|B_dir|B_mag)$")
+    enc_before = leaves(enc_rx + (r".*/A_dir$" if cfg.n_enc_layers else ""))
+    for _ in range(hp.local_steps):
+        b = batch((C, B))
+        met, ms, _ = synced(torch, lambda: sim.local_round([b]))
+        step_ms.append(ms)
+        ce.append(float(np.mean(met["ce"])))
+    moved(stage1, "stage 1")
+    moved(enc_before, "stage 1 (the encoder's A_dir)" if cfg.n_enc_layers
+          else "stage 1 (A_dir)")
+    agg, walls["aggregate_ms"], _ = synced(torch, sim.aggregate)
+    d_a = leaves(r"/dA_dir$")
+    server, walls["stage2_ms"], _ = synced(torch, lambda: sim.global_stage(
+        agg, [batch((B * C,))]))
+    moved(d_a, "stage 2 (dA_dir)")
+    d_b = leaves(r"/dB_mag$")
+    _, walls["stage3_ms"], _ = synced(torch, lambda: sim.personalize(
+        [batch((C, B))]))
+    moved(d_b, "stage 3 (dB_mag)")
+    launches = read_launches()
+    check(not any(launches.values()), f"mm training {arch}: no kernel "
+          f"launched in the pipeline round ({launches})")
+    check(all(np.isfinite(ce)), f"mm training {arch}: finite stage-1 CE")
+    report.update({
+        "config": dict(MM_TRAIN_HP, layers=cfg.n_layers,
+                       enc_layers=cfg.n_enc_layers, front=MM_TRAIN_FRONT),
+        "stage1_step_ms": step_ms, "stage1_step_ms_warm": step_ms[-1],
+        "stage_ms": walls, "train_ce": ce,
+        "peak_bytes": torch.cuda.max_memory_allocated()})
+    print(f"mm training {arch} {cfg.n_layers} layers [{GPU}]: "
+          + json.dumps(report))
+    own = [pt.filter_tree(pt.tree_map(lambda t: t[c], sim.client_adapters),
+                          lambda p: p.endswith("/dB_mag")) for c in range(C)]
+    del sim
+    free(torch)
+    return report, server, own, params, cfg
+
+
+def mm_serving(torch, arch, server, own, params, cfg):
+    """(d) the first MM_SERVE_DEPTH layers of (c)'s model and adapters,
+    f32.  qwen2-vl: 2 tenants (clients 0 and 1's ΔB_M over the server
+    model) in a dora_mag AdapterStore, one batch of 2 rows (each its own
+    MM_TRAIN_FRONT patches, MM_SERVE_PROMPT tokens, M-RoPE positions)
+    through greedy_generate with adapter_idx: bgmv_mag 2 targets x
+    MM_SERVE_DEPTH layers x MM_NEW passes, each row's tokens equal to
+    its tenant's merged model's.  seamless: the pooled tree is refused
+    (ValueError: its encoder takes no per-row adapters), and tenant 0 is
+    served merged.  Returns the report and the bgmv_mag launches."""
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.serve import AdapterStore
+    from repro_torch.utils import pytree as pt
+    p2, cfg2 = first_layers(params, cfg, MM_SERVE_DEPTH)
+    shared = pt.tree_map(lambda t: t[:MM_SERVE_DEPTH], server)
+    deltas = [pt.tree_map(lambda t: t[:MM_SERVE_DEPTH], d) for d in own[:2]]
+    store = AdapterStore(p2, cfg2, n_slots=2, kind="dora_mag", shared=shared,
+                         device="cuda")
+    tenants = ["t0", "t1"]
+    for t, d in zip(tenants, deltas):
+        store.register(t, d)
+    slots = torch.tensor([store.slot_of(t) for t in tenants], device="cuda")
+    prompts = mm_batch(torch, cfg2, 2, MM_TRAIN_FRONT, MM_SERVE_PROMPT,
+                       seed=21, positions=bool(cfg.mrope))
+    pooled_params = pt.merge_trees(p2, store.overlay())
+    report = {"layers": MM_SERVE_DEPTH, "prompt": MM_SERVE_PROMPT,
+              "front": MM_TRAIN_FRONT, "new_tokens": MM_NEW}
+    if cfg.n_enc_layers:
+        try:
+            greedy_generate(pooled_params, prompts, cfg2, 2,
+                            adapter_idx=slots, device="cuda")
+            refused = ""
+        except ValueError as e:
+            refused = str(e)
+        check("encoder carries pooled" in refused, f"mm serve {arch}: "
+              f"pooled leaves on the encoder are refused ({refused!r})")
+        row = {k: v[:1] for k, v in prompts.items()}
+        toks, ms, _ = synced(torch, lambda: greedy_generate(
+            pt.merge_trees(p2, pt.merge_trees(shared, deltas[0])), row, cfg2,
+            MM_NEW, device="cuda"))
+        check(toks.shape == (1, MM_NEW), f"mm serve {arch}: tenant t0 "
+              f"served merged")
+        report.update({"pooled_refused": True, "merged_wall_ms": ms})
+        n = 0
+    else:
+        reset_launches()
+        pooled, ms, _ = synced(torch, lambda: greedy_generate(
+            pooled_params, prompts, cfg2, MM_NEW, adapter_idx=slots,
+            device="cuda"))
+        launches = read_launches()
+        check_launches(launches, {"bgmv_mag": 2}, MM_SERVE_DEPTH, MM_NEW,
+                       f"mm serve {arch} tenants", f"1 prefill + "
+                       f"{MM_NEW - 1} decode steps, 2 targets a layer")
+        n = launches["bgmv_mag"]
+        for i, (t, d) in enumerate(zip(tenants, deltas)):
+            row = {k: v[i:i + 1] for k, v in prompts.items()}
+            merged = greedy_generate(
+                pt.merge_trees(p2, pt.merge_trees(shared, d)), row, cfg2,
+                MM_NEW, device="cuda")
+            check(torch.equal(pooled[i:i + 1], merged), f"mm serve {arch}: "
+                  f"tenant {t}'s {MM_NEW} tokens through bgmv_mag equal its "
+                  f"merged model's")
+        report.update({"tenants": 2, "pooled_wall_ms": ms,
+                       "bgmv_mag_launches": n})
+    print(f"mm serve {arch} f32 [{GPU}]: " + json.dumps(report))
+    del store, pooled_params, p2
+    free(torch)
+    return report, n
+
+
+def phase_mm(torch):
+    """Phase 16.  Returns the report and the launches of flash_attention
+    ((a) and (b)'s timed prefills) and bgmv_mag ((d)'s pooled run)."""
+    report, prefill = {}, {}
+    t0 = time.perf_counter()
+    from repro_torch.configs import get_config
+    vl, enc = get_config(MM_VL), get_config(MM_ENC)
+    report[MM_VL], prefill[MM_VL] = mm_generate(torch, MM_VL, mm_batch(
+        torch, vl, 1, vl.frontend_tokens, MM_TEXT, seed=14, positions=True))
+    report[MM_ENC], prefill[MM_ENC] = mm_generate(torch, MM_ENC, mm_batch(
+        torch, enc, 1, MM_FRAMES, MM_DEC, seed=15))
+    n_mag = 0
+    for arch in (MM_VL, MM_ENC):
+        tr, server, own, params, cfg = mm_training(torch, arch)
+        sv, n = mm_serving(torch, arch, server, own, params, cfg)
+        report[f"training {arch}"], report[f"serve {arch}"] = tr, sv
+        n_mag += n
+        del server, own, params
+        free(torch)
+    flash = {a: prefill[a].get("flash_attention", 0) for a in prefill}
+    report["launches"] = {"flash_attention": flash, "bgmv_mag": n_mag}
+    report["wall_s"] = time.perf_counter() - t0
+    print(f"mm [{GPU}]: launches on the multimodal path "
+          + json.dumps(report["launches"]) + f"; phase wall "
+          f"{report['wall_s']:.1f} s")
+    return report, {"flash_attention": sum(flash.values()),
+                    "bgmv_mag": n_mag}
 
 
 # --- phase 12: the production round engine (run after phase 11) ------------
@@ -5465,6 +5862,10 @@ def main():
     print(f"gpu: {gpu}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
+    # the host-bound phases' times move with the host's free cores
+    print(f"host: {len(os.sched_getaffinity(0))} cores usable, "
+          f"{torch.get_num_threads()} torch threads, load average "
+          f"{os.getloadavg()[0]:.2f}")
     t_start = time.perf_counter()
     try:
         t0 = time.perf_counter()
@@ -5590,6 +5991,16 @@ def main():
         print(f"phase 15 (SSM and hybrid) took {t_ssm:.1f} s")
         check(t_ssm <= SSM_BUDGET_S, f"phase 15 took {t_ssm:.1f} s <= "
               f"{SSM_BUDGET_S} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        report["mm"], mm_launches = phase_mm(torch)
+        launches["bgmv_mag"] += mm_launches["bgmv_mag"]
+        t_mm = time.perf_counter() - t0
+        print(f"phase 16 (vision-language and encoder-decoder) took "
+              f"{t_mm:.1f} s")
+        check(t_mm <= MM_BUDGET_S, f"phase 16 took {t_mm:.1f} s <= "
+              f"{MM_BUDGET_S} s")
     except CheckFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -5618,7 +6029,8 @@ def main():
                  "launches_phase11_telemetry_serve": tel_launches,
                  "launches_phase12_engine_serve": engine_launches,
                  "launches_phase14_moe_serve": moe_launches["bgmv_mag"],
-                 "launches_phase15_jamba_serve": ssm_launches["bgmv_mag"]}
+                 "launches_phase15_jamba_serve": ssm_launches["bgmv_mag"],
+                 "launches_phase16_qwen2_vl_serve": mm_launches["bgmv_mag"]}
                 if name == "bgmv_mag" else
                 {"launches_phase11_cohort_serve": cohort_launches}),
              **({"launches_phase7_training_serve": train_launches}
@@ -5659,18 +6071,24 @@ def main():
         "flash_attention", f"{kdir}/flash_attention/csrc/flash_attention.cu",
         f"{pallas}/flash_attention/flash_attention.py:87",
         dense_launches["flash_attention"] + moe_launches["flash_attention"]
-        + ssm_launches["flash_attention"],
+        + ssm_launches["flash_attention"] + mm_launches["flash_attention"],
         fa["prefill"],
         "llama2-7b prefill: q, k, v (1, 4096, 32, 128) bf16, causal (phase 6 "
         "runs it with the other configs' shapes); launches: the prefills of "
         "phase 13 (llama2-7b, qwen3-32b, granite-34b, gemma3-1b at 1 x "
         "4096), phase 14 (qwen3-moe-30b-a3b 1 x 4096, mixtral-8x22b 1 x "
-        "8192) and phase 15 (jamba-v0.1-52b's attention layers, 1 x 4096)",
+        "8192), phase 15 (jamba-v0.1-52b's attention layers, 1 x 4096) and "
+        "phase 16 (qwen2-vl-2b 1 x (1024 patches + 3072 tokens), causal; "
+        "seamless-m4t-large-v2's non-causal encoder over 4096 frames, "
+        "causal decoder over 2048 tokens and non-causal cross-attention of "
+        "2048 over 4096)",
         {"launches_phase6_standalone": launches_6["flash_attention"],
          "launches_phase13_by_config": report["dense"]["flash_launches"],
          "launches_phase14_by_config": report["moe"]["flash_launches"],
          "launches_phase15_by_config":
              report["ssm"]["launches"]["flash_attention"],
+         "launches_phase16_by_config":
+             report["mm"]["launches"]["flash_attention"],
          "other_shapes": {k: {f: r[f] for f in (
             "q", "k", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "f32_core_bound_ms", "eager_ms", "max_abs_err", "bound_ratio",

@@ -3,8 +3,8 @@
 Each ported architecture is one module exposing ARCH (exact published
 hyperparameters, source cited) and SMOKE (the reduced same-family
 variant used by CPU tests).  ``get_config("<id>")`` resolves either
-spelling (hyphens or underscores).  The reference registers more
-architectures; their other families are not ported yet.
+spelling (hyphens or underscores).  These are the reference's 11
+architectures.
 """
 from __future__ import annotations
 
@@ -13,11 +13,8 @@ import importlib
 from repro_torch.models.config import ArchConfig
 
 ARCH_IDS = ["deepseek-7b", "gemma3-1b", "granite-34b", "jamba-v0.1-52b",
-            "llama2-7b", "mamba2-2.7b", "mixtral-8x22b", "qwen3-32b",
-            "qwen3-moe-30b-a3b"]
-
-# in the reference registry, waiting for their families (ROADMAP A12e)
-_NOT_PORTED = {"seamless-m4t-large-v2", "qwen2-vl-2b"}
+            "llama2-7b", "mamba2-2.7b", "mixtral-8x22b", "qwen2-vl-2b",
+            "qwen3-32b", "qwen3-moe-30b-a3b", "seamless-m4t-large-v2"]
 
 
 def _modname(arch_id: str) -> str:
@@ -27,9 +24,6 @@ def _modname(arch_id: str) -> str:
 def _module(arch_id: str):
     known = {_modname(a): a for a in ARCH_IDS}
     if _modname(arch_id) not in known:
-        if _modname(arch_id) in {_modname(a) for a in _NOT_PORTED}:
-            raise NotImplementedError(
-                f"architecture {arch_id!r} is not ported yet (ROADMAP A12e)")
         raise KeyError(f"unknown architecture {arch_id!r}")
     return importlib.import_module(f"repro_torch.configs.{_modname(arch_id)}")
 

@@ -28,22 +28,36 @@ Params = Any
 def greedy_generate(params, prompt_batch: dict, cfg: ArchConfig,
                     n_new: int = 16, adapter_idx=None, *, device="cuda"):
     """Greedy prefill → decode loop; returns (B, n_new) int64 tokens.
-    ``prompt_batch["tokens"]`` (B, S) may be numpy or a tensor; it and
-    ``adapter_idx`` (B,) move to ``device``, where ``params`` must live."""
+    ``prompt_batch`` holds ``tokens`` (B, S) and optionally
+    ``frontend_emb`` and ``positions``, numpy or tensors; they and
+    ``adapter_idx`` (B,) move to ``device``, where ``params`` must live.
+
+    A frontend's F rows sit in front of the tokens', so the cache holds
+    F + S + n_new positions and decoding starts at F + S (the reference
+    pads to S + n_new and starts at S, inside the prefix).  An
+    encoder-decoder's encoder runs once, and each decode step reads its
+    output (the reference's decode loop drops it, ROADMAP C)."""
     dev = resolve_device(device)
     check_on(params["embed"]["embedding"], dev, "params")
-    tokens = torch.as_tensor(prompt_batch["tokens"], device=dev)
-    S = tokens.shape[1]
-    batch = {"tokens": tokens}
+    batch = {k: torch.as_tensor(prompt_batch[k], device=dev)
+             for k in ("tokens", "frontend_emb", "positions")
+             if prompt_batch.get(k) is not None}
+    S = batch["tokens"].shape[1]
+    if cfg.frontend and not cfg.n_enc_layers and "frontend_emb" in batch:
+        S += batch["frontend_emb"].shape[1]
     if adapter_idx is not None:
         adapter_idx = torch.as_tensor(adapter_idx, dtype=torch.int32,
                                       device=dev)
         batch["adapter_idx"] = adapter_idx
-    logits, cache = M.prefill(params, batch, cfg, cache_len=S + n_new)
+    enc_out = (M._encode(params, batch["frontend_emb"], cfg)
+               if cfg.n_enc_layers else None)
+    logits, cache = M.prefill(params, batch, cfg, cache_len=S + n_new,
+                              enc_out=enc_out)
     tok = M.argmax_first(logits)
     out = [tok]
     for i in range(n_new - 1):
         logits, cache = M.decode_step(params, tok, cache, S + i, cfg,
+                                      enc_out=enc_out,
                                       adapter_idx=adapter_idx)
         tok = M.argmax_first(logits)
         out.append(tok)
@@ -54,7 +68,8 @@ def greedy_generate_reference(params, prompt_batch: dict, cfg: ArchConfig,
                               n_new: int = 16, *, device="cuda"):
     """The reference's per-step parity oracle.  In the port
     ``greedy_generate`` is already a per-step loop, so this is that loop
-    without pooled-adapter routing."""
+    without pooled-adapter routing (and, like it, decoding from F + S
+    with the encoder's output)."""
     return greedy_generate(params, prompt_batch, cfg, n_new, device=device)
 
 

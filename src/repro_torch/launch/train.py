@@ -324,7 +324,6 @@ def make_fed_pipeline_step(cfg: ArchConfig, mesh, settings: TrainSettings,
         raise ValueError(
             "use_fused_dora is forward/serving-only (the Pallas kernel "
             "defines no VJP); the train step requires the jnp adapter path")
-    M.check_supported(cfg)
     dev = resolve_device(device)
     group = data_axes(mesh)
     dp = dp_size(mesh)

@@ -1,1 +1,2 @@
-"""Decoder of the port (config, layers, the SSM mixer, model)."""
+"""The transformer zoo of the port (config, layers, the SSM mixer,
+model)."""

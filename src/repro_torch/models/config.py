@@ -96,6 +96,10 @@ class ArchConfig:
         kind = "local" if self.sliding_window else "global"
         return [SubLayer("attn", ffn, kind)]
 
+    def dec_pattern(self) -> list[SubLayer]:
+        """Decoder pattern for enc-dec: self-attn + cross-attn per layer."""
+        return [SubLayer("attn", "none"), SubLayer("cross_attn", "dense")]
+
     def blocks_layout(self, n_layers: Optional[int] = None,
                       pattern: Optional[list[SubLayer]] = None):
         """(n_superblocks, tail_len, pattern). tail runs pattern[:tail_len]."""

@@ -1,4 +1,4 @@
-"""Core layers of the dense decoder (port of ``repro/models/layers.py``).
+"""Core layers of the transformer zoo (port of ``repro/models/layers.py``).
 
 Everything is a function over nested-dict params.  Linear layers
 understand adapter params living alongside their kernel:
@@ -73,6 +73,38 @@ def apply_rope(x, positions, theta: float = 1e4):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x, positions3, theta: float = 1e4,
+                sections=(0.25, 0.375, 0.375)):
+    """Qwen2-VL's multimodal rotary: positions3 (B, S, 3) holds the (t, h,
+    w) ids.  The dh/2 frequency bands split into three sections (at dh
+    128: 16 / 24 / 24 bands), each rotated by its own component.  With
+    all three components equal this is ``apply_rope`` bit for bit."""
+    half = x.shape[-1] // 2
+    freqs = _rope_freqs(x.shape[-1], theta, x.device)
+    n0, n1 = int(half * sections[0]), int(half * sections[1])
+    sel = torch.cat([torch.full((n,), c, dtype=torch.int64, device=x.device)
+                     for c, n in enumerate((n0, n1, half - n0 - n1))])
+    ang = positions3.float()[..., sel] * freqs                 # (B,S,dh/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _rotate(q, k, positions, cfg):
+    """RoPE on q and k: M-RoPE when ``cfg.mrope`` (a (B, S) positions
+    tensor repeated to its three components), else the standard rotary
+    on (B, S) positions (component 0 of (B, S, 3) ones)."""
+    if cfg.mrope:
+        pos3 = (positions if positions.dim() == 3
+                else positions[..., None].expand(*positions.shape, 3))
+        return (apply_mrope(q, pos3, cfg.rope_theta),
+                apply_mrope(k, pos3, cfg.rope_theta))
+    pos = positions if positions.dim() == 2 else positions[..., 0]
+    return apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos,
+                                                           cfg.rope_theta)
 
 
 # ---------------------------------------------------------------------------
@@ -166,12 +198,14 @@ def linear(p: Params, x, *, lora_scale: float = 0.0, dropout_gen=None,
 # attention
 # ---------------------------------------------------------------------------
 
-def _causal_window_mask(S_q, S_k, q_offset, window, device):
+def _causal_window_mask(S_q, S_k, q_offset, window, device, causal=True):
     """(S_q, S_k) boolean mask; q position i (+ q_offset) attends k
-    position j ≤ i, and only j > i - window when ``window`` is given."""
+    position j ≤ i when ``causal`` (every j otherwise), and only
+    j > i - window when ``window`` is given."""
     qi = torch.arange(S_q, device=device)[:, None] + q_offset
     kj = torch.arange(S_k, device=device)[None, :]
-    m = kj <= qi
+    m = kj <= qi if causal else torch.ones((S_q, S_k), dtype=torch.bool,
+                                            device=device)
     if window is not None:
         m = m & (kj > qi - window)
     return m
@@ -204,9 +238,11 @@ def _needs_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
-def _sdpa_chunked(q, k, v, softmax_scale, window, q_block: int = 512):
-    """Causal attention over 512-row query blocks, each block ``_sdpa``
-    over all Sk keys, masked at its offset: bounds the (bq × Sk) score
+def _sdpa_chunked(q, k, v, softmax_scale, window, causal=True,
+                  q_block: int = 512):
+    """Attention over 512-row query blocks, each block ``_sdpa`` over all
+    Sk keys (Sk may differ from Sq), masked at its offset when ``causal``
+    or windowed (unmasked otherwise): bounds the (bq × Sk) score
     and weight tensors for long prefills.  Under autograd each block
     runs under ``torch.utils.checkpoint``, so its scores and weights are
     recomputed in the backward pass instead of kept (the reference's
@@ -218,17 +254,19 @@ def _sdpa_chunked(q, k, v, softmax_scale, window, q_block: int = 512):
     outs = []
     for q0 in range(0, Sq, q_block):
         qi = q[:, q0:q0 + q_block]
-        mask = _causal_window_mask(qi.shape[1], Sk, q0, window,
-                                   q.device)[None, None]
+        mask = _causal_window_mask(qi.shape[1], Sk, q0, window, q.device,
+                                   causal)[None, None]
         args = (qi, kf, vf, mask, softmax_scale, v.dtype)
         outs.append(checkpoint(_sdpa, *args, use_reentrant=False)
                     if grad else _sdpa(*args))
     return torch.cat(outs, dim=1)
 
 
-def _long_attention(q, k, v, softmax_scale, window, kernel_impl):
-    """Causal (windowed) prefill attention where the reference takes
-    ``_sdpa_chunked``.  Without a gradient, ``flash_attention`` runs it:
+def _long_attention(q, k, v, softmax_scale, window, kernel_impl,
+                    causal=True):
+    """Prefill attention where the reference takes ``_sdpa_chunked``:
+    causal (windowed) self-attention, or ``causal=False`` (the encoder,
+    and cross-attention of Sq queries over Sk encoder keys).  Without a gradient, ``flash_attention`` runs it:
     kernel_impl None launches the CUDA kernel for a CUDA tensor (the
     plain chunked path for a CPU one), "cuda" launches it or raises,
     "torch" takes the plain chunked path.  The kernel defines no
@@ -241,9 +279,9 @@ def _long_attention(q, k, v, softmax_scale, window, kernel_impl):
                          "or 'torch')")
     if not grad and resolve_impl(kernel_impl, q, "attention") == "cuda":
         from repro_torch.kernels.flash_attention.ops import flash_attention
-        return flash_attention(q, k, v, causal=True, window=window,
+        return flash_attention(q, k, v, causal=causal, window=window,
                                scale=softmax_scale, impl="cuda")
-    return _sdpa_chunked(q, k, v, softmax_scale, window)
+    return _sdpa_chunked(q, k, v, softmax_scale, window, causal)
 
 
 def _target_scale(cfg, proj: str, lora_scale: float) -> float:
@@ -251,14 +289,23 @@ def _target_scale(cfg, proj: str, lora_scale: float) -> float:
 
 
 def attention(p: Params, x, positions, cfg, *, kind: str = "global",
-              cache=None, cache_index=None,
-              lora_scale: float = 0.0, dropout_gen=None,
+              causal: bool = True, cache=None, cache_index=None,
+              kv_source=None, lora_scale: float = 0.0, dropout_gen=None,
               return_cache: bool = False, cache_len: int = 0,
               adapter_idx=None, kernel_impl=None):
-    """Causal self-attention sublayer (pre-norm outside).  Returns
-    (y, new_cache).  ``kind="local"`` attends the last
-    ``cfg.sliding_window`` positions only; ``q_norm`` / ``k_norm`` in
-    ``p`` normalize q and k over the head dim before RoPE (qk-norm).
+    """Attention sublayer (pre-norm outside).  Returns (y, new_cache).
+    ``kind="local"`` attends the last ``cfg.sliding_window`` positions
+    only; ``q_norm`` / ``k_norm`` in ``p`` normalize q and k over the
+    head dim before RoPE (qk-norm).  ``causal=False``: every query sees
+    every key (the encoder).
+
+    positions: (B, S) ints, or (B, S, 3) (t, h, w) ids for M-RoPE
+    (``cfg.mrope``; a (B, S) tensor is repeated to three components).
+
+    kv_source: (B, Sk, D) encoder output for cross-attention: k and v
+    are its projections, q is not rotated and k has no rotary, nothing
+    is masked, and no cache is read or written (a decode step
+    recomputes k and v from it, as the reference does).
 
     dropout_gen: torch.Generator for adapter dropout (training) on the
     q/k/v adapters, at cfg.lora_dropout; each projection takes its own
@@ -282,8 +329,6 @@ def attention(p: Params, x, positions, cfg, *, kind: str = "global",
     ``window`` (``cache_len`` is for the global layers).
     adapter_idx: (B,) int32 pool slot per row for batched-LoRA serving.
     """
-    if cfg.mrope:
-        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP A12)")
     B, S, D = x.shape
     H, Kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     window = cfg.sliding_window if kind == "local" else None
@@ -291,23 +336,27 @@ def attention(p: Params, x, positions, cfg, *, kind: str = "global",
     kw = dict(fused=cfg.use_fused_dora, adapter_idx=adapter_idx,
               kernel_impl=kernel_impl)
     drop = dict(dropout_gen=dropout_gen, dropout=cfg.lora_dropout)
+    kv_in = x if kv_source is None else kv_source
     q = linear(p["q_proj"], x, lora_scale=_target_scale(cfg, "q_proj",
                                                         lora_scale),
                **drop, **kw)
-    k = linear(p["k_proj"], x, lora_scale=_target_scale(cfg, "k_proj",
-                                                        lora_scale),
+    k = linear(p["k_proj"], kv_in, lora_scale=_target_scale(cfg, "k_proj",
+                                                            lora_scale),
                **drop, **kw)
-    v = linear(p["v_proj"], x, lora_scale=_target_scale(cfg, "v_proj",
-                                                        lora_scale),
+    v = linear(p["v_proj"], kv_in, lora_scale=_target_scale(cfg, "v_proj",
+                                                            lora_scale),
                **drop, **kw)
+    Skv = kv_in.shape[1]
     q = q.reshape(B, S, H, dh)
-    k = k.reshape(B, S, Kh, dh)
-    v = v.reshape(B, S, Kh, dh)
+    k = k.reshape(B, Skv, Kh, dh)
+    v = v.reshape(B, Skv, Kh, dh)
     if "q_norm" in p:                      # qwen3 qk-norm, over the head dim
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_source is None:
+        q, k = _rotate(q, k, positions, cfg)
+    else:                    # cross-attention: no rotary, mask or cache
+        causal, cache, return_cache = False, None, False
 
     new_cache = None
     if cache is not None:
@@ -343,10 +392,13 @@ def attention(p: Params, x, positions, cfg, *, kind: str = "global",
         out = _sdpa(q, ck, cv, mask, scale)
     else:
         if S >= 2048 and S % 512 == 0:
-            out = _long_attention(q, k, v, scale, window, kernel_impl)
-        else:
-            mask = _causal_window_mask(S, S, 0, window, x.device)
+            out = _long_attention(q, k, v, scale, window, kernel_impl,
+                                  causal)
+        elif causal or window is not None:
+            mask = _causal_window_mask(S, S, 0, window, x.device, causal)
             out = _sdpa(q, k, v, mask[None, None], scale)
+        else:
+            out = _sdpa(q, k, v, None, scale)
         if return_cache:
             if window is not None and S > window:
                 # the last `window` keys and values, rolled so position p

@@ -1,5 +1,6 @@
-"""Decoder (port of ``repro/models/model.py``: the dense, MoE, SSM and
-hybrid families).
+"""The multi-architecture transformer (port of ``repro/models/model.py``:
+the dense, MoE, SSM, hybrid, vision-language and encoder-decoder
+families).
 
 Layer params are stacked ``(n_superblocks, ...)`` as in the reference;
 the reference's ``lax.scan`` over superblocks is a Python loop over
@@ -13,6 +14,15 @@ is dense, MoE or none.  An MoE sublayer's FFN is
 ``layers.moe_ffn_local``; its load-balance aux is summed over the
 sublayers, the stack and the tail, and ``loss_and_metrics`` adds
 ``aux_weight · aux`` to the CE.
+
+Frontends are stubs, as in the reference: a decoder-only model with
+``cfg.frontend`` (qwen2-vl) takes ``batch["frontend_emb"]`` (B, F, D),
+projected patch embeddings prepended to the token embeddings, with
+M-RoPE over (B, F + S, 3) positions; an encoder-decoder
+(``cfg.n_enc_layers``, seamless-m4t) takes it as the frame embeddings
+its non-causal encoder (``params["encoder"]``) reads.  The decoder's
+layers are then ``cfg.dec_pattern()``: self-attention with no FFN, then
+cross-attention over the encoder's output with a dense FFN.
 
 Entry points:
   init_params(generator, cfg, device=)      → param tree (no adapters)
@@ -42,16 +52,15 @@ def _dtype(cfg):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for what this port does not cover yet:
-    encoder-decoder models, the frontends and M-RoPE."""
-    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
-            or cfg.n_enc_layers or cfg.frontend):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  f"(ROADMAP A12e)")
-    if cfg.mrope:
-        raise NotImplementedError("M-RoPE attention is not ported yet "
-                                  "(ROADMAP A12e)")
+ENC_PATTERN = [SubLayer("attn", "dense", "global")]   # an encoder layer
+
+
+def _layout(cfg: ArchConfig):
+    """(n_sb, tail, pattern) of the decoder's stack: ``blocks_layout``,
+    or for an encoder-decoder ``dec_pattern`` n_layers times, no tail."""
+    if cfg.n_enc_layers:
+        return cfg.n_layers, 0, cfg.dec_pattern()
+    return cfg.blocks_layout()
 
 
 # ---------------------------------------------------------------------------
@@ -149,12 +158,14 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, *,
                 device="cuda") -> Params:
     """Random backbone drawn from ``generator`` (on its own device; pass a
     CUDA generator to draw a full-size model on the card).  On
-    ``device="meta"`` the tree has the shapes and dtypes only."""
-    check_supported(cfg)
+    ``device="meta"`` the tree has the shapes and dtypes only.  An
+    encoder-decoder also gets ``params["encoder"]``: ``blocks`` (one
+    attention + dense sublayer, stacked n_enc_layers) and its own
+    ``final_norm``."""
     dev = (torch.device("meta") if str(device) == "meta"
            else resolve_device(device))
     dtype = _dtype(cfg)
-    n_sb, tail, pattern = cfg.blocks_layout()
+    n_sb, tail, pattern = _layout(cfg)
     g = generator
     params: dict = {
         "embed": {"embedding": _normal(g, (cfg.vocab_size, cfg.d_model),
@@ -169,6 +180,12 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, *,
         params["tail"] = {f"sub{i}": _init_sublayers(g, cfg, pattern[i], (),
                                                      dtype, dev)
                           for i in range(tail)}
+    if cfg.n_enc_layers:
+        params["encoder"] = {
+            "blocks": {"sub0": _init_sublayers(
+                g, cfg, ENC_PATTERN[0], (cfg.n_enc_layers,), dtype, dev)},
+            "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32,
+                                     device=dev)}
     if not cfg.tie_embeddings:
         params["lm_head"] = {"kernel": _normal(
             g, (cfg.d_model, cfg.vocab_size), 0.02, dtype, dev)}
@@ -180,12 +197,14 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, *,
 # ---------------------------------------------------------------------------
 
 def _apply_sublayer(p, x, sub: SubLayer, cfg, *, positions, cache=None,
-                    cache_index=None, lora_scale=0.0, dropout_gen=None,
-                    return_cache=False, cache_len=0, adapter_idx=None,
-                    kernel_impl=None):
-    """One sublayer: its mixer (attention, or the Mamba-2 mixer, to which
-    the reference passes no ``adapter_idx``), then its FFN (dense, MoE or
-    none).  Returns (x, new_cache, aux: the MoE aux, None without one)."""
+                    cache_index=None, enc_out=None, causal=True,
+                    lora_scale=0.0, dropout_gen=None, return_cache=False,
+                    cache_len=0, adapter_idx=None, kernel_impl=None):
+    """One sublayer: its mixer (attention; cross-attention over
+    ``enc_out``, never causal and with no cache; or the Mamba-2 mixer, to
+    which the reference passes no ``adapter_idx``), then its FFN (dense,
+    MoE or none).  Returns (x, new_cache, aux: the MoE aux, None without
+    one)."""
     new_cache = {}
     h = L.rms_norm(x, p["input_norm"], cfg.norm_eps)
     key = "ssm" if sub.mixer == "ssm" else "attn"
@@ -196,7 +215,10 @@ def _apply_sublayer(p, x, sub: SubLayer, cfg, *, positions, cache=None,
                                return_cache=return_cache,
                                kernel_impl=kernel_impl)
     else:
+        cross = sub.mixer == "cross_attn"
         y, nc = L.attention(p["attn"], h, positions, cfg, kind=sub.attn_kind,
+                            causal=causal and not cross,
+                            kv_source=enc_out if cross else None,
                             cache=mcache, cache_index=cache_index,
                             lora_scale=lora_scale, dropout_gen=dropout_gen,
                             return_cache=return_cache,
@@ -285,9 +307,9 @@ def _remat_superblock(x, p_sb, pattern, cfg, remat, kw):
 
 
 def _run_blocks(blocks, tail, x, pattern, cfg, *, positions, cache=None,
-                cache_index=None, dropout_gen=None, return_cache=False,
-                cache_len=0, adapter_idx=None, kernel_impl=None,
-                remat=False):
+                cache_index=None, enc_out=None, causal=True,
+                dropout_gen=None, return_cache=False, cache_len=0,
+                adapter_idx=None, kernel_impl=None, remat=False):
     """Loop over the stacked superblocks, then the unstacked ``tail``
     (``{}``: none).  A decode cache is updated in place and returned; a
     prefill cache (return_cache) is stacked back to the (n_sb, ...)
@@ -297,6 +319,7 @@ def _run_blocks(blocks, tail, x, pattern, cfg, *, positions, cache=None,
     aux), aux summed over the MoE sublayers of the stack and the tail (a
     0-d f32 zero without one)."""
     kw = dict(positions=positions, cache_index=cache_index,
+              enc_out=enc_out, causal=causal,
               dropout_gen=dropout_gen, return_cache=return_cache,
               cache_len=cache_len,
               adapter_idx=adapter_idx, kernel_impl=kernel_impl)
@@ -336,20 +359,66 @@ def _run_blocks(blocks, tail, x, pattern, cfg, *, positions, cache=None,
     return x, new_cache, aux
 
 
+def _encode(params, frontend_emb, cfg: ArchConfig, *, rng=None,
+            kernel_impl=None, remat=False):
+    """An encoder-decoder's encoder: the frame embeddings (B, S_enc, D),
+    cast to the model dtype, through ``cfg.n_enc_layers`` non-causal
+    attention + dense layers at positions 0 … S_enc − 1 (a long input
+    through ``_long_attention``'s non-causal form), then the encoder's
+    ``final_norm``.  Returns enc_out (B, S_enc, D).
+
+    No ``adapter_idx``, as in the reference, whose ``linear`` then adds
+    nothing for pooled leaves without ``A_dir`` or ``lora_A``: a pooled
+    tree on the encoder would serve every tenant the bare encoder, so
+    the port refuses it (ROADMAP C)."""
+    enc = params["encoder"]
+    for path in pt.tree_paths(enc):
+        if path.endswith(("/pool_A", "/pool_dB_mag")):
+            raise ValueError(
+                f"the encoder carries pooled adapter leaves "
+                f"(encoder/{path}), but it takes no per-row adapters (the "
+                f"reference would serve every tenant the bare encoder); "
+                f"serve merged per-tenant models instead (merge_adapters + "
+                f"greedy_generate)")
+    x = frontend_emb.to(params["embed"]["embedding"].dtype)
+    B, Se = x.shape[0], x.shape[1]
+    pos = torch.arange(Se, device=x.device)[None].expand(B, Se)
+    x, _, _ = _run_blocks(enc["blocks"], {}, x, ENC_PATTERN, cfg,
+                          positions=pos, causal=False, dropout_gen=rng,
+                          kernel_impl=kernel_impl, remat=remat)
+    return L.rms_norm(x, enc["final_norm"], cfg.norm_eps)
+
+
+def _embed(params, tokens, cfg: ArchConfig, frontend_emb=None):
+    """Token embeddings (B, S, D); with ``cfg.frontend`` and a
+    ``frontend_emb`` (B, F, D), that cast to the embedding dtype in
+    front: (B, F + S, D)."""
+    emb = params["embed"]["embedding"][tokens.to(torch.int64)]
+    if cfg.frontend and frontend_emb is not None:
+        emb = torch.cat([frontend_emb.to(emb.dtype), emb], dim=1)
+    return emb
+
+
 def forward(params, batch, cfg: ArchConfig, *, rng=None,
-            return_cache=False, cache_len=0, kernel_impl=None, remat=False):
+            return_cache=False, cache_len=0, kernel_impl=None, remat=False,
+            enc_out=None):
     """Training / prefill forward → (hidden (B,S,D), cache, aux).
-    ``batch`` holds ``tokens`` (B, S) and optionally ``positions`` and
-    ``adapter_idx``.  ``rng``: a torch.Generator on the params' device
+    ``batch`` holds ``tokens`` (B, S) and optionally ``positions``
+    ((B, S) or M-RoPE's (B, S, 3), over every row the blocks see),
+    ``adapter_idx`` and ``frontend_emb``.  A decoder-only model with a
+    frontend prepends ``frontend_emb`` (B, F, D), so hidden is
+    (B, F + S, D); an encoder-decoder encodes it (``_encode``) and the
+    decoder's cross-attention reads that, or ``enc_out`` when the caller
+    has it already.  ``rng``: a torch.Generator on the params' device
     for adapter dropout at cfg.lora_dropout (training); its draws run on
-    through the layers, so each projection's mask is its own.  A
-    ``prompt_embed`` leaf (n_p, D) is prepended to every sequence, the
-    positions run over S + n_p, and the prompt rows are dropped before
-    the final norm.  ``remat``: checkpoint each superblock (True) or
-    keep only its matmul outputs ("dots"), as the reference's."""
-    check_supported(cfg)
-    tokens = batch["tokens"]
-    x = params["embed"]["embedding"][tokens.to(torch.int64)]
+    through the layers (the encoder's first), so each projection's mask
+    is its own.  A ``prompt_embed`` leaf (n_p, D) is prepended to every
+    sequence, the positions run over every row, and the prompt rows are
+    dropped before the final norm.  ``remat``: checkpoint each
+    superblock (True) or keep only its matmul outputs ("dots"), as the
+    reference's."""
+    fe = None if cfg.n_enc_layers else batch.get("frontend_emb")
+    x = _embed(params, batch["tokens"], cfg, fe)
     B, S = x.shape[0], x.shape[1]
     n_p = 0
     if "prompt_embed" in params:                 # prompt-tuning baseline
@@ -361,10 +430,13 @@ def forward(params, batch, cfg: ArchConfig, *, rng=None,
     if positions is None:
         positions = torch.arange(S + n_p, device=x.device)[None].expand(
             B, S + n_p)
+    if cfg.n_enc_layers and enc_out is None:
+        enc_out = _encode(params, batch["frontend_emb"], cfg, rng=rng,
+                          kernel_impl=kernel_impl, remat=remat)
     x, cache, aux = _run_blocks(
-        params["blocks"], params.get("tail", {}), x, cfg.pattern(), cfg,
-        positions=positions, dropout_gen=rng, return_cache=return_cache,
-        cache_len=cache_len,
+        params["blocks"], params.get("tail", {}), x, _layout(cfg)[2], cfg,
+        positions=positions, enc_out=enc_out,
+        dropout_gen=rng, return_cache=return_cache, cache_len=cache_len,
         adapter_idx=batch.get("adapter_idx"), kernel_impl=kernel_impl,
         remat=remat)
     x = L.rms_norm(x[:, n_p:], params["final_norm"], cfg.norm_eps)
@@ -400,8 +472,11 @@ def loss_and_metrics(params, batch, cfg: ArchConfig, *, rng=None,
     ``torch.utils.checkpoint``, so no (B, S, V) logits are kept for the
     backward pass.  ``acc`` counts positions where loss_mask ≥ 0.999,
     argmax ties going to the first index; ``task_id`` is ignored.
-    ``remat``: as ``forward``'s."""
+    ``remat``: as ``forward``'s.  A decoder-only model's ``frontend_emb``
+    rows are dropped before the CE (the loss is over the tokens)."""
     hidden, _, aux = forward(params, batch, cfg, rng=rng, remat=remat)
+    if cfg.frontend and not cfg.n_enc_layers and "frontend_emb" in batch:
+        hidden = hidden[:, batch["frontend_emb"].shape[1]:]
     tokens, mask = batch["tokens"].to(torch.int64), batch["loss_mask"]
     B, Stot, D = hidden.shape
     targets, h, m = tokens[:, 1:], hidden[:, :-1], mask[:, :-1]
@@ -442,11 +517,11 @@ def argmax_first(logits):
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *, device="cuda"):
     """Zero decode caches, per sublayer {"attn": k/v buffers} or {"ssm":
     state and conv states}, stacked (n_sb, batch, ...) in ``blocks`` and
-    (batch, ...) in ``tail``.  (The reference drops a sublayer with no
-    cache, its cross-attention; every sublayer here has one.)"""
-    check_supported(cfg)
+    (batch, ...) in ``tail``.  A cross-attention sublayer has none (its
+    k and v come from the encoder's output each step), and is left out,
+    as the reference leaves it out."""
     dev = resolve_device(device)
-    n_sb, tail, pattern = cfg.blocks_layout()
+    n_sb, tail, pattern = _layout(cfg)
     dtype = _dtype(cfg)
 
     def one(sub, lead):
@@ -455,18 +530,26 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *, device="cuda"):
         return {"attn": L.init_attn_cache(cfg, lead, seq_len, sub.attn_kind,
                                           dtype, dev)}
     blocks = ({f"sub{i}": one(sub, (n_sb, batch))
-               for i, sub in enumerate(pattern)} if n_sb else {})
+               for i, sub in enumerate(pattern) if sub.mixer != "cross_attn"}
+              if n_sb else {})
     tail_c = {f"sub{i}": one(pattern[i], batch) for i in range(tail)}
     return {"blocks": blocks, "tail": tail_c}
 
 
 def decode_step(params, new_token, cache, cache_index, cfg: ArchConfig, *,
-                adapter_idx=None):
+                enc_out=None, adapter_idx=None):
     """One-token decode.  new_token: (B,) int; cache_index: int / 0-d
-    shared position or (B,) int per-row positions (mixed batching).
-    Writes the cache in place.  Returns (logits (B,V) f32, cache)."""
-    check_supported(cfg)
+    shared position or (B,) int per-row positions (mixed batching; under
+    M-RoPE the position is repeated over the three components).  An
+    encoder-decoder needs ``enc_out`` (B, S_enc, D), the encoder's output
+    (``_encode``), which each cross-attention sublayer reads.  Writes the
+    cache in place.  Returns (logits (B,V) f32, cache)."""
     _refuse_prompt(params, "decode_step")
+    if cfg.n_enc_layers and enc_out is None:
+        raise ValueError("decode_step: an encoder-decoder model needs the "
+                         "encoder's output (enc_out); without it the "
+                         "reference's cross-attention attends the new "
+                         "token alone")
     x = params["embed"]["embedding"][new_token.to(torch.int64)[:, None]]
     B = x.shape[0]
     if torch.is_tensor(cache_index) and cache_index.dim() == 1:
@@ -475,9 +558,9 @@ def decode_step(params, new_token, cache, cache_index, cfg: ArchConfig, *,
         positions = torch.full((B, 1), int(cache_index), dtype=torch.int64,
                                device=x.device)
     x, new_cache, _ = _run_blocks(
-        params["blocks"], params.get("tail", {}), x, cfg.pattern(), cfg,
+        params["blocks"], params.get("tail", {}), x, _layout(cfg)[2], cfg,
         positions=positions, cache=cache, cache_index=cache_index,
-        adapter_idx=adapter_idx)
+        enc_out=enc_out, adapter_idx=adapter_idx)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x[:, 0] @ _head_kernel(params, cfg).to(x.dtype)).float()
     return logits, new_cache
@@ -494,12 +577,16 @@ def _refuse_prompt(params, what):
             "prefill offsets the cache by it")
 
 
-def prefill(params, batch, cfg: ArchConfig, *, cache_len=0):
-    """Process a prompt, returning (last_logits, cache).  cache_len pads
-    the caches with headroom for subsequent decode steps."""
+def prefill(params, batch, cfg: ArchConfig, *, cache_len=0, enc_out=None):
+    """Process a prompt (with its ``frontend_emb`` and ``positions`` when
+    given), returning (last_logits, cache).  cache_len pads the caches
+    with headroom for subsequent decode steps; a frontend's F rows sit
+    in front of the tokens', so a decode step continues at F + S.  An
+    encoder-decoder encodes ``frontend_emb`` here unless ``enc_out`` is
+    given."""
     _refuse_prompt(params, "prefill")
     hidden, cache, _ = forward(params, batch, cfg, return_cache=True,
-                               cache_len=cache_len)
+                               cache_len=cache_len, enc_out=enc_out)
     logits = (hidden[:, -1] @ _head_kernel(params, cfg).to(hidden.dtype)
               ).float()
     return logits, cache

@@ -79,7 +79,6 @@ class ServeEngine:
         if cfg.sliding_window or cfg.local_global:
             raise ValueError("sliding-window (local) attention is not "
                              "supported by ServeEngine yet")
-        M.check_supported(cfg)
         self.device = resolve_device(device)
         check_on(base["embed"]["embedding"], self.device, "base params")
         if store.device != self.device:

@@ -96,7 +96,8 @@ def _layer0_t(tree):
 @pytest.mark.parametrize("arch", ["llama2-7b", "deepseek-7b", "granite-34b",
                                   "qwen3-32b", "gemma3-1b",
                                   "qwen3-moe-30b-a3b", "mixtral-8x22b",
-                                  "mamba2-2.7b", "jamba-v0.1-52b"])
+                                  "mamba2-2.7b", "jamba-v0.1-52b",
+                                  "qwen2-vl-2b", "seamless-m4t-large-v2"])
 def test_configs_equal_the_reference(arch):
     from repro.configs import get_config as j_get, get_smoke_config as j_smoke
     assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(j_get(arch))
@@ -110,8 +111,16 @@ def test_configs_equal_the_reference(arch):
 
 
 def test_unported_architectures_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="A12"):
-        get_config("qwen2-vl-2b")
+    """Every id of the reference's registry resolves in the port since
+    A12e (qwen2-vl-2b and seamless-m4t-large-v2 were the last refused,
+    with NotImplementedError); an unknown id still raises KeyError."""
+    from repro.configs import ARCH_IDS as J_IDS
+    from repro_torch.configs import ARCH_IDS as T_IDS
+    assert sorted(T_IDS) == sorted(J_IDS)
+    for arch in ("qwen2-vl-2b", "seamless-m4t-large-v2",
+                 "qwen2_vl_2b", "seamless_m4t_large_v2"):
+        assert get_config(arch).name == arch.replace("_", "-")
+        assert get_smoke_config(arch).n_layers == 2
     with pytest.raises(KeyError):
         get_config("no-such-model")
 
@@ -229,7 +238,8 @@ def test_linear_refuses_unported_paths():
     """FedALT's dual pair and the Houlsby adapter, which these layers
     refused until ROADMAP A8a, now run and match the reference (the
     fused flag leaves a raw pair on the plain path); what they still
-    refuse (M-RoPE, the other families) is held by the A12 tests."""
+    refuse (pooled leaves on the SSM mixer and the encoder) is held in
+    tests/test_torch_ssm.py and tests/test_torch_multimodal.py."""
     rng = np.random.default_rng(6)
 
     def draw(shapes):                # N(0, 1 / fan_in), O(1) activations
@@ -383,17 +393,27 @@ def test_entry_points_default_to_the_card():
 
 
 # qk-norm, sliding windows and local/global layers (tests/
-# test_torch_dense_attention.py), MoE (tests/test_torch_moe.py) and the
-# SSM and hybrid families (tests/test_torch_ssm.py) are ported; what is
-# still refused:
+# test_torch_dense_attention.py), MoE (tests/test_torch_moe.py), the SSM
+# and hybrid families (tests/test_torch_ssm.py), and since A12e M-RoPE,
+# the frontends and the encoder-decoder (tests/test_torch_multimodal.py)
+# are ported: the four changes that were refused with NotImplementedError
+# now build, each with the layout the reference's init_params gives it
 @pytest.mark.parametrize("change,item", [
     (dict(mrope=True), "A12"), (dict(frontend="vision"), "A12"),
     (dict(n_enc_layers=2), "A12"), (dict(family="vlm"), "A12"),
 ])
 def test_unported_features_raise_not_implemented(change, item):
     cfg = dataclasses.replace(T_SMOKE, **change)
-    with pytest.raises(NotImplementedError, match=item):
-        TM.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    jcfg = dataclasses.replace(J_SMOKE, **change)
+    got = TM.init_params(torch.Generator().manual_seed(0), cfg,
+                         device="cpu")
+    jtree = jax.eval_shape(lambda: JM.init_params(jax.random.PRNGKey(0),
+                                                  jcfg))
+    want = {p: tuple(x.shape) for p, x in zip(jpt.tree_paths(jtree),
+                                              jax.tree.leaves(jtree))}
+    assert {p: tuple(x.shape)
+            for p, x in tpt.tree_leaves_with_path(got)} == want, item
+    assert ("encoder" in got) == bool(cfg.n_enc_layers)
 
 
 def _imports(path):

@@ -15,7 +15,8 @@ every leaf of the server model within 1e-9 of the leaf's max |value|
 (``lora_exact``: the products A·B of each pair; its factors are fixed up
 to a sign per rank column).  One ``fedlora_opt`` pipeline runs at
 jamba-v0.1-52b's SMOKE config instead (the hybrid family: attention,
-Mamba and MoE sublayers).  Measured: 0 on every leaf of every case
+Mamba and MoE sublayers), and one at seamless-m4t-large-v2's (the
+encoder-decoder, with frontend_emb in every batch).  Measured: 0 on every leaf of every case
 but two kinds, each held at its own stated tolerance: the weighted
 fleets (TOL_WEIGHTED: FedSim normalizes the weights in f32) and the
 sharded stage 2 over ragged loss masks (TOL_RAGGED: the CE runs in f32).
@@ -72,6 +73,11 @@ CFG_MOE = ArchConfig(**TINY_MOE)
 # jamba's SMOKE config, the hybrid family: 2 layers of d 256, vocab 512
 CFG_JAMBA = dataclasses.replace(get_smoke_config("jamba-v0.1-52b"),
                                 lora_dropout=0.0)
+# seamless-m4t's SMOKE config, the encoder-decoder family: 2 + 2 layers of
+# d 256, vocab 512; its batches carry ENC_F frames of frontend_emb a row
+CFG_ENCDEC = dataclasses.replace(get_smoke_config("seamless-m4t-large-v2"),
+                                 lora_dropout=0.0)
+ENC_F = 12
 HP = dict(n_clients=C, local_steps=T, batch=B, seq_len=S, lr=1e-2,
           server_lr=5e-3, global_steps=TG, personal_steps=TP, lam=1e-2)
 TOL = 1e-9
@@ -134,12 +140,23 @@ def data(name):
     return np.random.default_rng(zlib.crc32(name.encode()))
 
 
-def client_batches(rng, n=T):
-    return [{"tokens": torch.as_tensor(rng.integers(5, 64, size=(C, B, S))),
-             "loss_mask": torch.ones((C, B, S))} for _ in range(n)]
+def frames(rng, lead, d):
+    """``frontend_emb`` rows: N(0, 1) frames of width d behind ``lead``."""
+    return torch.as_tensor(rng.normal(size=(*lead, ENC_F, d)))
 
 
-def server_batches(rng, rows=B, ragged=False):
+def client_batches(rng, n=T, cfg=CFG):
+    out = []
+    for _ in range(n):
+        b = {"tokens": torch.as_tensor(rng.integers(5, 64, size=(C, B, S))),
+             "loss_mask": torch.ones((C, B, S))}
+        if cfg.frontend:
+            b["frontend_emb"] = frames(rng, (C, B), cfg.d_model)
+        out.append(b)
+    return out
+
+
+def server_batches(rng, rows=B, ragged=False, cfg=CFG):
     """TG server batches; ``ragged``: each row's loss mask opens at a
     random position (as an instruction's prompt is masked), so that the
     ranks' slices of a sharded step count different tokens."""
@@ -151,7 +168,10 @@ def server_batches(rng, rows=B, ragged=False):
             start = rng.integers(0, S - 2, size=rows)
             mask = torch.as_tensor(
                 (np.arange(S)[None] >= start[:, None]).astype(np.float32))
-        out.append({"tokens": tokens, "loss_mask": mask})
+        b = {"tokens": tokens, "loss_mask": mask}
+        if cfg.frontend:
+            b["frontend_emb"] = frames(rng, (rows,), cfg.d_model)
+        out.append(b)
     return out
 
 
@@ -205,9 +225,9 @@ def run_pipeline(pool, name, *, ranks=None, weights=None, server_rows=B,
     sim, rng = sim64(name, cfg, **kw), data(name)
     iters = []
     for _ in range(ROUNDS):
-        cb = client_batches(rng)
-        sb = server_batches(rng, server_rows, ragged)
-        pb = client_batches(rng, TP)
+        cb = client_batches(rng, cfg=cfg)
+        sb = server_batches(rng, server_rows, ragged, cfg=cfg)
+        pb = client_batches(rng, TP, cfg=cfg)
         iters.append((cb, sb, pb))
     res = pool.run(R.pipeline, cfg, settings(name, **kw), sim.base,
                    sim.client_adapters, sim.opt_state,
@@ -322,6 +342,15 @@ def test_hybrid_pipeline_parity(pool):
     scan under autograd and ``moe_ffn_local`` on its own micro-batch
     (capacity 8: nothing dropped), two iterations == FedSim's."""
     run_pipeline(pool, "fedlora_opt", cfg=CFG_JAMBA)
+
+
+def test_encoder_decoder_pipeline_parity(pool):
+    """fedlora_opt at seamless-m4t's SMOKE config (a non-causal encoder,
+    decoder layers of self-attention and cross-attention; adapters on
+    q / v of all three): every batch carries frontend_emb (12 frames
+    against 16 tokens), which each rank slices per micro-batch as it
+    slices the tokens (sharded in stage 2), two iterations == FedSim's."""
+    run_pipeline(pool, "fedlora_opt", cfg=CFG_ENCDEC)
 
 
 @pytest.mark.parametrize("name", ("lora", "fedlora_opt"))
@@ -475,13 +504,13 @@ def test_fed_train_step_rejects_bad_fleets():
         make_fed_train_step(dataclasses.replace(CFG, use_fused_dora=True),
                             mesh, TrainSettings(), device="cpu")
     # MoE configs build (each rank runs moe_ffn_local on its own
-    # micro-batch); the families still to port are refused
-    step_fn, opt_init = make_fed_train_step(CFG_MOE, mesh, TrainSettings(),
-                                            device="cpu")
-    assert callable(step_fn) and callable(opt_init)
-    with pytest.raises(NotImplementedError, match="A12"):
-        make_fed_train_step(dataclasses.replace(CFG, family="vlm"), mesh,
-                            TrainSettings(), device="cpu")
+    # micro-batch), and since A12e so do the vision-language and
+    # encoder-decoder families, which were refused with
+    # NotImplementedError: nothing of the reference's registry is refused
+    for cfg in (CFG_MOE, dataclasses.replace(CFG, family="vlm"), CFG_ENCDEC):
+        step_fn, opt_init = make_fed_train_step(cfg, mesh, TrainSettings(),
+                                                device="cpu")
+        assert callable(step_fn) and callable(opt_init)
     custom = FedMethod(name="custom", make_adapter=lambda *a, **k: {},
                        train_mask=lambda t: t, aggregate=lambda t: t)
     with pytest.raises(ValueError, match="no shard_map collective form"):
