@@ -396,6 +396,32 @@ Phase 16 vision-language and encoder-decoder models, run after phase 15
          merged model's; seamless's pooled tree refused (its encoder
          takes no per-row adapters), a tenant served merged.  (a) and
          (b) also profile one prefill.  The phase takes at most 90 s.
+Phase 17 backbone pretraining, the analytic account and the user
+         examples, run after phase 16: (a) fed.pretrain.pretrain_base at
+         llama2-7b's full width, 8 layers, bf16 (full-parameter AdamW,
+         clip 1, f32 moments; 32 layers would not fit in 80 GB), the
+         reference's batch of 32 x 48 tokens and lr 3e-3, 10 steps: each
+         step's loss finite, each step's host ms around a sync (the
+         last profiled instead: device busy ms, GEMMs against the rest),
+         the median warm step, tokens/s, the peak, and the achieved TFLOP/s
+         from launch/analysis.analytic_step_flops (3 forward passes a
+         train step) with its share of 989 TFLOP/s; the meta tree's
+         parameter count (param_counts) and bytes (tree_bytes) equal the
+         real tree's.  (b) One full-parameter gradient, 1 layer of
+         llama2-7b width in f32, 2 x 48 tokens: every backbone leaf's
+         gradient on the card within 1e-4 of the leaf's max |g| on the
+         CPU, the loss within 1e-5.  (c) get_pretrained_base at the e2e
+         example's 100m profile, 50 steps, its cache in build/phase17/:
+         the first call trains once and writes the file, the second
+         restores it bit for bit without training.  (d) ``python -m
+         repro_torch.examples.fed_finetune_e2e --profile 100m --rounds 2
+         --pretrain-steps 50`` in build/phase17/ with (c)'s cache: exit
+         0, (c)'s base restored, accuracies in [0, 1], its history file
+         written; its wall time.  (e) examples.serve_personalized.main()
+         in this process: its mixed batch equal to merge-per-tenant
+         greedy_generate, bgmv_mag launched 2 targets x 4 layers x 2
+         generate calls x (1 prefill + 8 decode forwards) = 144 times;
+         both tokens/s.  The phase takes at most 90 s.
 Every run starts with every launch count at 0.  Each path's prefill
 logits, kernels against plain versions, relative to max |logit|: bf16
 weights through the first CHECK_DEPTH layers within 2e-2, f32 weights
@@ -5349,6 +5375,290 @@ def phase_mm(torch):
                     "bgmv_mag": n_mag}
 
 
+# --- phase 17: pretraining, the analytic account and the examples ----------
+
+TOOLING_ARCH = "llama2-7b"
+PRETRAIN_DEPTH = 8      # llama2-7b layers in (a): full-parameter AdamW
+PRETRAIN_STEPS = 10     # (a)'s steps at the reference's defaults
+PRETRAIN_BATCH, PRETRAIN_SEQ, PRETRAIN_LR = 32, 48, 3e-3
+PRETRAIN_GRAD_ROWS = 2  # (b)'s batch, 1 layer of full width in f32
+E2E_PROFILE, E2E_STEPS, E2E_ROUNDS = "100m", 50, 2   # (c) and (d)
+TOOLING_BUDGET_S = 90   # the phase's wall time
+
+
+def pretrain_full_width(torch):
+    """(a) ``pretrain_base`` at llama2-7b's width, PRETRAIN_DEPTH layers,
+    bf16, the reference's batch and lr, PRETRAIN_STEPS steps; each step
+    timed on the host clock around a sync (``fed.pretrain._train_step``
+    wrapped for the run), the last under torch.profiler instead (device
+    busy ms, the GEMMs' share, the top kernels).  The analytic account of its meta tree against
+    the real tree; achieved TFLOP/s from ``analytic_step_flops``."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.data import (SyntheticInstructionDataset,
+                                  make_dataset_family)
+    from repro_torch.fed import pretrain as pre
+    from repro_torch.launch import analysis
+    from repro_torch.launch.specs import abstract_params
+    from repro_torch.utils import pytree as pt
+    cfg = dataclasses.replace(get_config(TOOLING_ARCH),
+                              n_layers=PRETRAIN_DEPTH, lora_dropout=0.0)
+    fam = make_dataset_family("dolly", vocab_size=cfg.vocab_size)
+    mix = SyntheticInstructionDataset(fam, [1 / 3, 1 / 3, 1 / 3, 0],
+                                      client_seed=0)
+    steps, losses, prof = [], [], {}
+    inner = pre._train_step
+
+    def timed(*a):
+        torch.cuda.synchronize()
+        if len(losses) == PRETRAIN_STEPS - 1:      # the last step, profiled
+            held = []
+            prof["by_name"], _ = profiled(lambda: held.append(inner(*a)),
+                                          cpu=False)
+            out = held[0]
+        else:
+            t0 = time.perf_counter()
+            out = inner(*a)
+            torch.cuda.synchronize()
+            steps.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(out[2]["ce"]))
+        return out
+    log = []
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    pre._train_step = timed
+    try:
+        t0 = time.perf_counter()
+        params = pre.pretrain_base(cfg, mix, steps=PRETRAIN_STEPS,
+                                   batch=PRETRAIN_BATCH, seq_len=PRETRAIN_SEQ,
+                                   lr=PRETRAIN_LR, seed=0, log=log.append,
+                                   device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        pre._train_step = inner
+    peak = torch.cuda.max_memory_allocated()
+    check(len(losses) == PRETRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"pretrain {TOOLING_ARCH} x {PRETRAIN_DEPTH} layers: "
+          f"{PRETRAIN_STEPS} finite losses ({losses})")
+    check(bool(pt.tree_all_finite(params)), "pretrain: every leaf finite")
+    meta = abstract_params(cfg)
+    counts = analysis.param_counts(cfg, meta)
+    real = (pt.tree_count_params(params), pt.tree_bytes(params))
+    check((counts["n_params"], pt.tree_bytes(meta)) == real,
+          f"pretrain: the abstract tree's {counts['n_params']} parameters "
+          f"and {pt.tree_bytes(meta)} bytes equal the real tree's {real}")
+    shape = InputShape("pretrain", PRETRAIN_SEQ, PRETRAIN_BATCH, "train")
+    flops = analysis.analytic_step_flops(cfg, shape)["flops_global"]
+    warm = statistics.median(steps[1:])
+    tokens = PRETRAIN_BATCH * PRETRAIN_SEQ
+    busy = sum(prof["by_name"].values())
+    gemm = sum(v for k, v in prof["by_name"].items()
+               if re.search(r"gemm|xmma|nvjet|cutlass", k, re.I))
+    top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:6]
+    report = {
+        "layers": cfg.n_layers, "dtype": cfg.dtype, "n_params": real[0],
+        "param_bytes": real[1], "steps": PRETRAIN_STEPS,
+        "batch": [PRETRAIN_BATCH, PRETRAIN_SEQ], "lr": PRETRAIN_LR,
+        "losses": losses, "step_ms": steps, "warm_step_ms_median": warm,
+        "profiled_step": {"device_busy_ms": busy, "gemm_ms": gemm,
+                          "other_ms": busy - gemm,
+                          "top_kernels_ms": {k[:80]: v for k, v in top}},
+        "tokens_per_s": tokens / (warm / 1e3), "wall_s": wall,
+        "peak_bytes": peak, "log": log,
+        "analytic_step_flops": flops,
+        "achieved_tflops": flops / (warm / 1e3) / 1e12,
+        "share_of_989_tflops": flops / (warm / 1e3) / analysis.PEAK_FLOPS,
+        "note": "the analytic train count is 3 forward passes; a "
+                "full-parameter backward (input and weight gradients) is "
+                "about 2 forward passes, so 3 is this step's count too"}
+    print(f"tooling pretrain [{GPU}]: " + json.dumps(report))
+    del params, meta
+    free(torch)
+    return report
+
+
+def pretrain_grad_check(torch):
+    """(b) One full-parameter gradient on the card against the CPU's: 1
+    layer of llama2-7b width in f32, PRETRAIN_GRAD_ROWS x PRETRAIN_SEQ
+    tokens of the dolly mix, every backbone leaf within GRAD_TOL of the
+    leaf's max |g| on the CPU, through the loss and gradient
+    ``pretrain_base`` takes (``fed.simulate.value_and_grad`` of
+    ``loss_and_metrics``).  The embedding's backward sums rows with
+    atomics on the card, so no bit equality is asked."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import (SyntheticInstructionDataset,
+                                  make_dataset_family, to_device)
+    from repro_torch.fed.simulate import value_and_grad
+    from repro_torch.models import model as M
+    from repro_torch.utils import pytree as pt
+    cfg = dataclasses.replace(get_config(TOOLING_ARCH), n_layers=1,
+                              dtype="float32", lora_dropout=0.0)
+    params = M.init_params(torch.Generator(device="cuda").manual_seed(5),
+                           cfg, device="cuda")
+    fam = make_dataset_family("dolly", vocab_size=cfg.vocab_size)
+    mix = SyntheticInstructionDataset(fam, [1 / 3, 1 / 3, 1 / 3, 0],
+                                      client_seed=0)
+    batch = mix.sample_batch(np.random.default_rng(3), PRETRAIN_GRAD_ROWS,
+                             PRETRAIN_SEQ)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = params if dev == "cuda" else pt.tree_map(lambda t: t.cpu(),
+                                                     params)
+        b = to_device(batch, dev)
+        out[dev] = value_and_grad(lambda q: M.loss_and_metrics(q, b, cfg), p)
+    (l_gpu, _, g_gpu), (l_cpu, _, g_cpu) = out["cuda"], out["cpu"]
+    errs = {}
+    for p, want in pt.tree_leaves_with_path(g_cpu):
+        scale = float(want.abs().max())
+        check(scale > 0, f"pretrain grad check: {p} has a nonzero gradient")
+        errs[p] = float((pt.tree_get(g_gpu, p).cpu() - want).abs().max()
+                        / scale)
+    worst = max(errs, key=errs.get)
+    loss_err = abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu))
+    check(errs[worst] <= GRAD_TOL and loss_err <= 1e-5,
+          f"pretrain grad check, 1 layer of {TOOLING_ARCH} width f32, "
+          f"{PRETRAIN_GRAD_ROWS} x {PRETRAIN_SEQ} tokens: {len(errs)} "
+          f"backbone gradients on the card within {GRAD_TOL} of the CPU's "
+          f"(worst {worst}: {errs[worst]:.3e}), loss within 1e-5 "
+          f"({loss_err:.2e})")
+    report = {"leaves": len(errs), "worst": worst, "worst_err": errs[worst],
+              "loss": float(l_gpu), "loss_err": loss_err}
+    print("tooling grad check: " + json.dumps(report))
+    del params, out, g_gpu, g_cpu
+    free(torch)
+    return report
+
+
+def pretrain_cache(torch, workdir):
+    """(c) ``get_pretrained_base`` at the e2e E2E_PROFILE profile for
+    E2E_STEPS steps with REPRO_CACHE in ``workdir``: the first call trains
+    (one ``pretrain_base`` call) and writes the file, the second restores
+    it, every leaf bit for bit, without training."""
+    from repro_torch.data import (SyntheticInstructionDataset,
+                                  make_dataset_family)
+    from repro_torch.examples.fed_finetune_e2e import PROFILES
+    from repro_torch.fed import pretrain as pre
+    from repro_torch.utils import pytree as pt
+    cfg = PROFILES[E2E_PROFILE]
+    fam = make_dataset_family("dolly", vocab_size=cfg.vocab_size)
+    mix = SyntheticInstructionDataset(fam, [1 / 3, 1 / 3, 1 / 3, 0],
+                                      client_seed=0)
+    calls = []
+    inner = pre.pretrain_base
+
+    def counted(*a, **k):
+        calls.append(1)
+        return inner(*a, **k)
+    old = os.environ.get("REPRO_CACHE")
+    os.environ["REPRO_CACHE"] = str(workdir / "cache")
+    pre.pretrain_base = counted
+    try:
+        path = pre.cache_path(cfg, E2E_STEPS, 0, fam.name)
+        check(not os.path.exists(path), f"tooling cache: {path} is new")
+        log = []
+        first, ms_train, _ = synced(torch, lambda: pre.get_pretrained_base(
+            cfg, mix, steps=E2E_STEPS, log=log.append, device="cuda"))
+        check(len(calls) == 1 and os.path.isfile(path),
+              f"tooling cache: the first call trained once ({len(calls)}) "
+              f"and wrote {path}")
+        second, ms_restore, _ = synced(torch, lambda: pre.get_pretrained_base(
+            cfg, mix, steps=E2E_STEPS, log=log.append, device="cuda"))
+        check(len(calls) == 1 and log[-1] == f"restored pretrained base "
+              f"from {path}", "tooling cache: the second call restored the "
+              "file without training")
+    finally:
+        pre.pretrain_base = inner
+        if old is None:
+            os.environ.pop("REPRO_CACHE")
+        else:
+            os.environ["REPRO_CACHE"] = old
+    same_leaves(torch, second, first, f"tooling cache {E2E_PROFILE}")
+    check(all(x.device.type == "cuda" for x in pt.tree_leaves(second)),
+          "tooling cache: the restored base is on the card")
+    report = {"profile": E2E_PROFILE, "steps": E2E_STEPS,
+              "n_params": pt.tree_count_params(first),
+              "file_bytes": os.path.getsize(path),
+              "train_ms": ms_train, "restore_ms": ms_restore, "log": log}
+    print(f"tooling cache [{GPU}]: " + json.dumps(report))
+    del first, second
+    free(torch)
+    return report
+
+
+def e2e_example(torch, workdir):
+    """(d) ``python -m repro_torch.examples.fed_finetune_e2e`` as a user
+    runs it, in ``workdir`` with (c)'s cache: it restores (c)'s base,
+    federates E2E_ROUNDS rounds, prints accuracies in [0, 1] and writes
+    its history file."""
+    env = dict(os.environ, REPRO_CACHE=str(workdir / "cache"),
+               PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.examples.fed_finetune_e2e",
+           "--profile", E2E_PROFILE, "--rounds", str(E2E_ROUNDS),
+           "--pretrain-steps", str(E2E_STEPS)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=workdir, env=env, capture_output=True,
+                          text=True, timeout=TOOLING_BUDGET_S)
+    wall = time.perf_counter() - t0
+    print(f"--- {' '.join(cmd[1:])} (exit {proc.returncode}, {wall:.1f} s)"
+          f" ---\n{proc.stdout.strip()}\n{proc.stderr.strip()[-2000:]}")
+    check(proc.returncode == 0, f"e2e example exited {proc.returncode}")
+    out = proc.stdout
+    check("restored pretrained base from" in out,
+          "e2e example: restored (c)'s pretrained base")
+    accs = {k: float(re.search(rf"{k} acc : ([0-9.]+)", out).group(1))
+            for k in ("global model", "personalized")}
+    check(all(0.0 <= a <= 1.0 for a in accs.values()),
+          f"e2e example: accuracies in [0, 1] ({accs})")
+    hist = workdir / "experiments" / f"e2e_{E2E_PROFILE}.msgpack"
+    check(hist.is_file(), f"e2e example: wrote {hist}")
+    report = {"wall_s": wall, "accuracies": accs,
+              "history_bytes": hist.stat().st_size}
+    print(f"tooling e2e example [{GPU}]: " + json.dumps(report))
+    return report
+
+
+def serve_example(torch):
+    """(e) ``examples.serve_personalized.main`` in this process on the
+    card, every count at 0 before it: its own mixed = merged assertion,
+    and bgmv_mag launched 2 targets x its layers x (prefill and decode
+    forwards of its two ``generate`` calls) times: each call admits its
+    N_TENANTS requests into one N_TENANTS-row prefill and decodes the
+    N_NEW - 1 remaining tokens in one chunk of CHUNK steps; the merged
+    path (``greedy_generate`` per tenant) launches no kernel."""
+    from repro_torch.examples import serve_personalized as sp
+    per_call = (math.ceil(sp.N_TENANTS / sp.N_TENANTS)
+                + math.ceil((sp.N_NEW - 1) / sp.CHUNK) * sp.CHUNK)
+    torch.cuda.synchronize()
+    reset_launches()
+    res = sp.main([])
+    launches = read_launches()
+    st = res["last_run"]
+    check(st["prefills"] + st["decode_steps"] == per_call,
+          f"serve example: {st['prefills']} prefill + {st['decode_steps']} "
+          f"decode forwards a generate call = {per_call}")
+    check_launches(launches, {"bgmv_mag": 2}, sp.CFG.n_layers, 2 * per_call,
+                   "serve example", f"2 generate calls x {per_call} forwards")
+    report = {"mixed_tokens_per_s": res["mixed_tokens_per_s"],
+              "merged_tokens_per_s": res["merged_tokens_per_s"],
+              "forwards_per_generate": per_call,
+              "bgmv_mag": launches["bgmv_mag"]}
+    print(f"tooling serve example [{GPU}]: " + json.dumps(report))
+    return report, launches["bgmv_mag"]
+
+
+def phase_tooling(torch, workdir):
+    """Phase 17.  Returns the report and bgmv_mag's launches in (e)."""
+    t0 = time.perf_counter()
+    report = {"pretrain": pretrain_full_width(torch),
+              "grad_check": pretrain_grad_check(torch),
+              "cache": pretrain_cache(torch, workdir),
+              "e2e_example": e2e_example(torch, workdir)}
+    report["serve_example"], n = serve_example(torch)
+    report["wall_s"] = time.perf_counter() - t0
+    print(f"tooling [{GPU}]: phase wall {report['wall_s']:.1f} s")
+    return report, n
+
+
 # --- phase 12: the production round engine (run after phase 11) ------------
 
 ENGINE_HP = dict(method="fedlora_opt", n_clients=4, local_steps=2, batch=4,
@@ -6001,6 +6311,23 @@ def main():
               f"{t_mm:.1f} s")
         check(t_mm <= MM_BUDGET_S, f"phase 16 took {t_mm:.1f} s <= "
               f"{MM_BUDGET_S} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        workdir = ROOT / "build" / "phase17"    # phase 17's cache and cwd
+        shutil.rmtree(workdir, ignore_errors=True)
+        workdir.mkdir(parents=True)
+        try:
+            t0 = time.perf_counter()
+            report["tooling"], tooling_launches = phase_tooling(torch,
+                                                                workdir)
+            launches["bgmv_mag"] += tooling_launches
+            t_tooling = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        print(f"phase 17 (pretraining, tooling and examples) took "
+              f"{t_tooling:.1f} s")
+        check(t_tooling <= TOOLING_BUDGET_S, f"phase 17 took "
+              f"{t_tooling:.1f} s <= {TOOLING_BUDGET_S} s")
     except CheckFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -6030,7 +6357,8 @@ def main():
                  "launches_phase12_engine_serve": engine_launches,
                  "launches_phase14_moe_serve": moe_launches["bgmv_mag"],
                  "launches_phase15_jamba_serve": ssm_launches["bgmv_mag"],
-                 "launches_phase16_qwen2_vl_serve": mm_launches["bgmv_mag"]}
+                 "launches_phase16_qwen2_vl_serve": mm_launches["bgmv_mag"],
+                 "launches_phase17_serve_example": tooling_launches}
                 if name == "bgmv_mag" else
                 {"launches_phase11_cohort_serve": cohort_launches}),
              **({"launches_phase7_training_serve": train_launches}

@@ -20,9 +20,12 @@ the reference's msgpack format and the tiered adapter store; telemetry
 (``obs``: metrics, JSONL events, profiler spans, zero cost when
 disabled); and cross-device cohorts (``fed.cohort``: a host-side client
 bank, cohort sampling, dropouts, stragglers and corrupted updates).
-The other architecture families raise ``NotImplementedError`` naming
-their ROADMAP item (A12); the production round engine (A11) and the
-tooling (A13) are not ported yet.
+All 11 of the reference's architectures run, as does the production
+round engine (``launch/train.py``); so do backbone pretraining
+(``fed/pretrain.py``), the tokenizer, the abstract trees and analytic
+step account (``launch/specs.py``, ``launch/analysis.py``) and the user
+examples (``examples/``).  The dry run and ``lint/`` are not ported yet
+(ROADMAP A13).
 """
 from repro_torch import obs  # noqa: F401
 from repro_torch.device import resolve_device  # noqa: F401

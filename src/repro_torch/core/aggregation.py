@@ -366,6 +366,29 @@ def client_rebroadcast(aggregated: Params, own_adapters: Params,
     return out
 
 
+def aggregate_with_personal_exclusion(client_adapters: Params,
+                                      exclude_rx: str = r"dB_mag$"
+                                      ) -> Params:
+    """Paper pipeline: the mean over clients of every leaf, broadcast back
+    to each client, except the personalized magnitude deltas, which stay
+    client-local (the client-stacked leaves themselves)."""
+    rx = re.compile(exclude_rx)
+    agg = pt.tree_map(lambda x: torch.mean(x, dim=0), client_adapters)
+    n = pt.tree_leaves(client_adapters)[0].shape[0]
+    return pt.tree_map_with_path(
+        lambda p, new_leaf: client_adapters_leaf(p, new_leaf,
+                                                 client_adapters, rx),
+        broadcast_to_clients(agg, n))
+
+
+def client_adapters_leaf(path: str, new_leaf, client_adapters: Params, rx):
+    """``client_adapters``' leaf at ``path`` where ``rx`` matches it, else
+    ``new_leaf``."""
+    if rx.search(path):
+        return pt.tree_get(client_adapters, path)
+    return new_leaf
+
+
 def rebroadcast_keep_personal(aggregated: Params, client_adapters: Params,
                               keep_rx=None,
                               rank_masks: Params | None = None) -> Params:

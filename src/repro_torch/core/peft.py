@@ -46,7 +46,9 @@ def _target_kernels(base: Params, targets) -> list[tuple[str, Any]]:
 
 def _randn(g, shape, device):
     """N(0, 1) in f32, drawn on the generator's device, moved to
-    ``device``."""
+    ``device`` (on "meta", shapes only: nothing is drawn)."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device=device)
     return torch.randn(shape, generator=g, device=g.device).to(device)
 
 
@@ -58,7 +60,8 @@ def add_lora(base: Params, cfg: ArchConfig, generator: torch.Generator, *,
     B_dir is a random unit-norm direction and B_mag = 0, so ΔW = 0
     exactly (see the reference's docstring for why that matters).
     Draws happen on the generator's device; leaves land on each target
-    kernel's device, in f32.
+    kernel's device, in f32.  Over a ``device="meta"`` base nothing is
+    drawn (``generator`` may be None): the overlay has the shapes only.
     """
     r = rank or cfg.lora_rank
     g = generator

@@ -9,7 +9,9 @@ from repro_torch.data.partition import (  # noqa: F401
     specialist_partition,
 )
 from repro_torch.data.loader import (  # noqa: F401
+    batch_iterator,
     client_batch,
     eval_batches,
     to_device,
 )
+from repro_torch.data.tokenizer import HashTokenizer  # noqa: F401

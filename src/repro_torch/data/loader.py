@@ -3,7 +3,7 @@
 numpy calls as the reference's, so the same seeds give the same bytes."""
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Iterator, Sequence
 
 import numpy as np
 import torch
@@ -17,6 +17,16 @@ def to_device(batch: dict, device="cuda") -> dict:
     dev = resolve_device(device)
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
             for k, v in batch.items()}
+
+
+def batch_iterator(dataset: SyntheticInstructionDataset, batch: int,
+                   seq_len: int, steps: int, seed: int = 0,
+                   device="cuda") -> Iterator[dict]:
+    """``steps`` training batches from ``np.random.default_rng(seed)``,
+    each as tensors on ``device``."""
+    rng = np.random.default_rng(seed)
+    for _ in range(steps):
+        yield to_device(dataset.sample_batch(rng, batch, seq_len), device)
 
 
 def eval_batches(dataset: SyntheticInstructionDataset, batch: int,

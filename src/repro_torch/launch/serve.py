@@ -10,6 +10,9 @@ Per-tenant adapters, two deployment modes:
 
 The reference runs the decode steps as one jitted ``lax.scan``; PyTorch
 runs eagerly, so here they are a Python loop with no host sync inside.
+``make_prefill_step`` / ``make_decode_step`` bind the model's serving
+steps to a config (the reference's mesh argument has no counterpart on
+one card).
 """
 from __future__ import annotations
 
@@ -23,6 +26,26 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.utils import pytree as pt
 
 Params = Any
+
+
+def make_prefill_step(cfg: ArchConfig):
+    """``prefill_step(params, batch, enc_out=None) → (last logits,
+    cache)``: ``models.model.prefill`` bound to ``cfg``."""
+    def prefill_step(params, batch, enc_out=None):
+        return M.prefill(params, batch, cfg, enc_out=enc_out)
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ArchConfig):
+    """``decode_step(params, new_token, cache, cache_index, enc_out=None)
+    → (logits, cache)``: ``models.model.decode_step`` bound to ``cfg``
+    (an encoder-decoder needs ``enc_out``)."""
+    def decode_step(params, new_token, cache, cache_index, enc_out=None):
+        return M.decode_step(params, new_token, cache, cache_index, cfg,
+                             enc_out=enc_out)
+
+    return decode_step
 
 
 def greedy_generate(params, prompt_batch: dict, cfg: ArchConfig,

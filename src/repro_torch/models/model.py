@@ -519,8 +519,10 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *, device="cuda"):
     state and conv states}, stacked (n_sb, batch, ...) in ``blocks`` and
     (batch, ...) in ``tail``.  A cross-attention sublayer has none (its
     k and v come from the encoder's output each step), and is left out,
-    as the reference leaves it out."""
-    dev = resolve_device(device)
+    as the reference leaves it out.  On ``device="meta"`` the tree has
+    the shapes and dtypes only."""
+    dev = (torch.device("meta") if str(device) == "meta"
+           else resolve_device(device))
     n_sb, tail, pattern = _layout(cfg)
     dtype = _dtype(cfg)
 

@@ -5,6 +5,7 @@ from repro_torch.optim.optimizers import (  # noqa: F401
     chain_clip,
     clip_by_global_norm,
     masked,
+    sgd,
 )
 from repro_torch.optim.schedules import (  # noqa: F401
     constant_schedule,

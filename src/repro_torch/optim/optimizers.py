@@ -69,6 +69,35 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     return Optimizer(init=init, update=update)
 
 
+def sgd(lr, momentum: float = 0.0, weight_decay: float = 0.0) -> Optimizer:
+    """SGD with optional heavy-ball momentum (an f32 buffer) and L2 weight
+    decay added to the gradient.  The learning rate is read at ``step``
+    itself (AdamW's at ``step + 1``), as the reference's."""
+    sched = _as_schedule(lr)
+
+    def init(params):
+        if momentum == 0.0:
+            return {"mom": {}}
+        return {"mom": pt.tree_map(
+            lambda x: torch.zeros_like(x, dtype=torch.float32), params)}
+
+    def update(grads, state, params, step):
+        lr_t = sched(step)
+        g = grads
+        if weight_decay:
+            g = pt.tree_map2(lambda gi, p: gi + weight_decay * p, g, params)
+        if momentum == 0.0:
+            return pt.tree_map2(lambda gi, p: (-lr_t * gi).to(p.dtype),
+                                g, params), state
+        mom = pt.tree_map2(lambda m, gi: momentum * m + gi.float(),
+                           state["mom"], g)
+        updates = pt.tree_map2(lambda m, p: (-lr_t * m).to(p.dtype),
+                               mom, params)
+        return updates, {"mom": mom}
+
+    return Optimizer(init=init, update=update)
+
+
 def _sentinel(x):
     return torch.zeros((0,), dtype=torch.float32, device=x.device)
 

@@ -1,5 +1,4 @@
-"""Nested-dict tree helpers (the subset of ``repro/utils/pytree.py`` the
-port uses).
+"""Nested-dict tree helpers (port of ``repro/utils/pytree.py``).
 
 Parameters, adapters and caches are nested dicts of tensors.  Paths are
 "/"-joined key strings, e.g. ``"blocks/sub0/attn/q_proj/lora_A"`` — the
@@ -7,7 +6,8 @@ same paths the JAX package uses, so trees carry across leaf by leaf.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Mapping
+import re
+from typing import Any, Callable, Mapping, Sequence
 
 import torch
 
@@ -21,6 +21,12 @@ def _leaves_with_path(tree: Tree, prefix: str = ""):
                 tree[k], f"{prefix}/{k}" if prefix else str(k))
     elif tree is not None:
         yield prefix, tree
+
+
+def path_str(keys: Sequence) -> str:
+    """A sequence of keys (dict keys or sequence indices) as a "/"-joined
+    path: ``("blocks", "sub0", 0)`` → ``"blocks/sub0/0"``."""
+    return "/".join(str(k) for k in keys)
 
 
 def _map_with_path(fn, node, prefix):
@@ -52,12 +58,33 @@ def path_mask(tree: Tree, predicate: Callable[[str], bool]) -> Tree:
     return tree_map_with_path(lambda p, _: bool(predicate(p)), tree)
 
 
+def regex_mask(tree: Tree, pattern: str) -> Tree:
+    """Boolean mask tree: True where the path matches ``pattern``
+    (``re.search``)."""
+    rx = re.compile(pattern)
+    return path_mask(tree, lambda p: rx.search(p) is not None)
+
+
+def tree_select(tree: Tree, mask: Tree, other: Tree) -> Tree:
+    """Per-leaf select over ``mask``'s structure: mask ? tree : other."""
+    return tree_map_with_path(
+        lambda p, m: tree_get(tree, p) if m else tree_get(other, p), mask)
+
+
 def tree_zeros_like(tree: Tree) -> Tree:
     return tree_map(torch.zeros_like, tree)
 
 
+def tree_add(a: Tree, b: Tree) -> Tree:
+    return tree_map2(torch.add, a, b)
+
+
 def tree_sub(a: Tree, b: Tree) -> Tree:
     return tree_map2(torch.sub, a, b)
+
+
+def tree_scale(a: Tree, s) -> Tree:
+    return tree_map(lambda x: x * s, a)
 
 
 def tree_dot(a: Tree, b: Tree):
@@ -70,6 +97,32 @@ def global_norm(tree: Tree):
     """sqrt(Σ x²) over every leaf, a 0-d tensor (no host sync)."""
     return torch.sqrt(sum(torch.sum(torch.square(x))
                           for x in tree_leaves(tree)))
+
+
+def tree_count_params(tree: Tree) -> int:
+    """Elements over every leaf (a ``device="meta"`` tree counts too)."""
+    return int(sum(x.numel() for x in tree_leaves(tree)))
+
+
+def tree_bytes(tree: Tree) -> int:
+    """Bytes over every leaf at its dtype (a meta tree counts too)."""
+    return int(sum(x.numel() * x.element_size() for x in tree_leaves(tree)))
+
+
+def tree_cast(tree: Tree, dtype) -> Tree:
+    """Floating leaves cast to ``dtype``; other leaves as they are."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                    tree)
+
+
+def tree_all_finite(tree: Tree):
+    """0-d bool tensor: every floating leaf finite (no host sync; True
+    without floating leaves)."""
+    oks = [torch.all(torch.isfinite(x)) for x in tree_leaves(tree)
+           if x.is_floating_point()]
+    if not oks:
+        return torch.tensor(True)
+    return torch.all(torch.stack(oks))
 
 
 def tree_leaves_with_path(tree: Tree) -> list[tuple[str, Any]]:
