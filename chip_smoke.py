@@ -422,6 +422,26 @@ Phase 17 backbone pretraining, the analytic account and the user
          greedy_generate, bgmv_mag launched 2 targets x 4 layers x 2
          generate calls x (1 prefill + 8 decode forwards) = 144 times;
          both tokens/s.  The phase takes at most 90 s.
+Phase 18 the one-card dry run (``launch/dryrun.py``: a step run once on
+         meta tensors under a storage tally) against the card, after
+         phase 17: (a) the meta branches of flash_attention (llama2-7b
+         prefill 1 x 4096, bf16) and ssd_scan (mamba2-2.7b 1 x 4096,
+         chunk 128) allocate exactly what the real call grows
+         max_memory_allocated by, each storage rounded up to the caching
+         allocator's 512 bytes, and return the card's shapes and dtypes;
+         (b) four steps on the default kernel path, each against its
+         account on meta: llama2-7b prefill 1 x 4096 at 32 layers (flash
+         32 launches), decode at batch 8 over a 4096-position cache at 32
+         layers, one fedlora_opt stage-1 step at 8 layers of 4 x 1024
+         tokens, mamba2-2.7b prefill 1 x 4096 at 64 layers (ssd_scan 64
+         launches): the inputs allocate the account's argument_bytes
+         within 0.1%, the step's own allocation is its peak_estimate_bytes
+         − argument_bytes within 5% or 64 MiB, the result is finite;
+         (c) the full-width records of llama2-7b and mamba2-2.7b at every
+         shape they support, traced in a background process (no card
+         visible, one thread) started after phase 2, printed as
+         launch/report.py renders them, every status ok.  The phase takes
+         at most 60 s.
 Every run starts with every launch count at 0.  Each path's prefill
 logits, kernels against plain versions, relative to max |logit|: bf16
 weights through the first CHECK_DEPTH layers within 2e-2, f32 weights
@@ -5659,6 +5679,254 @@ def phase_tooling(torch, workdir):
     return report, n
 
 
+# --- phase 18: the one-card dry run against the card (after phase 17) -----
+
+DRY_ARCHS = ("llama2-7b", "mamba2-2.7b")   # (c): every shape they support
+DRY_ROUND = 512         # the CUDA caching allocator's rounding, bytes
+DRY_STEP_TOL = 0.05     # a step's allocation against its account ...
+DRY_STEP_FLOOR = 64 << 20   # ... or this many bytes, the larger
+DRY_ARG_TOL = 1e-3      # the inputs' allocation against argument_bytes
+DRYRUN_BUDGET_S = 60    # the phase's wall time
+DRY_RECORDS_WAIT_S = 300    # the most (c) may still wait for its records
+# (b): label, arch, layers, (seq, batch, kind), launches of the path
+DRY_STEPS = (
+    ("llama2-7b prefill", "llama2-7b", 32, (4096, 1, "prefill"),
+     {"flash_attention": 32}),
+    ("llama2-7b decode", "llama2-7b", 32, (4096, 8, "decode"), {}),
+    ("llama2-7b fedlora_opt stage-1 step", "llama2-7b", 8,
+     (1024, 4, "train"), {}),
+    ("mamba2-2.7b prefill", "mamba2-2.7b", 64, (4096, 1, "prefill"),
+     {"ssd_scan": 64}))
+
+
+def start_dry_records(workdir):
+    """(c)'s full-width records, traced by ``launch.dryrun`` on meta
+    tensors in one background process with no card visible (one thread),
+    started after phase 2 so that its CPU minutes overlap the card's
+    phases: the train_4k accounts run 7 micro-batches of a 32- or
+    64-layer model through autograd on meta, 1-2 minutes of one core."""
+    code = ("from repro_torch.configs import SHAPES, shape_supported\n"
+            "from repro_torch.launch import dryrun\n"
+            f"for a in {DRY_ARCHS!r}:\n"
+            "    for s in SHAPES:\n"
+            "        if shape_supported(a, s):\n"
+            f"            dryrun.main(['--arch', a, '--shape', s, '--out', "
+            f"{str(workdir)!r}])\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    return subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def alloc_growth(torch, fn):
+    """(fn()'s result, the growth of max_memory_allocated across it)."""
+    free(torch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def dry_kernels(torch):
+    """(a) Each kernel's meta branch against the card's allocator, at the
+    shape of its phase-2 row: the tally of the meta call (each storage
+    rounded up to DRY_ROUND bytes) equals the growth of
+    max_memory_allocated across the real call, and the outputs' shapes
+    and dtypes are the meta outputs'."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.ssd_scan import ssd_scan as SSD
+    from repro_torch.launch.dryrun import StorageTally
+    bf16, f32 = torch.bfloat16, torch.float32
+    g = torch.Generator(device="cuda").manual_seed(18)
+
+    def inputs(dev, specs):
+        return [torch.randn(s, dtype=d, device=dev, generator=g)
+                if dev == "cuda" else torch.empty(s, dtype=d, device=dev)
+                for s, d in specs]
+    H, S, dh = LLAMA2_7B["H"], 4096, LLAMA2_7B["dh"]
+    BH, P, N, Q = (MAMBA2_2_7B[k] for k in ("H", "P", "N", "chunk"))
+    cases = (
+        ("flash_attention", "llama2-7b prefill q, k, v (32, 4096, 128) bf16, "
+         "causal", [((H, S, dh), bf16)] * 3,
+         lambda q, k, v: FA.flash_attention_bhsd_cuda(
+             q, k, v, scale=dh ** -0.5, causal=True)),
+        ("ssd_scan", "mamba2-2.7b 1 x 4096: x (80, 4096, 64) bf16, B, C "
+         "(1, 4096, 128), chunk 128",
+         [((BH, S, P), bf16), ((BH, S), f32), ((BH,), f32),
+          ((1, S, N), bf16), ((1, S, N), bf16)],
+         lambda *a: SSD.ssd_scan_bh_cuda(*a, chunk=Q)))
+    report = {}
+    for name, shape, specs, call in cases:
+        meta = inputs("meta", specs)
+        with StorageTally(round_to=DRY_ROUND) as tally:
+            out_m = call(*meta)
+        real = inputs("cuda", specs)
+        out_c, growth = alloc_growth(torch, lambda: call(*real))
+        outs = [out_m] if torch.is_tensor(out_m) else list(out_m)
+        outc = [out_c] if torch.is_tensor(out_c) else list(out_c)
+        check([(tuple(t.shape), t.dtype) for t in outs]
+              == [(tuple(t.shape), t.dtype) for t in outc],
+              f"dry run (a) {name}: the meta branch's outputs have the "
+              f"card's shapes and dtypes")
+        check(tally.peak == growth,
+              f"dry run (a) {name} [{shape}]: the meta branch allocates "
+              f"{tally.peak} bytes ({DRY_ROUND}-byte rounding), the card's "
+              f"max_memory_allocated grew {growth}")
+        report[name] = {"shape": shape, "meta_tally_bytes": tally.peak,
+                        "card_growth_bytes": growth}
+        del real, out_c, outc
+    free(torch)
+    return report
+
+
+def requested(torch, stat="current"):
+    """The caching allocator's requested bytes (the sizes asked for,
+    before its rounding and unsplit blocks)."""
+    return torch.cuda.memory_stats()[f"requested_bytes.all.{stat}"]
+
+
+def finite_out(torch, kind, out):
+    """A step's result is finite: the logits (B, V) of a serving step, or
+    the adapters, optimizer state and metrics of a train step."""
+    from repro_torch.utils import pytree as pt
+    if kind == "train":
+        ad, ost, met = out
+        return all(bool(pt.tree_all_finite(t)) for t in (ad, ost)) and all(
+            math.isfinite(float(v)) for v in met.values())
+    return bool(torch.isfinite(out[0]).all())
+
+
+def dry_steps(torch):
+    """(b) Each step of DRY_STEPS on the card against its dry-run account
+    (``launch.dryrun.account`` on meta tensors, the same config cut to
+    the step's depth): the inputs (``step_and_inputs`` on the card, the
+    backbone drawn on it) allocate argument_bytes within DRY_ARG_TOL; the
+    step's own allocation (max_memory_allocated after the inputs, the
+    peak reset) is peak_estimate_bytes − argument_bytes within
+    DRY_STEP_TOL or DRY_STEP_FLOOR, the larger; the result is finite; the
+    path launches its kernel once a layer.  The step runs a second time
+    on the same inputs, its allocation printed."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun
+    report = {}
+    for label, arch, layers, (S, B, kind), expect in DRY_STEPS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        shape = InputShape(label, S, B, kind)
+        t0 = time.perf_counter()
+        acc = dryrun.account(cfg, shape)
+        t_meta = time.perf_counter() - t0
+        mem = acc["memory"]
+        want = mem["peak_estimate_bytes"] - mem["argument_bytes"]
+        free(torch)
+        step, make_args = dryrun.step_and_inputs(cfg, shape, device="cuda")
+        torch.cuda.synchronize()
+        m1 = torch.cuda.memory_allocated()
+        args = make_args()
+        torch.cuda.synchronize()
+        m2 = torch.cuda.memory_allocated()
+        r2 = requested(torch)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        grew = torch.cuda.max_memory_allocated() - m2
+        asked = requested(torch, "peak") - r2
+        launches = {k: v for k, v in read_launches().items() if v}
+        check(abs((m2 - m1) - mem["argument_bytes"])
+              <= DRY_ARG_TOL * mem["argument_bytes"],
+              f"dry run (b) {label} x {layers} layers, {B} x {S}: the inputs "
+              f"allocate {m2 - m1} bytes, the account's argument_bytes "
+              f"{mem['argument_bytes']} (within {DRY_ARG_TOL:.0e})")
+        bound = max(DRY_STEP_TOL * want, DRY_STEP_FLOOR)
+        check(abs(grew - want) <= bound,
+              f"dry run (b) {label}: the step allocates {grew} bytes on the "
+              f"card, the account's peak_estimate - argument_bytes {want} "
+              f"(temp {mem['temp_bytes']} + output {mem['output_bytes']} - "
+              f"alias {mem['alias_bytes']}; off by {grew - want}, bound "
+              f"{bound:.0f})")
+        check(finite_out(torch, kind, out),
+              f"dry run (b) {label}: the result is finite")
+        check(launches == expect, f"dry run (b) {label}: launches "
+              f"{launches} = {expect}")
+        # the same step again on the same inputs: what the first run
+        # allocated once and kept (a cuBLAS handle's workspace) shows
+        del out
+        free(torch)
+        m3 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = step(*args)
+        torch.cuda.synchronize()
+        again = torch.cuda.max_memory_allocated() - m3
+        report[label] = {
+            "layers": layers, "batch": B, "seq": S, "kind": kind,
+            "account": mem, "account_s": t_meta,
+            "card_argument_bytes": m2 - m1, "card_step_bytes": grew,
+            "account_step_bytes": want, "step_off_bytes": grew - want,
+            "card_step_bytes_again": again,
+            "card_step_requested_bytes": asked,
+            "kept_by_first_run_bytes": m3 - m2, "step_wall_s": wall,
+            "launches": launches}
+        print(f"dry run (b) {label} [{GPU}]: " + json.dumps(report[label]))
+        del step, args, out
+        free(torch)
+    return report
+
+
+def dry_records(proc, workdir):
+    """(c) The background process's records of DRY_ARCHS at every shape
+    they support, rendered by ``launch.report``; each status ok."""
+    from repro_torch.configs import SHAPES, shape_supported
+    from repro_torch.launch import report as R
+    t0 = time.perf_counter()
+    try:
+        log, _ = proc.communicate(timeout=DRY_RECORDS_WAIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise CheckFailed(f"dry run (c): the records' process ran past "
+                          f"{DRY_RECORDS_WAIT_S} s of waiting")
+    waited = time.perf_counter() - t0
+    print(f"dry run (c): waited {waited:.1f} s for the records' process")
+    print("--- dry run (c) log ---\n" + log.strip())
+    check(proc.returncode == 0, f"dry run (c): the records' process exited "
+          f"{proc.returncode}")
+    want = [f"{a}__{s}__1.json" for a in DRY_ARCHS for s in SHAPES
+            if shape_supported(a, s)]
+    recs = []
+    for name in want:
+        path = workdir / name
+        check(path.is_file(), f"dry run (c): {name} written")
+        recs.append(json.loads(path.read_text()))
+        check(recs[-1]["status"] == "ok",
+              f"dry run (c) {name}: status {recs[-1]['status']} "
+              f"{recs[-1].get('error', '')}")
+    print(R.dryrun_section(recs))
+    print(R.roofline_section(recs))
+    return {"waited_s": waited, "records": {
+        f"{r['arch']} {r['shape']}": {
+            "memory": r["memory"], "fits_80g": r["fits_80g"],
+            "flops_counted": r["cost_analysis"]["flops_counted"],
+            "kernel_flops": r["cost_analysis"]["kernel_flops"],
+            "flops_global": r["analytic"]["flops_global"],
+            "trace_s": r["trace_s"], "roofline": r["roofline"]}
+        for r in recs}}
+
+
+def phase_dryrun(torch, proc, workdir):
+    """Phase 18.  Returns the report."""
+    t0 = time.perf_counter()
+    report = {"kernels": dry_kernels(torch), "steps": dry_steps(torch)}
+    report["records"] = dry_records(proc, workdir)
+    report["wall_s"] = time.perf_counter() - t0
+    print(f"dry run [{GPU}]: phase wall {report['wall_s']:.1f} s")
+    return report
+
+
 # --- phase 12: the production round engine (run after phase 11) ------------
 
 ENGINE_HP = dict(method="fedlora_opt", n_clients=4, local_steps=2, batch=4,
@@ -6177,6 +6445,7 @@ def main():
           f"{torch.get_num_threads()} torch threads, load average "
           f"{os.getloadavg()[0]:.2f}")
     t_start = time.perf_counter()
+    dry_proc = None
     try:
         t0 = time.perf_counter()
         libs = _build.build_all()
@@ -6209,6 +6478,10 @@ def main():
         t0 = time.perf_counter()
         rows = phase_kernels(torch)
         print(f"phase 2 took {time.perf_counter() - t0:.1f} s")
+        dry_dir = ROOT / "build" / "phase18"    # (c)'s records
+        shutil.rmtree(dry_dir, ignore_errors=True)
+        dry_dir.mkdir(parents=True)
+        dry_proc = start_dry_records(dry_dir)
         t0 = time.perf_counter()
         report, launches, ctx = phase_main_path(torch)
         print(f"phase 3 took {time.perf_counter() - t0:.1f} s")
@@ -6328,9 +6601,22 @@ def main():
               f"{t_tooling:.1f} s")
         check(t_tooling <= TOOLING_BUDGET_S, f"phase 17 took "
               f"{t_tooling:.1f} s <= {TOOLING_BUDGET_S} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        report["dryrun"] = phase_dryrun(torch, dry_proc, dry_dir)
+        t_dry = time.perf_counter() - t0
+        print(f"phase 18 (the dry run against the card) took {t_dry:.1f} s")
+        check(t_dry <= DRYRUN_BUDGET_S, f"phase 18 took {t_dry:.1f} s <= "
+              f"{DRYRUN_BUDGET_S} s")
     except CheckFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
+    finally:
+        if dry_proc is not None and dry_proc.poll() is None:
+            dry_proc.kill()
+            dry_proc.communicate()
+        shutil.rmtree(ROOT / "build" / "phase18", ignore_errors=True)
 
     kdir = "src/repro_torch/kernels"
     pallas = "src/repro/kernels"

@@ -24,8 +24,9 @@ All 11 of the reference's architectures run, as does the production
 round engine (``launch/train.py``); so do backbone pretraining
 (``fed/pretrain.py``), the tokenizer, the abstract trees and analytic
 step account (``launch/specs.py``, ``launch/analysis.py``) and the user
-examples (``examples/``).  The dry run and ``lint/`` are not ported yet
-(ROADMAP A13).
+examples (``examples/``), the one-card dry run and its report
+(``launch/dryrun.py``, ``launch/report.py``: each step run once on meta
+tensors) and the analyzer's dead-mask rule and sanitizer (``lint/``).
 """
 from repro_torch import obs  # noqa: F401
 from repro_torch.device import resolve_device  # noqa: F401

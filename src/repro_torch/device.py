@@ -2,7 +2,9 @@
 
 Entry points default to ``"cuda"`` and raise when no card is present:
 the CPU is used only when the caller asks for it (the tests pass
-``device="cpu"``), never as a silent fallback.
+``device="cpu"``), never as a silent fallback.  ``"meta"`` is the dry
+run's device (``launch/dryrun.py``): tensors with shapes and dtypes and
+no storage, on which a step runs to be accounted, never to compute.
 """
 from __future__ import annotations
 
@@ -15,8 +17,9 @@ def resolve_device(device="cuda") -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the "
             "CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(
+            f"unsupported device {device!r} (cuda, cpu or meta)")
     return dev
 
 

@@ -6,6 +6,15 @@ plain version runs, and on a CUDA tensor the kernel launches or raises)
 or ``impl="torch"`` (the plain version, for explicit comparisons only).
 A wrapper checks every tensor it hands a kernel, launches on the current
 stream without synchronising, and raises if the launch was refused.
+
+A ``device="meta"`` tensor resolves to the kernel path, the path the card
+takes.  The two wrappers on the dry run's path (``flash_attention``,
+``ssd_scan``; ``launch/dryrun.py``) have a meta branch: it makes the
+``torch.empty`` allocations of the CUDA path through the same function
+and returns the outputs without building or launching anything, and adds
+the FLOPs a launch would do to the module's ``META_FLOPS``.  A meta
+tensor holds no values, so nothing can mistake such an output for a
+result.  The other wrappers refuse meta tensors (``check_x``).
 """
 from __future__ import annotations
 
@@ -39,8 +48,9 @@ def check(t, name, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def check_x(x, op: str, dim: int) -> None:
-    if x.device.type != "cuda":
+def check_x(x, op: str, dim: int, meta: bool = False) -> None:
+    """``meta``: the wrapper has a meta branch, so x may be on meta."""
+    if x.device.type != "cuda" and not (meta and x.device.type == "meta"):
         raise ValueError(f"the CUDA {op} kernel takes CUDA tensors, x is on "
                          f"{x.device} (the plain version serves CPU tensors)")
     if x.dtype not in SUFFIX:

@@ -8,12 +8,15 @@ variant for Sq ≤ 16).
 
 ``flash_attention_bhsd_cuda`` checks device, dtype, shape and contiguity
 and raises on anything the kernel does not take; allocates the output
-with ``torch.empty``; launches on the current stream without
+with ``torch.empty`` (``alloc``); launches on the current stream without
 synchronising; raises if the launch was refused; and then adds one to
-``LAUNCHES["flash_attention"]``.
+``LAUNCHES["flash_attention"]``.  On meta tensors (the dry run) it makes
+the same allocation, adds the launch's FLOPs (``flops``) to
+``META_FLOPS["flash_attention"]`` and returns the output unlaunched.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -21,6 +24,8 @@ from repro_torch.kernels._wrap import F, I, P, SUFFIX, check, check_x, raise_on
 from repro_torch.kernels._wrap import stream
 
 LAUNCHES = {"flash_attention": 0}
+# FLOPs of the calls the meta branch stood in for (no launch, no count)
+META_FLOPS = {"flash_attention": 0}
 
 MAX_DH = 256                     # the largest dh bucket in csrc/flash_attention.cu
 
@@ -28,6 +33,29 @@ MAX_DH = 256                     # the largest dh bucket in csrc/flash_attention
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def alloc(q):
+    """The output the CUDA path allocates (and the meta branch with it)."""
+    return torch.empty_like(q)
+
+
+def valid_pairs(Sq: int, Sk: int, causal: bool, window, q_offset: int,
+                sk_valid: int = 0) -> int:
+    """(query row, key) pairs the masks keep; a row with no valid key
+    averages v over all Sk keys, as the kernel does."""
+    qi = np.arange(Sq, dtype=np.int64) + q_offset
+    hi = np.full(Sq, min(sk_valid or Sk, Sk), np.int64)
+    if causal:
+        hi = np.minimum(hi, qi + 1)
+    lo = np.maximum(qi - window + 1, 0) if window is not None else 0 * qi
+    n = np.maximum(hi - lo, 0)
+    return int(np.where(n > 0, n, Sk).sum())
+
+
+def flops(BH: int, dh: int, pairs: int) -> int:
+    """QKᵀ and PV over the kept pairs: 2·dh multiply-adds each."""
+    return 4 * BH * dh * pairs
 
 
 def _lib():
@@ -50,7 +78,7 @@ def flash_attention_bhsd_cuda(q, k, v, *, scale: float, causal: bool = True,
     multiple of BK (head h reads kv head h // (BH/BK)) → (BH, Sq, dh) in
     q's dtype.  Keys at or past ``sk_valid`` (0: Sk) are masked; query
     row i sits at key position i + ``q_offset``."""
-    check_x(q, "flash_attention", 3)
+    check_x(q, "flash_attention", 3, meta=True)
     BH, Sq, dh = q.shape
     BK, Sk, _ = k.shape
     if not 1 <= dh <= MAX_DH:
@@ -59,7 +87,11 @@ def flash_attention_bhsd_cuda(q, k, v, *, scale: float, causal: bool = True,
         raise ValueError(f"{BH} query heads do not split over {BK} kv heads")
     check(k, "k", q.dtype, (BK, Sk, dh), q.device)
     check(v, "v", q.dtype, (BK, Sk, dh), q.device)
-    o = torch.empty_like(q)
+    o = alloc(q)
+    if q.device.type == "meta":
+        META_FLOPS["flash_attention"] += flops(
+            BH, dh, valid_pairs(Sq, Sk, causal, window, q_offset, sk_valid))
+        return o
     lib = _lib()
     fn = getattr(lib, f"flash_attention_{SUFFIX[q.dtype]}")
     with torch.cuda.device(q.device):

@@ -7,13 +7,16 @@ raises on anything the kernel does not take; allocates y, the final
 state and the workspaces of the chunk-parallel scan (C·Bᵀ once a group
 and chunk in x's type, the f32 log-decay, the (BH, nc, N, P) f32 chunk
 states and, for bf16, the entering states split into bf16 hi and lo
-tiles) with ``torch.empty``, so a call can be captured in a CUDA graph;
-launches the four kernels on the current stream without synchronising;
-raises if a launch was refused (N above 256, or more shared memory than
-the card has for the chunk); and then adds one to
-``LAUNCHES["ssd_scan"]``.  ``variant`` names the path a call takes:
-``mma`` (bf16, the products on the tensor cores) or ``simt`` (f32, on the
-CUDA cores); ``blocks`` the blocks each of the four launches runs.
+tiles) with ``torch.empty`` (``alloc``), so a call can be captured in a
+CUDA graph; launches the four kernels on the current stream without
+synchronising; raises if a launch was refused (N above 256, or more
+shared memory than the card has for the chunk); and then adds one to
+``LAUNCHES["ssd_scan"]``.  On meta tensors (the dry run) it makes the
+same allocations, adds the call's FLOPs (``flops``) to
+``META_FLOPS["ssd_scan"]`` and returns y and the state unlaunched.
+``variant`` names the path a call takes: ``mma`` (bf16, the products on
+the tensor cores) or ``simt`` (f32, on the CUDA cores); ``blocks`` the
+blocks each of the four launches runs.
 """
 from __future__ import annotations
 
@@ -27,6 +30,8 @@ from repro_torch.kernels._wrap import I, P, SUFFIX, check, check_x, raise_on
 from repro_torch.kernels._wrap import stream
 
 LAUNCHES = {"ssd_scan": 0}
+# FLOPs of the calls the meta branch stood in for (no launch, no count)
+META_FLOPS = {"ssd_scan": 0}
 
 MAX_P = 64                       # kMaxP in csrc/ssd_scan.cu
 
@@ -39,6 +44,49 @@ KERNELS = ("ssd_cb", "ssd_states", "ssd_pass", "ssd_y")
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _row_lg(nch: int) -> int:
+    lg = 1
+    while (1 << lg) < nch:
+        lg += 1
+    return lg
+
+
+def state_bytes(P: int, N: int, is_bf16: bool) -> int:
+    """Bytes of one head and chunk's split entering states: a copy of
+    ``ssd_scan_state_bytes`` in csrc/ssd_scan.cu (bf16: the hi and lo
+    tiles ssd_pass writes for ssd_y_mma; f32: 0, they stay in W), so the
+    meta branch sizes the workspace without the library.  The CUDA path
+    holds the two equal."""
+    if not is_bf16:
+        return 0
+    return 2 * ((16 * ((N + 15) // 16)) << _row_lg(2 * ((P + 15) // 16))) * 16
+
+
+def alloc(x, BG: int, N: int, Q: int):
+    """The tensors the CUDA path allocates (and the meta branch with it):
+    y, the final state, C·Bᵀ, the log-decay, the chunk states and, for
+    bf16, the split entering states (None for f32)."""
+    BH, S, Pd = x.shape
+    dev, nc = x.device, S // Q
+    split = state_bytes(Pd, N, x.dtype == torch.bfloat16)
+    y = torch.empty_like(x)
+    st = torch.empty((BH, N, Pd), dtype=torch.float32, device=dev)
+    cb = torch.empty((BG, nc, Q, Q), dtype=x.dtype, device=dev)
+    lw = torch.empty((BH, S), dtype=torch.float32, device=dev)
+    w = torch.empty((BH, nc, N, Pd), dtype=torch.float32, device=dev)
+    sin = (torch.empty((BH * nc * split,), dtype=torch.uint8, device=dev)
+           if split else None)
+    return y, st, cb, lw, w, sin
+
+
+def flops(BH: int, BG: int, S: int, P: int, N: int, Q: int) -> int:
+    """The chunked scan's multiply-adds, 2 FLOPs each: C·Bᵀ over each
+    chunk's triangle once a group, the decayed triangle's product with
+    x·dt, the chunk end states and the entering states' term per head."""
+    nc, tri = S // Q, Q * (Q + 1) // 2
+    return 2 * nc * (BG * tri * N + BH * (tri * P + 2 * Q * N * P))
 
 
 def _lib():
@@ -86,7 +134,7 @@ def ssd_scan_bh_cuda(x, dt, a_log, B, C, *, chunk: int = 256):
     group h // (BH / BG)).  Returns (y (BH, S, P) in x's type, final
     state (BH, N, P) f32).  The chunk is min(chunk, S), which must
     divide S."""
-    check_x(x, "ssd_scan", 3)
+    check_x(x, "ssd_scan", 3, meta=True)
     BH, S, Pd = x.shape
     BG, _, N = B.shape
     dev = x.device
@@ -101,16 +149,16 @@ def ssd_scan_bh_cuda(x, dt, a_log, B, C, *, chunk: int = 256):
     check(a_log, "a_log", torch.float32, (BH,), dev)
     check(B, "B", x.dtype, (BG, S, N), dev)
     check(C, "C", x.dtype, (BG, S, N), dev)
-    nc = S // Q
-    y = torch.empty_like(x)
-    st = torch.empty((BH, N, Pd), dtype=torch.float32, device=dev)
-    cb = torch.empty((BG, nc, Q, Q), dtype=x.dtype, device=dev)
-    lw = torch.empty((BH, S), dtype=torch.float32, device=dev)
+    y, st, cb, lw, w, sin = alloc(x, BG, N, Q)
+    if dev.type == "meta":
+        META_FLOPS["ssd_scan"] += flops(BH, BG, S, Pd, N, Q)
+        return y, st
     lib = _lib()
-    split = lib.ssd_scan_state_bytes(Pd, N, int(x.dtype == torch.bfloat16))
-    w = torch.empty((BH, nc, N, Pd), dtype=torch.float32, device=dev)
-    sin = (torch.empty((BH * nc * split,), dtype=torch.uint8, device=dev)
-           if split else None)
+    is_bf16 = x.dtype == torch.bfloat16
+    if lib.ssd_scan_state_bytes(Pd, N, int(is_bf16)) != state_bytes(
+            Pd, N, is_bf16):
+        raise RuntimeError("ssd_scan: state_bytes disagrees with the "
+                           "library's ssd_scan_state_bytes")
     fn = getattr(lib, f"ssd_scan_{SUFFIX[x.dtype]}")
     with torch.cuda.device(dev):
         rc = fn(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), B.data_ptr(),
