@@ -237,7 +237,8 @@ Phase 11 telemetry and cohort rounds, run after phase 10 in its work
          ms, each round's wall, the bank's size, the peaks, the cohort
          file's save and load seconds and the serving tokens/s.
 Phase 12 the production round engine, run after phase 11 on phase 3's
-         backbone (dropout 0): fedlora_opt at llama2-7b full width through
+         backbone cut to its first CUT_DEPTH (8) layers of full width
+         (dropout 0): fedlora_opt at llama2-7b width through
          launch/train.make_fed_pipeline_step, one client per rank of a
          4-rank gloo group on the one card (launch/mesh.ClientPool; the
          ranks map this process's backbone by CUDA IPC), 2 pipeline
@@ -442,6 +443,50 @@ Phase 18 the one-card dry run (``launch/dryrun.py``: a step run once on
          visible, one thread) started after phase 2, printed as
          launch/report.py renders them, every status ok.  The phase takes
          at most 60 s.
+Phase 19 the 'model' axis, after phase 18: one ClientPool grid of 2 data
+         x 2 model ranks sharing the card over gloo (launch/mesh
+         .make_debug_mesh); each rank maps this process's tensors by CUDA
+         IPC and copies its own shard (launch/specs.shard_tree by
+         param_specs).  (a) llama2-7b at full width: the prefill step of
+         2 x 4096 tokens, a row a data rank, each rank's 16 of 32 heads
+         through flash_attention once a layer, then 15 greedy decode
+         steps, every row's logits gathered: through 8 layers in f32 the
+         prefill logits within 1e-4 of max of the unsharded path on the
+         card and the 16 greedy tokens equal; through CHECK_DEPTH layers
+         in bf16 within 2e-2; all 32 layers in bf16 run and reported;
+         every rank returns the same logits.  (b) the production engine
+         on the grid: one fedlora_opt iteration at 8 layers of llama2-7b
+         width (2 clients of 4 x 128 tokens, 2 local steps, 1 stage-2
+         step over 4 server rows sharded over the data ranks, 1 stage-3
+         step) against FedSim with 2 clients from the same adapters and
+         batches: in f64 every client and server leaf within 1e-4 of its
+         max, dA_dir (one AdamW step from zero, its smallest gradients at
+         AdamW's eps) within 1e-4 in norm with at most 0.1% of its
+         elements beyond 1e-3 of max; in f32 every element within 1e-4
+         of its leaf's max but those f32 does not resolve (an f32 run
+         more than 1e-5 of max off its own f64 run), the grid's f32 run
+         so off at no more than twice as many elements as FedSim's, plus
+         2; every rank of a model row holds its client bit for bit.  (c)
+         qwen3-moe-30b-a3b at full width, 4 of 48 layers, in f32 and in
+         bf16, 64 of the 128 expert slots a data rank with their d_ff
+         over the model ranks, at the capacity factor where nothing drops
+         (from the router's picks): the 2 x 1024 prefill step (all-to-all)
+         and a one-row prompt and decode step (the small-batch path)
+         beside the unsharded path; in f32 the logits of every row routed
+         alike in every layer within 1e-4 of max (a row of the prefill at
+         least), in bf16 the logits and the tokens routed otherwise
+         printed; then the first MoE layer on the bf16 calls' own inputs,
+         moe_ffn_ep on the grid against moe_ffn_local: f32 within 1e-4 of
+         max with every token routed alike, bf16 within 2e-2 over the
+         tokens routed alike, the aux the mean of the data ranks' own.
+         Prints each part's times, each rank's peak and shard bytes and
+         the collectives' calls, bytes and seconds.  The ranks start on a
+         thread beside phases 17 and 18 (each builds the production
+         engine once there: a process's first meta-tensor ops import
+         PyTorch's reference implementations, seconds of host time);
+         from then the phase takes at most 90 s.  ``python3
+         chip_smoke.py --mesh-only`` runs phase 19 alone on every card
+         there is (NCCL when each rank has its own).
 Every run starts with every launch count at 0.  Each path's prefill
 logits, kernels against plain versions, relative to max |logit|: bf16
 weights through the first CHECK_DEPTH layers within 2e-2, f32 weights
@@ -6070,7 +6115,7 @@ def engine_stage2(group, cfg, settings, params, aggregated, server_batches):
     return pt.tree_map(lambda x: x.detach().cpu(), agg)
 
 
-CUT_DEPTH = 8           # layers of full width in phases 8, 10 and 11 (a)
+CUT_DEPTH = 8           # layers of full width in phases 8, 10, 11 (a), 12
 
 
 def cut_ctx(ctx, layers):
@@ -6402,6 +6447,763 @@ def phase_engine(torch, ctx, workdir):
     return report, counts["bgmv_mag"]
 
 
+# --- phase 19: the 'model' axis, a 2 x 2 grid of ranks on the one card ----
+
+MESH_GRID = (2, 2)      # data x model ranks, sharing the one card over gloo
+MESH_ARCH = "llama2-7b"
+MESH_S = 4096           # (a)'s prompt a row: one row a data rank
+MESH_NEW = 16           # (a)'s greedy tokens
+MESH_F32_DEPTH = 8      # (a)'s f32 check and (b)'s engine, layers of full width
+MESH_ENGINE_HP = dict(method="fedlora_opt", n_clients=2, local_steps=2,
+                      batch=4, seq_len=128, global_steps=1, personal_steps=1)
+MESH_SERVER_ROWS = 4    # (b)'s stage-2 batch: 2 rows a data rank (sharded)
+MESH_ENGINE_TOL = 1e-4  # (b): every leaf against FedSim, of its max, f64
+MESH_EPS_SHARE = 1e-3   # (b): dA_dir's elements at AdamW's eps, at most
+MESH_WITNESS_TOL = 1e-5  # (b) f32: off its own f64 run by more, of max
+MESH_MOE = "qwen3-moe-30b-a3b"
+MESH_MOE_DEPTH = 4      # (c)'s layers of full width (of 48)
+MESH_MOE_S = 1024       # (c)'s prefill a row: one row a data rank
+MESH_MOE_PROMPT = 64    # (c)'s one-row prompt before the one-row decode step
+MESH_BUDGET_S = 90      # the phase's wall time
+
+
+def stats_delta(before, after):
+    """The collectives' calls, bytes and seconds between two readings of
+    ``Grid.stats``, per group and op."""
+    return {g: {op: {k: after[g][op][k] - before[g][op][k]
+                     for k in after[g][op]} for op in after[g]}
+            for g in after}
+
+
+def stats_copy(stats):
+    return {g: {op: dict(v) for op, v in ops.items()}
+            for g, ops in stats.items()}
+
+
+def mesh_warm_rank(grid):
+    """A rank's first meta-tensor work, the production engine's adapter
+    template: a process's first decomposed meta ops import PyTorch's
+    reference implementations (sympy among them), seconds of host time
+    that would otherwise land in (b)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import TrainSettings, make_fed_pipeline_step
+    t0 = time.perf_counter()
+    make_fed_pipeline_step(get_smoke_config(MESH_ARCH), grid.data,
+                           TrainSettings(), device=grid.device)
+    return time.perf_counter() - t0
+
+
+class MeshPool:
+    """Phase 19's grid of ranks, started (and each rank warmed,
+    ``mesh_warm_rank``) on a thread of this process while it runs phases
+    17 and 18; ``get()`` waits for it and returns the ``ClientPool``, or
+    raises what starting it raised."""
+
+    def __init__(self, workdir):
+        import threading
+        self.workdir, self.pool, self.error, self.times = workdir, None, None, {}
+        self.thread = threading.Thread(target=self._start, daemon=True)
+        self.thread.start()
+
+    def _start(self):
+        from repro_torch.launch.mesh import ClientPool
+        try:
+            t0 = time.perf_counter()
+            self.pool = ClientPool(MESH_GRID[0], str(self.workdir),
+                                   n_model=MESH_GRID[1], device="cuda",
+                                   timeout_s=600)
+            self.times["pool_start_s"] = time.perf_counter() - t0
+            self.times["warm_s"] = self.pool.run(mesh_warm_rank)
+        except Exception as e:          # raised again in get()
+            self.error = e
+
+    def get(self):
+        self.thread.join()
+        if self.error is not None:
+            raise CheckFailed(f"mesh: the grid did not start:\n{self.error}")
+        return self.pool
+
+    def close(self):
+        self.thread.join()
+        if self.pool is not None:
+            self.pool.close()
+
+
+def mesh_rank_start(grid, cfg, params):
+    """A phase-19 task's start on its rank: TF32 off, the peak reset, and
+    the rank's shard of ``params`` (CUDA IPC, never written) cut by
+    ``param_specs`` and copied to the rank's card; returns (shard, its
+    bytes, the seconds it took)."""
+    import torch
+    from repro_torch.launch import specs as SP
+    from repro_torch.utils import pytree as pt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mine = pt.tree_map(lambda t: t.to(grid.device), SP.shard_tree(
+        params, SP.param_specs(cfg, grid, params), grid))
+    torch.cuda.synchronize()
+    return mine, sum(x.numel() * x.element_size()
+                     for x in pt.tree_leaves(mine)), time.perf_counter() - t0
+
+
+def mesh_serve_rank(grid, cfg, params, tokens, n_new):
+    """Phase 19 (a) on one rank: its shard of ``params``; the prefill step
+    of the whole batch ``tokens`` (its row; flash_attention over its q
+    heads once a layer) with room for ``n_new`` tokens, then ``n_new`` - 1
+    greedy decode steps, every row's logits gathered.  Returns host
+    copies, the times, launches, peak and the collectives' readings."""
+    import torch
+    from repro_torch.launch.serve import make_decode_step, make_prefill_step
+    from repro_torch.models import model as M
+    mine, shard_bytes, shard_s = mesh_rank_start(grid, cfg, params)
+    prefill, decode = make_prefill_step(cfg, grid), make_decode_step(cfg, grid)
+    S = tokens.shape[1]
+    before = stats_copy(grid.stats)
+    reset_launches()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(mine, {"tokens": tokens}, cache_len=S + n_new)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        first = logits.cpu()
+        tok = M.argmax_first(logits)
+        toks = [tok]
+        for i in range(n_new - 1):
+            logits, cache = decode(mine, tok, cache, S + i)
+            tok = M.argmax_first(logits)
+            toks.append(tok)
+        toks = torch.stack(toks, dim=1).cpu()
+        t2 = time.perf_counter()
+    launches = read_launches()
+    out = {"logits": first, "tokens": toks, "prefill_ms": 1e3 * (t1 - t0),
+           "decode_step_ms": 1e3 * (t2 - t1) / max(n_new - 1, 1),
+           "launches": {k: v for k, v in launches.items() if v},
+           "shard_bytes": shard_bytes, "shard_s": shard_s,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "collectives": stats_delta(before, grid.stats)}
+    del mine, cache, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_engine_rank(grid, cfg, settings, params, ad0, cb, sb, pb):
+    """Phase 19 (b) on one rank: the production engine on the grid, the
+    rank's client (its data index) of the host (C, ...) adapters ``ad0``,
+    one fedlora_opt iteration: round_step (the stage-1 batch ``cb`` (C,
+    T·B, S)) → global_step (the server batch ``sb``, sharded over the
+    data ranks) → personal_step (``pb``).  Returns the client's adapters,
+    the server model, the stage walls, peak and collectives."""
+    import torch
+    from repro_torch.launch.train import (TrainSettings,
+                                          make_fed_pipeline_step, rank_slice)
+    from repro_torch.utils import pytree as pt
+    t_task = time.perf_counter()
+    mine, shard_bytes, shard_s = mesh_rank_start(grid, cfg, params)
+    pipe = make_fed_pipeline_step(cfg, grid, TrainSettings(**settings),
+                                  device="cuda")
+    d = grid.data.rank
+
+    def cuda(tree):
+        return pt.tree_map(lambda x: x.to("cuda"), tree)
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    ad = cuda(rank_slice(ad0, d))
+    ost = pipe.opt_init(ad)
+    before = stats_copy(grid.stats)
+    cb, sb, pb = cuda(rank_slice(cb, d)), cuda(sb), cuda(rank_slice(pb, d))
+    (ad, ost, agg, _), t1 = wall(lambda: pipe.round_step(mine, ad, ost, 0,
+                                                         cb))
+    (agg, ad, _), t2 = wall(lambda: pipe.global_step(mine, agg, ad, sb))
+    (ad, met), t3 = wall(lambda: pipe.personal_step(mine, ad, pb))
+    out = {"adapters": host_copy(torch, ad), "agg": host_copy(torch, agg),
+           "walls": {"round": t1, "global": t2, "personal": t3},
+           "ce": float(met["ce"]), "shard_bytes": shard_bytes,
+           "shard_s": shard_s, "task_s": time.perf_counter() - t_task,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "collectives": stats_delta(before, grid.stats)}
+    del mine, ad, ost, agg
+    torch.cuda.empty_cache()
+    return out
+
+
+class RecordedPicks:
+    """Within it, every ``layers.moe_router`` call's top-k expert picks
+    (T, k) are kept, in call order, on the host (``picks``), and with
+    ``inputs`` its input rows (T, D) too, where they are."""
+
+    def __init__(self, inputs=False):
+        self.keep = inputs
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        self.L, self.real, self.picks, self.inputs = L, L.moe_router, [], []
+
+        def recording(p, xt, cfg):
+            out = self.real(p, xt, cfg)
+            self.picks.append(out[0].cpu())
+            if self.keep:
+                self.inputs.append(xt.detach().clone())
+            return out
+        L.moe_router = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.L.moe_router = self.real
+
+
+def mesh_moe_rank(grid, cfg, params, tokens, prompt):
+    """Phase 19 (c) on one rank: its 64 of 128 expert slots with its half
+    of their d_ff (and its shard of the rest); the prefill step of the
+    whole (2, S) ``tokens`` (one row a data rank: the all-to-all path),
+    then of the one-row ``prompt`` (the small-batch path: every data rank
+    runs the row) and one decode step after it.  Returns every row's
+    logits, the times, peak and collectives."""
+    import torch
+    from repro_torch.launch.serve import make_decode_step, make_prefill_step
+    from repro_torch.models import model as M
+    mine, shard_bytes, shard_s = mesh_rank_start(grid, cfg, params)
+    prefill, decode = make_prefill_step(cfg, grid), make_decode_step(cfg, grid)
+    slots = mine["blocks"]["sub0"]["moe"]["experts"]["gate"].shape
+    before = stats_copy(grid.stats)
+    with torch.no_grad(), RecordedPicks() as rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        split, _ = prefill(mine, {"tokens": tokens})
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        one, cache = prefill(mine, {"tokens": prompt},
+                             cache_len=prompt.shape[1] + 1)
+        step, _ = decode(mine, M.argmax_first(one), cache, prompt.shape[1])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    out = {"split": split.cpu(), "one": one.cpu(), "step": step.cpu(),
+           "picks": rec.picks,
+           "slot_shape": list(slots), "prefill_ms": 1e3 * (t1 - t0),
+           "one_row_ms": 1e3 * (t2 - t1), "shard_bytes": shard_bytes,
+           "shard_s": shard_s,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "collectives": stats_delta(before, grid.stats)}
+    del mine, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_serving(torch, pool):
+    """Phase 19 (a): llama2-7b at full width on the grid against the
+    unsharded path on the same card."""
+    from repro_torch.launch.serve import greedy_generate, make_prefill_step
+    from repro_torch.utils import pytree as pt
+    cfg, params = dense_model(torch, MESH_ARCH)
+    tokens = dense_tokens(torch, cfg, MESH_GRID[0], MESH_S, seed=19)
+    report, flash = {}, 0
+    runs = (("f32", MESH_F32_DEPTH, torch.float32, LOGITS_F32_TOL, MESH_NEW),
+            ("bf16", CHECK_DEPTH, None, TOL["bfloat16"], 1),
+            ("bf16", cfg.n_layers, None, None, MESH_NEW))
+    for dn, depth, dtype, tol, n_new in runs:
+        label = f"{depth} layers {dn}"
+        cut, ccfg = first_layers(params, cfg, depth)
+        if dtype is not None:
+            cut = pt.tree_map(lambda t: t.to(dtype), cut)
+            ccfg = dataclasses.replace(ccfg, dtype="float32")
+        want = toks = None
+        if tol is not None:         # the unsharded path first, on its own
+            with torch.no_grad():
+                want, _ = make_prefill_step(ccfg)(cut, {"tokens": tokens},
+                                                  cache_len=MESH_S + MESH_NEW)
+            if dtype is not None:
+                toks = greedy_generate(cut, {"tokens": tokens}, ccfg,
+                                       MESH_NEW, device="cuda").cpu()
+        res = pool.run(mesh_serve_rank, ccfg, cut, tokens, n_new)
+        for r in res[1:]:
+            check(torch.equal(r["logits"], res[0]["logits"])
+                  and torch.equal(r["tokens"], res[0]["tokens"]),
+                  f"mesh {label}: every rank returns the same logits and "
+                  f"tokens for every row")
+        n = [r["launches"].get("flash_attention", 0) for r in res]
+        check(n == [depth] * len(res), f"mesh {label}: flash_attention "
+              f"launched {n} times on the ranks = {depth} (once a layer of "
+              f"the rank's prefill, over its heads)")
+        flash += sum(n)
+        out = {"layers": depth, "prompt": list(tokens.shape),
+               "prefill_ms": [r["prefill_ms"] for r in res],
+               "decode_step_ms": [r["decode_step_ms"] for r in res],
+               "rank_peak_bytes": [r["peak_bytes"] for r in res],
+               "rank_shard_bytes": [r["shard_bytes"] for r in res],
+               "shard_s": [r["shard_s"] for r in res],
+               "launches": [r["launches"] for r in res],
+               "collectives": [r["collectives"] for r in res]}
+        if tol is not None:
+            err, _ = rel_err(res[0]["logits"], want.cpu())
+            check(err <= tol, f"mesh {label}: prefill logits on the grid vs "
+                  f"the unsharded path {err:.3e} <= {tol} of max |logit|")
+            out["logits_rel_err"] = err
+            if toks is not None:
+                check(torch.equal(toks, res[0]["tokens"]),
+                      f"mesh {label}: {MESH_NEW} greedy tokens on the grid "
+                      f"equal the unsharded path's")
+                out["greedy_tokens_equal"] = MESH_NEW
+        print(f"mesh (a) {MESH_ARCH} {label} [{GPU}]: " + json.dumps(out))
+        report[label] = out
+        del cut
+        free(torch)
+    del params
+    free(torch)
+    return report, flash
+
+
+def mesh_engine(torch, pool):
+    """Phase 19 (b): one fedlora_opt pipeline iteration on the grid at
+    llama2-7b width, MESH_F32_DEPTH layers, against FedSim from the same
+    initial adapters and batches: in f64, every client and server leaf
+    within MESH_ENGINE_TOL of its max (``mesh_engine_check``); in f32 the
+    same by the f64 witness (``mesh_engine_f32_check``: the AdamW steps
+    that move dA_dir and B_dir from zero sit at its eps for the elements
+    of smallest gradient, where f32's other summation order moves them:
+    PERF.md)."""
+    from repro_torch.fed.simulate import FedHyper, FedSim
+    from repro_torch.utils import pytree as pt
+    cfg, params = dense_model(torch, MESH_ARCH, layers=MESH_F32_DEPTH,
+                              dtype="float32", seed=20)
+    hp = FedHyper(**MESH_ENGINE_HP)
+    C, T, B, S = hp.n_clients, hp.local_steps, hp.batch, hp.seq_len
+    g = torch.Generator(device="cuda").manual_seed(21)
+
+    def batch(*lead):
+        tok = torch.randint(5, cfg.vocab_size, (*lead, S), generator=g,
+                            device="cuda")
+        return {"tokens": tok, "loss_mask": torch.ones(tok.shape,
+                                                       device="cuda")}
+
+    def cat(bs, dim):
+        return {k: torch.cat([b[k] for b in bs], dim) for k in bs[0]}
+    cbs = [batch(C, B) for _ in range(T)]
+    rows = MESH_SERVER_ROWS // hp.global_steps
+    sbs = [batch(rows) for _ in range(hp.global_steps)]
+    pbs = [batch(C, B) for _ in range(hp.personal_steps)]
+    settings = dict(lr=hp.lr, micro_batches=1, clip=hp.clip, remat=False,
+                    method=hp.method, local_steps=T, server_lr=hp.server_lr,
+                    global_steps=hp.global_steps,
+                    personal_steps=hp.personal_steps, lam=hp.lam)
+    n_model = MESH_GRID[1]
+    report = {"config": dict(MESH_ENGINE_HP, server_rows=MESH_SERVER_ROWS,
+                             layers=cfg.n_layers, remat=False)}
+    ad0, runs = None, {}
+    for dn, dt in (("f64", torch.float64), ("f32", torch.float32)):
+        base = pt.tree_map(lambda t: t.to(dt), params)
+        sim = FedSim(cfg, hp, base=base, device="cuda")
+        if ad0 is None:
+            ad0 = host_copy(torch, sim.client_adapters)
+        sim.client_adapters = pt.tree_map(lambda t: t.to("cuda", dt), ad0)
+        sim.opt_state = sim._init_clients(sim.opt)
+        cast = [[pt.tree_map(lambda t: t.to(dt) if t.is_floating_point()
+                             else t, b) for b in bs] for bs in (cbs, sbs, pbs)]
+        # FedSim first, then the grid: four ranks and this process sharing
+        # the card in turns slow both
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.local_round(cast[0])
+        agg = sim.aggregate()
+        agg = sim.global_stage(agg, cast[1])
+        sim.personalize(cast[2])
+        torch.cuda.synchronize()
+        t_sim = time.perf_counter() - t0
+        want = {"clients": host_copy(torch, sim.client_adapters),
+                "server": host_copy(torch, agg)}
+        del sim, agg
+        free(torch)
+        t0 = time.perf_counter()
+        res = pool.run(mesh_engine_rank, cfg, settings, base,
+                       pt.tree_map(lambda t: t.to(dt), ad0),
+                       cat(cast[0], 1), cat(cast[1], 0), cat(cast[2], 1))
+        t_grid = time.perf_counter() - t0
+        for r in range(len(res)):
+            lead = res[r - r % n_model]
+            check(all(torch.equal(x, pt.tree_get(lead["adapters"], p))
+                      for p, x in pt.tree_leaves_with_path(res[r]["adapters"]))
+                  and all(torch.equal(x, pt.tree_get(res[0]["agg"], p))
+                          for p, x in pt.tree_leaves_with_path(res[r]["agg"])),
+                  f"mesh engine {dn}: rank {r} holds its model row's client "
+                  f"and the one server model bit for bit")
+        clients = [res[d * n_model]["adapters"] for d in range(C)]
+        got = pt.tree_map_with_path(lambda p, _: torch.cat(
+            [pt.tree_get(c, p) for c in clients]), clients[0])
+        runs[dn] = ({"clients": got, "server": res[0]["agg"]}, want)
+        errs = {"clients": leaf_errs(torch, got, want["clients"]),
+                "server": leaf_errs(torch, res[0]["agg"], want["server"])}
+        worst = max(e[0] for part in errs.values() for e in part.values())
+        for part, e in errs.items():
+            top = sorted(e.items(), key=lambda kv: -kv[1][0])[:4]
+            print(f"mesh (b) engine {dn}, {part}: leaves farthest from "
+                  f"FedSim's (max |Δ| / max, ‖Δ‖ / ‖leaf‖, share beyond 1e-3 "
+                  f"of max): " + json.dumps(top))
+        report[dn] = {
+            "grid_wall_s": t_grid, "fedsim_wall_s": t_sim,
+            "worst_leaf_rel_err": worst,
+            "worst_leaf_norm_rel_err": max(
+                e[1] for part in errs.values() for e in part.values()),
+            "walls": [r["walls"] for r in res],
+            "shard_s": [r["shard_s"] for r in res],
+            "task_s": [r["task_s"] for r in res],
+            "ce": [r["ce"] for r in res],
+            "rank_peak_bytes": [r["peak_bytes"] for r in res],
+            "rank_shard_bytes": [r["shard_bytes"] for r in res],
+            "collectives": [r["collectives"] for r in res]}
+        print(f"mesh (b) engine {dn} [{GPU}]: " + json.dumps(report[dn]))
+        if dn == "f64":
+            mesh_engine_check(errs)
+        else:
+            report[dn]["witness"] = mesh_engine_f32_check(torch, runs)
+        del base, res
+        free(torch)
+    del params
+    free(torch)
+    return report
+
+
+def mesh_engine_f32_check(torch, runs):
+    """(b) in f32, by the f64 witness (the rule of the CPU tests' f32
+    comparisons, ``tests/test_torch_tp.py``, with the share bound taken
+    from FedSim's own f32 run: at full width a tenth to a fifth of
+    dA_dir's elements sit at AdamW's eps): every client and server
+    element within MESH_ENGINE_TOL of its leaf's max of FedSim's f32 run,
+    but where f32 does not resolve it, the grid's or FedSim's f32 run
+    being more than MESH_WITNESS_TOL of max off its own f64 run; and the
+    grid's f32 run so off at no more than twice as many elements of a
+    leaf as FedSim's, plus 2 (a fault of the grid's f32 path alone would
+    put it off everywhere).  ``runs``: {"f32" | "f64": (grid, FedSim)},
+    each {"clients" | "server": tree}.  Returns, per leaf, the elements
+    beyond MESH_ENGINE_TOL, and those of each run off its f64."""
+    from repro_torch.utils import pytree as pt
+    (g32, f32), (g64, f64) = runs["f32"], runs["f64"]
+    out = {}
+    for part in ("clients", "server"):
+        for p, w in pt.tree_leaves_with_path(f32[part]):
+            def host(tree):
+                return pt.tree_get(tree[part], p).detach().double().cpu()
+            w, g, wg, wf = w.detach().double().cpu(), host(g32), host(g64), \
+                host(f64)
+            scale = max(float(w.abs().max()), 1e-30)
+            beyond = (g - w).abs() > MESH_ENGINE_TOL * scale
+            off_g = (g - wg).abs() > MESH_WITNESS_TOL * scale
+            off_f = (w - wf).abs() > MESH_WITNESS_TOL * scale
+            n = {k: int(v.sum()) for k, v in (
+                ("beyond", beyond), ("grid_off_f64", off_g),
+                ("fedsim_off_f64", off_f),
+                ("unresolved_beyond", beyond & ~(off_g | off_f)))}
+            out[f"{part} {p.split('/', 2)[-1]}"] = dict(n, elements=w.numel())
+    print(f"mesh (b) engine f32 by the f64 witness [{GPU}]: "
+          + json.dumps({k: v for k, v in out.items() if v["beyond"]}))
+    for leaf, n in out.items():
+        check(n["unresolved_beyond"] == 0
+              and n["grid_off_f64"] <= 2 * n["fedsim_off_f64"] + 2,
+              f"mesh engine f32 {leaf}: {n['beyond']} of {n['elements']} "
+              f"elements beyond {MESH_ENGINE_TOL} of max, each one f32 does "
+              f"not resolve ({n['unresolved_beyond']} not); the grid off "
+              f"its f64 at {n['grid_off_f64']} <= 2 x {n['fedsim_off_f64']}"
+              f" + 2 (FedSim's)")
+    return out
+
+
+def mesh_engine_check(errs):
+    """(b) in f64: every client and server leaf within MESH_ENGINE_TOL of
+    its max of FedSim's, but dA_dir, which one AdamW step moves from zero
+    (each element by -lr · g / (|g| + eps)), so that an element whose
+    gradient is near eps moves with the gradient's last bits (f32 cast
+    points inside the f64 model, another summation order): it is held
+    in norm within MESH_ENGINE_TOL, and at most MESH_EPS_SHARE of its
+    elements beyond 1e-3 of its max."""
+    for part, e in errs.items():
+        for p, (mx, nrm, share) in e.items():
+            if p.endswith("dA_dir"):
+                check(nrm <= MESH_ENGINE_TOL and share <= MESH_EPS_SHARE,
+                      f"mesh engine f64 {part} {p}: ‖Δ‖ {nrm:.3e} <= "
+                      f"{MESH_ENGINE_TOL} of ‖leaf‖, {share:.2e} <= "
+                      f"{MESH_EPS_SHARE} of elements beyond 1e-3 of max "
+                      f"(max {mx:.3e})")
+            else:
+                check(mx <= MESH_ENGINE_TOL, f"mesh engine f64 {part} {p}: "
+                      f"{mx:.3e} <= {MESH_ENGINE_TOL} of max |leaf|")
+
+
+def moe_loads(torch, cfg, params, tokens):
+    """The most tokens any expert takes in any MoE layer of a prefill of
+    ``tokens``, over all rows and over each row alone (the router's picks,
+    recorded through ``layers.moe_router``)."""
+    from repro_torch.models import model as M
+    with torch.no_grad(), RecordedPicks() as rec:
+        M.forward(params, {"tokens": tokens}, dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.top_k))
+    B = tokens.shape[0]
+    whole = row = 0
+    for top_i in rec.picks:
+        per_row = top_i.reshape(B, -1)
+        counts = torch.zeros((B, cfg.n_experts), dtype=torch.int64)
+        counts.scatter_add_(1, per_row, torch.ones_like(per_row))
+        whole = max(whole, int(counts.sum(0).max()))
+        row = max(row, int(counts.max()))
+    return whole, row
+
+
+def routed_otherwise(got, want):
+    """Tokens whose set of picked experts differs, summed over the MoE
+    layers (``got`` / ``want``: each layer's (T, k) picks)."""
+    return sum(int((g.sort(-1).values != w.sort(-1).values).any(-1).sum())
+               for g, w in zip(got, want))
+
+
+def mesh_moe_layer_rank(grid, cfg, p, xs):
+    """Phase 19 (c), one MoE layer on one rank: ``layers.moe_ffn_ep`` over
+    the rank's slots of the whole layer ``p`` (the rule table's ("data",
+    None, "model")) on each whole input of ``xs``: (2, S, D) a row a data
+    rank (the all-to-all path), (1, 1, D) on every rank (the small-batch
+    path).  Returns every row's output, the aux and the picks of each."""
+    import torch
+    from repro_torch.launch import specs as SP
+    from repro_torch.models import layers as L
+    from repro_torch.utils.sharding import DEFAULT_PARAM_RULES, tree_specs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mine = SP.shard_tree({"moe": p}, tree_specs({"moe": p},
+                                                DEFAULT_PARAM_RULES, grid),
+                         grid)["moe"]
+    mine = {k: {n: t.to(grid.device) for n, t in v.items()}
+            for k, v in mine.items()}
+    dp, d = grid.data.size, grid.data.rank
+    out = []
+    with torch.no_grad():
+        for x in xs:
+            x = x.to(grid.device)
+            split = x.shape[0] % dp == 0
+            n = x.shape[0] // dp
+            with RecordedPicks() as rec:
+                y, aux = L.moe_ffn_ep(mine, x[d * n:(d + 1) * n] if split
+                                      else x, cfg, grid.replace(rows_split=split))
+            picks = rec.picks[0]
+            if split:
+                y = torch.cat(list(grid.data.all_gather([y])[0].unbind(0)))
+                picks = torch.cat(list(grid.data.all_gather(
+                    [picks.to(x.device)])[0].unbind(0))).cpu()
+            out.append((y.cpu(), float(aux), picks))
+    del mine
+    torch.cuda.empty_cache()
+    return out
+
+
+def rows_alike(got, want, rows):
+    """Per row of a batch of ``rows``: whether every token of it picked
+    the same experts in every layer (``got`` / ``want``: each layer's
+    (T, k) picks, T = rows · tokens a row)."""
+    out = None
+    for g, w in zip(got, want):
+        same = (g.sort(-1).values == w.sort(-1).values).all(-1)
+        same = same.reshape(rows, -1).all(-1)
+        out = same if out is None else out & same
+    return out
+
+
+def mesh_moe_model(torch, pool, cfg, params, tokens, prompt):
+    """(c)'s model in ``cfg``'s dtype: the 2 x S prefill (a row a data
+    rank), the one-row prompt and its decode step on the grid beside the
+    unsharded path.  Returns (the report, the unsharded run's recorded
+    router picks and inputs, every row's logits and whether each row of
+    them was routed alike in every layer)."""
+    from repro_torch.launch.serve import make_decode_step, make_prefill_step
+    from repro_torch.models import model as M
+    with torch.no_grad(), RecordedPicks(inputs=True) as rec:
+        want_split, _ = make_prefill_step(cfg)(params, {"tokens": tokens})
+        one, cache = make_prefill_step(cfg)(
+            params, {"tokens": prompt}, cache_len=MESH_MOE_PROMPT + 1)
+        want_step, _ = make_decode_step(cfg)(
+            params, M.argmax_first(one), cache, MESH_MOE_PROMPT)
+    del cache
+    res = pool.run(mesh_moe_rank, cfg, params, tokens, prompt)
+    n = MESH_MOE_DEPTH
+    rows = [res[d * MESH_GRID[1]]["picks"] for d in range(MESH_GRID[0])]
+    grid_picks = [torch.cat([r[i] for r in rows]) for i in range(n)]
+    grid_picks += res[0]["picks"][n:]
+    for r in res[1:]:
+        check(all(torch.equal(r[k], res[0][k]) for k in ("split", "one",
+                                                          "step")),
+              "mesh (c): every rank returns the same logits for every row")
+    E = cfg.n_experts * cfg.ep_fsplit
+    check(all(r["slot_shape"][1] == E // MESH_GRID[0] for r in res),
+          f"mesh (c): each rank holds {E // MESH_GRID[0]} of {E} slots")
+    check(all(torch.isfinite(r[k]).all() for r in res
+              for k in ("split", "one", "step")),
+          "mesh (c): the grid's logits are finite")
+    one_alike = rows_alike(grid_picks[n:2 * n], rec.picks[n:2 * n], 1)
+    alike = {"split": rows_alike(grid_picks[:n], rec.picks[:n],
+                                 MESH_GRID[0]),
+             "one": one_alike,
+             "step": one_alike & rows_alike(grid_picks[2 * n:],
+                                            rec.picks[2 * n:], 1)}
+    logits = {k: (res[0][k], w.cpu()) for k, w in
+              (("split", want_split), ("one", one), ("step", want_step))}
+    out = {"logits_rel_err": {k: rel_err(*v)[0] for k, v in logits.items()},
+           "rows_routed_alike": {k: [bool(b) for b in a]
+                                 for k, a in alike.items()},
+           "token_layers_routed_otherwise": routed_otherwise(grid_picks,
+                                                             rec.picks),
+           "token_layers": sum(x.shape[0] for x in rec.picks),
+           "slot_shape": res[0]["slot_shape"],
+           "prefill_ms": [r["prefill_ms"] for r in res],
+           "one_row_ms": [r["one_row_ms"] for r in res],
+           "rank_peak_bytes": [r["peak_bytes"] for r in res],
+           "rank_shard_bytes": [r["shard_bytes"] for r in res],
+           "shard_s": [r["shard_s"] for r in res],
+           "collectives": [r["collectives"] for r in res]}
+    return out, rec, logits, alike
+
+
+def mesh_moe(torch, pool):
+    """Phase 19 (c): qwen3-moe-30b-a3b at full width, MESH_MOE_DEPTH
+    layers, its expert slots over the data ranks and their d_ff over the
+    model ranks, at a capacity where nothing drops: the model's 2 x S
+    prefill (a row a data rank) and a one-row prompt and decode step (the
+    small-batch path) on the grid beside the unsharded path.  In f32 the
+    logits of every row routed alike in every layer are held within
+    LOGITS_F32_TOL of max (the split prefill must keep a row); in bf16
+    the grid's other summation order moves near-ties at the top-k
+    boundary of the random router, so its logits and the tokens routed
+    otherwise are printed.  Then the first MoE layer on the bf16 model's
+    own inputs through ``moe_ffn_ep`` on the grid, held against
+    ``moe_ffn_local``, f32 within LOGITS_F32_TOL of max and bf16 within
+    TOL over the tokens routed alike, the picks equal in f32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.utils import pytree as pt
+    report = {"layers": MESH_MOE_DEPTH}
+    for dn, dtype in (("f32", "float32"), ("bf16", None)):
+        cfg, params = dense_model(torch, MESH_MOE, layers=MESH_MOE_DEPTH,
+                                  dtype=dtype)
+        tokens = dense_tokens(torch, cfg, MESH_GRID[0], MESH_MOE_S, seed=22)
+        prompt = dense_tokens(torch, cfg, 1, MESH_MOE_PROMPT, seed=23)
+        whole, row = moe_loads(torch, cfg, params, tokens)
+        # the capacity factor at which neither a row's tokens (the grid's
+        # shards) nor the batch's (the unsharded layer) drop a pick, in
+        # quarters: C = ceil(k · T · cf / E) >= the most an expert takes
+        need = max(row * cfg.n_experts / (cfg.top_k * MESH_MOE_S),
+                   whole * cfg.n_experts / (cfg.top_k * 2 * MESH_MOE_S))
+        cf = math.ceil(4 * need) / 4
+        cfg = dataclasses.replace(cfg, capacity_factor=cf)
+        print(f"mesh (c) {MESH_MOE} {dn}: full width, {MESH_MOE_DEPTH} of "
+              f"{get_config(MESH_MOE).n_layers} layers; an expert takes at "
+              f"most {row} picks of a row's {MESH_MOE_S} tokens, {whole} of "
+              f"both rows': capacity factor {cf}")
+        out, rec, logits, alike = mesh_moe_model(torch, pool, cfg, params,
+                                                 tokens, prompt)
+        out.update(capacity_factor=cf,
+                   max_expert_picks={"row": row, "both_rows": whole})
+        if dn == "f32":
+            check(bool(alike["split"].any()),
+                  "mesh (c) model f32: a row of the 2 x S prefill routed "
+                  "alike in every layer")
+            held = {}
+            for k, (got, want) in logits.items():
+                if alike[k].any():
+                    held[k] = rel_err(got[alike[k]], want[alike[k]])[0]
+                    check(held[k] <= LOGITS_F32_TOL,
+                          f"mesh (c) model f32 {k}: the grid's logits vs the "
+                          f"unsharded path {held[k]:.3e} <= {LOGITS_F32_TOL} "
+                          f"of max over {int(alike[k].sum())} of "
+                          f"{alike[k].numel()} rows routed alike")
+            out["held_rel_err"] = held
+        print(f"mesh (c) {MESH_MOE} {dn} model [{GPU}]: " + json.dumps(out))
+        report[f"{dn}_model"] = out
+        if dn == "f32":
+            del params, rec, logits
+            free(torch)
+    # the first MoE layer on the bf16 model's prefill and decode inputs
+    x_split = rec.inputs[0].reshape(MESH_GRID[0], MESH_MOE_S, -1)
+    x_one = rec.inputs[-MESH_MOE_DEPTH].reshape(1, 1, -1)
+    layer = pt.tree_map(lambda t: t[0].clone(),
+                        params["blocks"]["sub0"]["moe"])
+    del params, rec, logits
+    free(torch)
+    for dn, dtype, tol in (("f32", torch.float32, LOGITS_F32_TOL),
+                           ("bf16", torch.bfloat16, TOL["bfloat16"])):
+        p = pt.tree_map(lambda t: t.to(dtype) if t.dtype != torch.float32
+                        or dtype == torch.float32 else t.clone(), layer)
+        ccfg = dataclasses.replace(cfg, dtype="float32" if dtype ==
+                                   torch.float32 else "bfloat16")
+        xs = [x_split.to(dtype), x_one.to(dtype)]
+        with torch.no_grad():
+            with RecordedPicks() as lrec:
+                want = [L.moe_ffn_local(p, x, ccfg) for x in xs]
+            # the grid's aux on the split path: the mean of each data
+            # rank's own (the reference's pmean), not the batch's
+            row_aux = [float(L.moe_router(p, x.reshape(-1, x.shape[-1]),
+                                          ccfg)[2]) for x in xs[0]]
+        want[0] = (want[0][0], sum(row_aux) / len(row_aux))
+        aux_tol = 1e-5 if dtype == torch.float32 else tol
+        res = pool.run(mesh_moe_layer_rank, ccfg, p, xs)
+        out = {}
+        for i, (name, (y0, a0)) in enumerate(zip(("split", "one"), want)):
+            y0 = y0.reshape(-1, y0.shape[-1]).cpu()
+            for r in res:
+                y, aux, picks = r[i]
+                y = y.reshape(-1, y.shape[-1])
+                alike = (picks.sort(-1).values
+                         == lrec.picks[i].sort(-1).values).all(-1)
+                err = rel_err(y[alike], y0[alike])[0]
+                aux_err = abs(aux - float(a0)) / abs(float(a0))
+                if dtype == torch.float32:
+                    check(bool(alike.all()), f"mesh (c) layer f32 {name}: "
+                          f"every token routed alike on the grid")
+                check(err <= tol and aux_err <= aux_tol,
+                      f"mesh (c) layer {dn} {name}: "
+                      f"moe_ffn_ep on the grid vs moe_ffn_local {err:.3e} <= "
+                      f"{tol} of max over {int(alike.sum())} of "
+                      f"{alike.numel()} tokens routed alike; aux "
+                      f"{aux_err:.2e}")
+            out[name] = {"rel_err": err, "aux_rel_err": aux_err,
+                         "routed_otherwise": int((~alike).sum()),
+                         "tokens": int(alike.numel())}
+        print(f"mesh (c) first MoE layer {dn} [{GPU}]: " + json.dumps(out))
+        report[f"layer_{dn}"] = out
+        del p, xs, want
+        free(torch)
+    return report
+
+
+def phase_mesh(torch, mesh_pool):
+    """Phase 19: the 'model' axis on a 2 data x 2 model grid of 4 ranks
+    sharing the card (``ClientPool(n_model=2, device="cuda")``, gloo),
+    the pool ``mesh_pool`` started: (a) serving, (b) the production
+    engine, (c) expert parallelism.  Returns the report and
+    flash_attention's launches on the ranks."""
+    from repro_torch.launch.mesh import grid_backend
+    n_data, n_model = MESH_GRID
+    backend = grid_backend(n_data * n_model, "cuda")
+    print(f"mesh: {n_data} x {n_model} grid on {torch.cuda.device_count()} "
+          f"card(s): {backend}")
+    t0 = time.perf_counter()
+    pool = mesh_pool.get()
+    report = dict(mesh_pool.times, wait_s=time.perf_counter() - t0)
+    try:
+        report["serving"], flash = mesh_serving(torch, pool)
+        report["engine"] = mesh_engine(torch, pool)
+        report["moe"] = mesh_moe(torch, pool)
+    except RuntimeError as e:
+        raise CheckFailed(f"mesh: a rank failed:\n{e}")
+    report["wall_s"] = time.perf_counter() - t0
+    report["flash_launches"] = flash
+    report["backend"] = backend
+    print(f"mesh [{GPU}]: {backend}, pool start "
+          f"{report['pool_start_s']:.1f} s and warm-up "
+          f"{max(report['warm_s']):.1f} s on its thread, waited "
+          f"{report['wait_s']:.1f} s for them; phase {report['wall_s']:.1f} "
+          f"s, flash_attention {flash} launches on the ranks")
+    return report, flash
+
+
 def kernel_entry(name, src, replaces, launches, row, shape, extra=None):
     keys = ("ms", "plain_ms", "library_ms", "eager_ms", "eager_plain_ms",
             "eager_library_ms")
@@ -6415,6 +7217,33 @@ def kernel_entry(name, src, replaces, launches, row, shape, extra=None):
            "ranges_ms": {k: row[k + "_range"] for k in keys}}
     out.update(extra or {})
     return out
+
+
+def mesh_only(torch):
+    """``--mesh-only``: phase 19 alone, on every card there is (its grid
+    on NCCL when each rank has a card of its own), after building
+    flash_attention; prints its report.  Not the chip check: that is the
+    run with no arguments."""
+    from repro_torch.kernels import _build
+    _build.build_all(["flash_attention"])
+    workdir = ROOT / "build" / "phase19"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    mesh_pool = MeshPool(workdir)
+    try:
+        report, flash = phase_mesh(torch, mesh_pool)
+    except CheckFailed as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    finally:
+        mesh_pool.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"phase 19 (the model axis) took {time.perf_counter() - t0:.1f} s "
+          f"on {torch.cuda.device_count()} card(s)")
+    print(json.dumps({"mesh": report}))
+    print(f"gpu: {GPU}")
+    return 0
 
 
 def main():
@@ -6445,7 +7274,9 @@ def main():
           f"{torch.get_num_threads()} torch threads, load average "
           f"{os.getloadavg()[0]:.2f}")
     t_start = time.perf_counter()
-    dry_proc = None
+    if "--mesh-only" in sys.argv[1:]:
+        return mesh_only(torch)
+    dry_proc = mesh_pool = None
     try:
         t0 = time.perf_counter()
         libs = _build.build_all()
@@ -6532,7 +7363,7 @@ def main():
             t0 = time.perf_counter()
             (workdir / "engine").mkdir()
             report["engine"], engine_launches = phase_engine(
-                torch, ctx, workdir / "engine")
+                torch, cut_ctx(ctx, CUT_DEPTH), workdir / "engine")
             launches["bgmv_mag"] += engine_launches
             t_engine = time.perf_counter() - t0
             print(f"phase 12 (production engine) took {t_engine:.1f} s")
@@ -6586,6 +7417,10 @@ def main():
               f"{MM_BUDGET_S} s")
         gc.collect()
         torch.cuda.empty_cache()
+        mesh_dir = ROOT / "build" / "phase19"     # the grid's rendezvous
+        shutil.rmtree(mesh_dir, ignore_errors=True)
+        mesh_dir.mkdir(parents=True)
+        mesh_pool = MeshPool(mesh_dir)  # phase 19's ranks start beside 17-18
         workdir = ROOT / "build" / "phase17"    # phase 17's cache and cwd
         shutil.rmtree(workdir, ignore_errors=True)
         workdir.mkdir(parents=True)
@@ -6609,6 +7444,14 @@ def main():
         print(f"phase 18 (the dry run against the card) took {t_dry:.1f} s")
         check(t_dry <= DRYRUN_BUDGET_S, f"phase 18 took {t_dry:.1f} s <= "
               f"{DRYRUN_BUDGET_S} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        report["mesh"], mesh_flash = phase_mesh(torch, mesh_pool)
+        t_mesh = time.perf_counter() - t0
+        print(f"phase 19 (the model axis) took {t_mesh:.1f} s")
+        check(t_mesh <= MESH_BUDGET_S, f"phase 19 took {t_mesh:.1f} s <= "
+              f"{MESH_BUDGET_S} s")
     except CheckFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -6616,7 +7459,10 @@ def main():
         if dry_proc is not None and dry_proc.poll() is None:
             dry_proc.kill()
             dry_proc.communicate()
+        if mesh_pool is not None:
+            mesh_pool.close()
         shutil.rmtree(ROOT / "build" / "phase18", ignore_errors=True)
+        shutil.rmtree(ROOT / "build" / "phase19", ignore_errors=True)
 
     kdir = "src/repro_torch/kernels"
     pallas = "src/repro/kernels"
@@ -6685,7 +7531,8 @@ def main():
         "flash_attention", f"{kdir}/flash_attention/csrc/flash_attention.cu",
         f"{pallas}/flash_attention/flash_attention.py:87",
         dense_launches["flash_attention"] + moe_launches["flash_attention"]
-        + ssm_launches["flash_attention"] + mm_launches["flash_attention"],
+        + ssm_launches["flash_attention"] + mm_launches["flash_attention"]
+        + mesh_flash,
         fa["prefill"],
         "llama2-7b prefill: q, k, v (1, 4096, 32, 128) bf16, causal (phase 6 "
         "runs it with the other configs' shapes); launches: the prefills of "
@@ -6695,8 +7542,11 @@ def main():
         "phase 16 (qwen2-vl-2b 1 x (1024 patches + 3072 tokens), causal; "
         "seamless-m4t-large-v2's non-causal encoder over 4096 frames, "
         "causal decoder over 2048 tokens and non-causal cross-attention of "
-        "2048 over 4096)",
+        "2048 over 4096), phase 19 (llama2-7b's 2 x 4096 prefill on a 2 x "
+        "2 grid of ranks, each rank over its 16 q heads, at 8 layers f32, "
+        "2 and 32 layers bf16)",
         {"launches_phase6_standalone": launches_6["flash_attention"],
+         "launches_phase19_mesh_ranks": mesh_flash,
          "launches_phase13_by_config": report["dense"]["flash_launches"],
          "launches_phase14_by_config": report["moe"]["flash_launches"],
          "launches_phase15_by_config":

@@ -8,6 +8,10 @@ tensors on ``device``.
 JAX's bf16 arrays arrive as numpy arrays of the ``ml_dtypes`` bfloat16
 dtype, which ``torch.from_numpy`` rejects; they are detected by dtype
 name and reinterpreted bit for bit through ``uint16``.
+
+``shard_from_numpy`` carries such a tree into one rank's shard on a grid
+(``launch/specs.shard_tree`` by the given specs), so that both packages
+can be fed the same weights with each rank holding only its own.
 """
 from __future__ import annotations
 
@@ -40,3 +44,15 @@ def params_from_numpy(tree, device="cuda", dtype=None):
             return {k: go(v) for k, v in node.items()}
         return _leaf(node, dev, dtype)
     return go(tree)
+
+
+def shard_from_numpy(tree, specs, grid, device="cuda", dtype=None):
+    """This rank's shard (``grid.coords``) of a numpy tree by ``specs``
+    (``launch/specs.param_specs`` and friends), as tensors on ``device``
+    (floating leaves cast to ``dtype`` when given), cut on the host
+    before they are copied to the device."""
+    from repro_torch.launch.specs import shard_tree
+    from repro_torch.utils import pytree as pt
+    dev = resolve_device(device)
+    cut = shard_tree(params_from_numpy(tree, "cpu", dtype), specs, grid)
+    return pt.tree_map(lambda t: t.to(dev), cut)

@@ -70,6 +70,7 @@ from repro_torch.device import check_on, resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig
 from repro_torch.utils import pytree as pt
+from repro_torch.utils.collectives import model_group, scale_grad
 
 Params = Any
 
@@ -119,21 +120,28 @@ def prox_term(adapters: Params, ref: Params):
 
 
 def stage_loss(base, adapters, batch, cfg, *, gen=None, lam=0.0,
-               reg_mask=None, prox_mu=0.0, prox_ref=None, remat=False):
+               reg_mask=None, prox_mu=0.0, prox_ref=None, remat=False,
+               mesh=None):
     """The training loss of one adapter tree on one (B, S) batch: masked
     CE, plus the Eq. 11 ½λ‖·‖²_F over ``reg_mask``'s leaves when ``lam``,
     plus FedProx's ½µ‖θ − θ_ref‖² when ``prox_ref`` is given.  ``gen``:
-    the adapter-dropout generator; ``remat``: as ``model.forward``'s.
-    Returns (loss, metrics)."""
+    the adapter-dropout generator; ``remat``: as ``model.forward``'s;
+    ``mesh``: the production engine's grid, on which every rank of a
+    model row adds the two terms whole and takes their gradient at
+    1/n_model, a partial sum like the layers'.  Returns (loss,
+    metrics)."""
     loss, met = M.loss_and_metrics(pt.merge_trees(base, adapters), batch,
-                                   cfg, rng=gen, remat=remat)
+                                   cfg, rng=gen, remat=remat, mesh=mesh)
+    tp = model_group(mesh)
+    own = adapters if tp is None else pt.tree_map(
+        lambda x: scale_grad(x, 1.0 / tp.size), adapters)
     if lam:
         reg = sum(torch.sum(torch.square(x))
-                  for p, x in pt.tree_leaves_with_path(adapters)
+                  for p, x in pt.tree_leaves_with_path(own)
                   if pt.tree_get(reg_mask, p))
         loss = loss + 0.5 * lam * reg
     if prox_ref is not None:
-        loss = loss + 0.5 * prox_mu * prox_term(adapters, prox_ref)
+        loss = loss + 0.5 * prox_mu * prox_term(own, prox_ref)
     return loss, met
 
 

@@ -1,28 +1,48 @@
-"""Client process groups for the production round engine (port of
+"""Client process groups and the data × model grid of ranks (port of
 ``repro/launch/mesh.py``).
 
-The reference lays the federated clients on the 'data' axes of a device
-mesh, one client a shard, and runs a round inside a ``shard_map`` that
-is manual over them.  Here each client is one process, a rank of a
-``torch.distributed`` group of world size C:
+The reference lays devices on a ('data', 'model') mesh: the federated
+clients on the 'data' axes, one client a shard, and each client's
+backbone split over 'model' by tensor parallelism.  Here each device is
+one process, a rank of a ``torch.distributed`` group:
 
   make_client_mesh(C)  the client group (``ClientGroup``) of this
-                       process: ``rank``, ``size`` and the collectives
-                       the engine issues (``all_reduce``, ``all_gather``)
+                       process: ``rank``, ``size`` and its collectives
+                       (``all_reduce`` and ``all_gather`` of a list of
+                       tensors, ``reduce_max``, ``exchange``: the
+                       all-to-all)
+  make_debug_mesh(n_data, n_model)
+                       this process's place on a grid of n_data × n_model
+                       ranks (``Grid``): rank r = d · n_model + m sits at
+                       data index d and model index m; ``grid.data`` is
+                       the group of its data column (the ranks with its
+                       model index: the clients, and the expert-parallel
+                       all-to-all), ``grid.model`` the group of its model
+                       row (the ranks that split one client's backbone)
+  make_production_mesh(n_data=, n_model=)
+                       the same over the node's cards, rank r on card
+                       r mod ``torch.cuda.device_count()``
+  AbstractGrid         a grid's axes and shape with no processes, for the
+                       sharding rules (``utils/sharding.py``,
+                       ``launch/specs.py``)
   data_axes(mesh)      the group the clients are enumerated over (the
-                       mesh itself)
-  dp_size(mesh)        its world size C
-  ClientPool           C rank processes, started once (``spawn``), each
-                       in the group, running the tasks it is given and
-                       returning each rank's result or its traceback
+                       client mesh itself, a grid's data column)
+  dp_size(mesh)        its size C
+  ClientPool           the ranks, started once (``spawn``), each in the
+                       group or on the grid, running the tasks it is given
+                       and returning each rank's result or its traceback
 
-Backend: gloo, on the card too.  NCCL refuses two ranks on one device,
-and the card is one H100.  gloo runs both of the engine's collectives,
-``all_reduce`` and ``all_gather``, on CUDA tensors (measured on an H100
-80GB HBM3 at 700 W by ``chip_smoke.py`` phase 12), so every collective
-is issued on the buffer as it is and a failure raises.  The payload is
-the adapter tree (a few MB at llama2-7b width), never activations or the
-backbone.
+A grid's ranks run on the card (``device="cuda"``, the default of
+``make_debug_mesh`` and ``ClientPool``) unless the caller asks for the
+CPU (``device="cpu"``, as the tests do).  Backend, chosen by the layout:
+NCCL where every rank has a card of its own (``n_data · n_model <=
+torch.cuda.device_count()``, ranks on the card), gloo where ranks share
+a card (NCCL refuses two ranks on one device) or run on the CPU.  gloo runs ``all_reduce``, ``all_gather``
+and ``all_to_all_single`` on CUDA tensors, but not the list form of
+``all_to_all`` (probed on an H100 80GB HBM3 at 700 W: "Backend gloo does
+not support alltoall"), so the exchange is ``all_to_all_single``.  Every
+collective is issued on the buffer as it is, and a failure raises: no
+path moves to the host or to another backend.
 
 Rendezvous is a file (``init_method="file://..."``) in a directory the
 caller gives, so that two pools (parallel test workers) never share a
@@ -30,14 +50,16 @@ port.  With one client no process group is needed: ``make_client_mesh
 (1)`` outside a group is a group of one whose collectives are the
 identity.
 
-Not ported: ``make_production_mesh`` (a TPU pod slice), the 'model' axis
-of ``make_debug_mesh``, ``shard_map_compat`` and ``utils/sharding.py``.
-One card has no tensor-parallel axis, every rank holds whole tensors,
-and nothing here is a ``shard_map``.
+Not ported: ``shard_map_compat`` (there is no ``shard_map``: each rank
+runs its own shard's program and the layers issue the collectives,
+``utils/collectives.py``) and the 'pod' axis (one node; ``multi_pod``
+raises).
 """
 from __future__ import annotations
 
+import copy
 import datetime
+import math
 import os
 import time
 import traceback
@@ -46,19 +68,29 @@ import uuid
 import torch
 import torch.distributed as dist
 
-COLLECTIVES = ("all_reduce", "all_gather")
+COLLECTIVES = ("all_reduce", "all_gather", "all_to_all")
 RANK_THREADS = 1        # a rank's intra-op CPU threads: C ranks share a host
 GRACE_S = 10.0          # how long the others may run on once a rank failed
 
 
 def init_client_group(n_clients: int, rank: int, init_file: str, *,
-                      timeout_s: float = 300.0) -> None:
-    """Join this process to the client group: gloo, rendezvous through
-    ``init_file`` (which must not exist before the first rank joins)."""
+                      timeout_s: float = 300.0, backend: str = "gloo") -> None:
+    """Join this process to a group of ``n_clients`` ranks (a client
+    group, or a grid's world), rendezvous through ``init_file`` (which
+    must not exist before the first rank joins)."""
     dist.init_process_group(
-        "gloo", init_method=f"file://{os.path.abspath(init_file)}",
+        backend, init_method=f"file://{os.path.abspath(init_file)}",
         world_size=n_clients, rank=rank,
         timeout=datetime.timedelta(seconds=timeout_s))
+
+
+def grid_backend(world: int, device="cuda") -> str:
+    """NCCL when the ranks run on cards and each has one of its own,
+    else gloo (ranks that share a card, or run on the CPU)."""
+    if (torch.device(device).type == "cuda"
+            and torch.cuda.device_count() >= world):
+        return "nccl"
+    return "gloo"
 
 
 class ClientGroup:
@@ -108,6 +140,34 @@ class ClientGroup:
                 off += n
         return out
 
+    def reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over the ranks of ``t``, a new tensor."""
+        if self.size == 1:
+            return t.clone()
+        buf = t.contiguous().clone()
+
+        def reduce(b):
+            dist.all_reduce(b, op=dist.ReduceOp.MAX, group=self.pg)
+            return b
+        return self._collective("all_reduce", buf, reduce)
+
+    def exchange(self, t: torch.Tensor) -> torch.Tensor:
+        """The all-to-all: ``t``'s dim 0 cut into ``size`` equal chunks,
+        chunk j sent to rank j; the result's chunk i is what rank i sent
+        here (``all_to_all_single``)."""
+        if self.size == 1:
+            return t.clone()
+        if t.shape[0] % self.size:
+            raise ValueError(f"all_to_all: dim 0 of {tuple(t.shape)} does "
+                             f"not split over {self.size} ranks")
+        buf = t.contiguous()
+
+        def exchange(b):
+            out = torch.empty_like(b)
+            dist.all_to_all_single(out, b, group=self.pg)
+            return out
+        return self._collective("all_to_all", buf, exchange)
+
     def all_gather(self, tensors: list) -> list:
         """[every rank's t stacked in rank order, (C, *t.shape)], in one
         all-gather a dtype."""
@@ -147,25 +207,147 @@ def make_client_mesh(n_clients: int) -> ClientGroup:
     return ClientGroup(dist.get_rank(), size)
 
 
-def data_axes(mesh: ClientGroup) -> ClientGroup:
-    """The group the clients are enumerated over: the mesh itself."""
-    return mesh
+class AbstractGrid:
+    """A grid's axes and shape, with no processes behind it: what the
+    sharding rules read (``axis_names``, ``shape``), and optionally one
+    rank's place on it (``coords``: axis → index) for ``launch/specs
+    .shard_tree``."""
+
+    def __init__(self, shape, axis_names=("data", "model"), coords=None):
+        if not isinstance(shape, dict):
+            shape = dict(zip(axis_names, shape))
+        self.axis_names = tuple(axis_names)
+        self.shape = {a: int(shape[a]) for a in self.axis_names}
+        self.coords = dict(coords) if coords else None
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def __repr__(self):
+        return (f"{type(self).__name__}({self.shape}"
+                + (f", at {self.coords}" if self.coords else "") + ")")
 
 
-def dp_size(mesh: ClientGroup) -> int:
-    return mesh.size
+class Grid(AbstractGrid):
+    """This rank's place on a data × model grid of ranks: ``rank``,
+    ``coords`` {"data": d, "model": m}, the groups ``data`` (its data
+    column: C = n_data ranks, the clients) and ``model`` (its model row:
+    the n_model ranks that split one backbone), the ``backend`` and the
+    rank's ``device``.
+
+    Two modes, each set on a copy by ``replace``:
+
+      rows_split  how a served batch lies on the data axis: its rows
+                  split over the data ranks (True, the default), or the
+                  same rows on every data rank (False: a batch that does
+                  not divide, the reference's small-batch path);
+                  ``launch/serve.py`` sets it
+      manual      the production engine's grid (``launch/train.py`` sets
+                  it): each data rank is a client of its own, and MoE
+                  runs ``layers.moe_ffn_manual`` (else ``moe_ffn_ep``)"""
+
+    def __init__(self, n_data, n_model, rank, data: ClientGroup,
+                 model: ClientGroup, backend: str, device):
+        super().__init__((n_data, n_model), ("data", "model"),
+                         {"data": rank // n_model, "model": rank % n_model})
+        self.rank, self.data, self.model = rank, data, model
+        self.backend, self.device = backend, torch.device(device)
+        self.rows_split, self.manual = True, False
+
+    def replace(self, *, rows_split: bool | None = None,
+                manual: bool | None = None) -> "Grid":
+        """A copy with the modes given set (the groups are shared)."""
+        out = copy.copy(self)
+        if rows_split is not None:
+            out.rows_split = bool(rows_split)
+        if manual is not None:
+            out.manual = bool(manual)
+        return out
+
+    @property
+    def stats(self) -> dict:
+        """The collectives' calls, bytes and seconds, per group."""
+        return {"data": self.data.stats, "model": self.model.stats}
+
+
+def _grid(n_data: int, n_model: int, device) -> Grid:
+    """This process's Grid over the initialized process group: one
+    subgroup a data column and one a model row, made by every rank in
+    the same order (``dist.new_group`` is collective)."""
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"a grid of {n_data} x {n_model} needs torch.distributed: run "
+            "it in a ClientPool rank (or call init_client_group)")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world != n_data * n_model:
+        raise ValueError(f"the process group has {world} ranks, not "
+                         f"{n_data} x {n_model}")
+    cols = [dist.new_group([d * n_model + m for d in range(n_data)])
+            for m in range(n_model)]
+    rows = [dist.new_group([d * n_model + m for m in range(n_model)])
+            for d in range(n_data)]
+    d, m = rank // n_model, rank % n_model
+    return Grid(n_data, n_model, rank, ClientGroup(d, n_data, cols[m]),
+                ClientGroup(m, n_model, rows[d]), dist.get_backend(), device)
+
+
+def make_debug_mesh(n_data: int = 4, n_model: int = 2, *,
+                    multi_pod: bool = False, device="cuda") -> Grid:
+    """This rank's Grid of ``n_data`` × ``n_model`` ranks (the reference's
+    small CI mesh) on ``device``: "cuda" (the default) for the card r mod
+    ``torch.cuda.device_count()``, made current, or "cpu" when the
+    caller asks for it."""
+    if multi_pod:
+        raise ValueError("multi_pod: one node has no 'pod' axis")
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    return _grid(n_data, n_model, dev)
+
+
+def make_production_mesh(*, n_data: int, n_model: int,
+                         multi_pod: bool = False) -> Grid:
+    """This rank's Grid over the node's cards: rank r on card r mod
+    ``torch.cuda.device_count()``.  (The reference's is a TPU pod slice
+    of 16 × 16 chips; one node's grid is the size of its process group.)
+    ``multi_pod`` raises: one node has no 'pod' axis."""
+    return make_debug_mesh(n_data, n_model, multi_pod=multi_pod,
+                           device="cuda")
+
+
+def data_axes(mesh):
+    """The group the clients are enumerated over: a client mesh itself,
+    or a grid's data column."""
+    return mesh.data if isinstance(mesh, Grid) else mesh
+
+
+def dp_size(mesh) -> int:
+    return data_axes(mesh).size
 
 
 # ---------------------------------------------------------------------------
 # rank processes
 # ---------------------------------------------------------------------------
 
-def _rank_main(rank, n_clients, init_file, timeout_s, conn):
-    """A pool rank: join the group, then run tasks until told to stop."""
+def _rank_main(rank, n_clients, n_model, device, init_file, timeout_s,
+               conn):
+    """A pool rank: join the group (or the grid), then run tasks until
+    told to stop."""
     torch.set_num_threads(RANK_THREADS)
     try:
-        init_client_group(n_clients, rank, init_file, timeout_s=timeout_s)
-        group = make_client_mesh(n_clients)
+        if n_model is None:
+            init_client_group(n_clients, rank, init_file, timeout_s=timeout_s)
+            group = make_client_mesh(n_clients)
+        else:
+            world = n_clients * n_model
+            backend = grid_backend(world, device)
+            if backend == "nccl":       # a card of its own before the init
+                torch.cuda.set_device(rank % torch.cuda.device_count())
+            init_client_group(world, rank, init_file, timeout_s=timeout_s,
+                              backend=backend)
+            group = make_debug_mesh(n_clients, n_model, device=device)
         conn.send((True, None))
     except Exception:
         conn.send((False, traceback.format_exc()))
@@ -187,11 +369,16 @@ def _rank_main(rank, n_clients, init_file, timeout_s, conn):
 
 
 class ClientPool:
-    """``n_clients`` rank processes of one client group, started once.
+    """``n_clients`` rank processes of one client group, started once; or,
+    with ``n_model``, the n_clients × n_model ranks of a grid, each task
+    given the rank's ``Grid`` (``make_debug_mesh`` on ``device``: the
+    card unless the caller asks for "cpu"; the backend by
+    ``grid_backend``).  A client group's ranks place their own tensors,
+    and ignore ``device``.
 
     ``run(fn, *args, **kwargs)`` calls ``fn(group, *args, **kwargs)`` on
-    every rank (``group``: the rank's ``ClientGroup``) and returns the
-    results in rank order; if a rank raises, ``run`` raises a
+    every rank (``group``: the rank's ``ClientGroup`` or ``Grid``) and
+    returns the results in rank order; if a rank raises, ``run`` raises a
     RuntimeError carrying that rank's traceback, and stops the pool when
     a rank died or the others do not finish within GRACE_S (they may
     wait in a collective the failed rank never reached); the next
@@ -206,8 +393,11 @@ class ClientPool:
     and each collective."""
 
     def __init__(self, n_clients: int, workdir: str, *,
-                 timeout_s: float = 300.0):
-        self.n, self.workdir, self.timeout_s = n_clients, workdir, timeout_s
+                 timeout_s: float = 300.0, n_model: int | None = None,
+                 device="cuda"):
+        self.clients, self.n_model, self.device = n_clients, n_model, device
+        self.n = n_clients * (n_model or 1)
+        self.workdir, self.timeout_s = workdir, timeout_s
         self._procs: list = []
         self._conns: list = []
         self._start()
@@ -221,13 +411,14 @@ class ClientPool:
         for r in range(self.n):
             parent, child = ctx.Pipe()
             p = ctx.Process(target=_rank_main, daemon=True,
-                            args=(r, self.n, init_file, self.timeout_s,
-                                  child))
+                            args=(r, self.clients, self.n_model, self.device,
+                                  init_file, self.timeout_s, child))
             p.start()
             child.close()
             self._procs.append(p)
             self._conns.append(parent)
-        self._collect(self.timeout_s, "joining the client group")
+        self._collect(self.timeout_s, "joining the client group"
+                      if self.n_model is None else "joining the grid")
 
     def _collect(self, timeout_s, what):
         results: dict = {}

@@ -11,8 +11,13 @@ Per-tenant adapters, two deployment modes:
 The reference runs the decode steps as one jitted ``lax.scan``; PyTorch
 runs eagerly, so here they are a Python loop with no host sync inside.
 ``make_prefill_step`` / ``make_decode_step`` bind the model's serving
-steps to a config (the reference's mesh argument has no counterpart on
-one card).
+steps to a config and, with ``mesh`` (a ``launch/mesh.Grid``), to this
+rank's place on a grid: the rank passes its shard of the backbone
+(``launch/specs.shard_tree``) and the whole batch; the batch's rows are
+split over the data ranks when they divide (else every data rank runs
+them all, the reference's small-batch path), the backbone over the model
+ranks, and the logits come back for every row and the whole vocabulary.
+``greedy_generate(mesh=)`` decodes on the grid the same way.
 """
 from __future__ import annotations
 
@@ -28,28 +33,69 @@ from repro_torch.utils import pytree as pt
 Params = Any
 
 
-def make_prefill_step(cfg: ArchConfig):
-    """``prefill_step(params, batch, enc_out=None) → (last logits,
-    cache)``: ``models.model.prefill`` bound to ``cfg``."""
-    def prefill_step(params, batch, enc_out=None):
-        return M.prefill(params, batch, cfg, enc_out=enc_out)
+def _rows(batch: dict, mesh):
+    """This data rank's rows of a whole batch, on the rank's device, and
+    the grid marked with how they lie: split when B divides over the data
+    ranks, else every row on every data rank."""
+    B, dp = batch["tokens"].shape[0], mesh.data.size
+    split = B % dp == 0
+    n, d = (B // dp, mesh.data.rank) if split else (B, 0)
+    return ({k: (v[d * n:(d + 1) * n].to(mesh.device)
+                 if torch.is_tensor(v) and v.dim() else v)
+             for k, v in batch.items()}, mesh.replace(rows_split=split))
+
+
+def _all_rows(x, grid):
+    """Every row's ``x`` from the data ranks' rows, in rank order."""
+    if not grid.rows_split or grid.data.size == 1:
+        return x
+    return torch.cat(list(grid.data.all_gather([x])[0].unbind(0)))
+
+
+def make_prefill_step(cfg: ArchConfig, mesh=None):
+    """``prefill_step(params, batch, enc_out=None, cache_len=0) → (last
+    logits, cache)``: ``models.model.prefill`` bound to ``cfg``; with
+    ``mesh``, this rank's part of it (module docstring): its shard of
+    ``params``, the whole ``batch``, every row's logits and the rank's
+    cache (its rows, its kv heads)."""
+    M.check_grid(cfg, mesh)
+
+    def prefill_step(params, batch, enc_out=None, cache_len=0):
+        if mesh is None:
+            return M.prefill(params, batch, cfg, enc_out=enc_out,
+                             cache_len=cache_len)
+        local, grid = _rows(batch, mesh)
+        logits, cache = M.prefill(params, local, cfg, enc_out=enc_out,
+                                  cache_len=cache_len, mesh=grid)
+        return _all_rows(logits, grid), cache
 
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig):
+def make_decode_step(cfg: ArchConfig, mesh=None):
     """``decode_step(params, new_token, cache, cache_index, enc_out=None)
     → (logits, cache)``: ``models.model.decode_step`` bound to ``cfg``
-    (an encoder-decoder needs ``enc_out``)."""
+    (an encoder-decoder needs ``enc_out``); with ``mesh``, the rank's
+    part: every row's new_token, the rank's cache (from its prefill
+    step), every row's logits."""
+    M.check_grid(cfg, mesh)
+
     def decode_step(params, new_token, cache, cache_index, enc_out=None):
-        return M.decode_step(params, new_token, cache, cache_index, cfg,
-                             enc_out=enc_out)
+        if mesh is None:
+            return M.decode_step(params, new_token, cache, cache_index, cfg,
+                                 enc_out=enc_out)
+        local, grid = _rows({"tokens": new_token}, mesh)
+        logits, cache = M.decode_step(params, local["tokens"], cache,
+                                      cache_index, cfg, enc_out=enc_out,
+                                      mesh=grid)
+        return _all_rows(logits, grid), cache
 
     return decode_step
 
 
 def greedy_generate(params, prompt_batch: dict, cfg: ArchConfig,
-                    n_new: int = 16, adapter_idx=None, *, device="cuda"):
+                    n_new: int = 16, adapter_idx=None, *, device="cuda",
+                    mesh=None):
     """Greedy prefill → decode loop; returns (B, n_new) int64 tokens.
     ``prompt_batch`` holds ``tokens`` (B, S) and optionally
     ``frontend_emb`` and ``positions``, numpy or tensors; they and
@@ -59,9 +105,19 @@ def greedy_generate(params, prompt_batch: dict, cfg: ArchConfig,
     F + S + n_new positions and decoding starts at F + S (the reference
     pads to S + n_new and starts at S, inside the prefix).  An
     encoder-decoder's encoder runs once, and each decode step reads its
-    output (the reference's decode loop drops it, ROADMAP C)."""
+    output (the reference's decode loop drops it, ROADMAP C).
+
+    ``mesh``: this rank's part on a grid, with its shard of ``params``
+    and the whole prompt batch; returns every row's tokens.  Pooled
+    adapters are not served on a grid (the reference raises too)."""
     dev = resolve_device(device)
     check_on(params["embed"]["embedding"], dev, "params")
+    if mesh is not None:
+        if adapter_idx is not None:
+            raise NotImplementedError(
+                "pooled-adapter routing (adapter_idx) is not served on a "
+                "grid; serve merged per-tenant models")
+        M.check_grid(cfg, mesh)
     batch = {k: torch.as_tensor(prompt_batch[k], device=dev)
              for k in ("tokens", "frontend_emb", "positions")
              if prompt_batch.get(k) is not None}
@@ -72,19 +128,23 @@ def greedy_generate(params, prompt_batch: dict, cfg: ArchConfig,
         adapter_idx = torch.as_tensor(adapter_idx, dtype=torch.int32,
                                       device=dev)
         batch["adapter_idx"] = adapter_idx
+    grid = None
+    if mesh is not None:
+        batch, grid = _rows(batch, mesh)
     enc_out = (M._encode(params, batch["frontend_emb"], cfg)
                if cfg.n_enc_layers else None)
     logits, cache = M.prefill(params, batch, cfg, cache_len=S + n_new,
-                              enc_out=enc_out)
+                              enc_out=enc_out, mesh=grid)
     tok = M.argmax_first(logits)
     out = [tok]
     for i in range(n_new - 1):
         logits, cache = M.decode_step(params, tok, cache, S + i, cfg,
                                       enc_out=enc_out,
-                                      adapter_idx=adapter_idx)
+                                      adapter_idx=adapter_idx, mesh=grid)
         tok = M.argmax_first(logits)
         out.append(tok)
-    return torch.stack(out, dim=1)
+    toks = torch.stack(out, dim=1)
+    return toks if grid is None else _all_rows(toks, grid)
 
 
 def greedy_generate_reference(params, prompt_batch: dict, cfg: ArchConfig,

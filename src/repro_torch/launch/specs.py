@@ -1,10 +1,10 @@
-"""Abstract parameter, adapter and cache trees and the step inputs of
-every (architecture × input shape) pair (port of
-``repro/launch/specs.py``).
+"""Abstract parameter, adapter and cache trees, the step inputs of
+every (architecture × input shape) pair, and the grid's sharding specs
+(port of ``repro/launch/specs.py``).
 
-Each is a tree of ``device="meta"`` tensors with the shapes, dtypes and
-leaf paths of the real tree, built by the same code that builds the real
-one (``init_params``, ``peft.add_lora``, ``init_cache`` on the meta
+Each tree is a tree of ``device="meta"`` tensors with the shapes, dtypes
+and leaf paths of the real tree, built by the same code that builds the
+real one (``init_params``, ``peft.add_lora``, ``init_cache`` on the meta
 device), so the shapes have one source.  They allocate nothing: a
 full-size model's tree is free to build and to count
 (``utils.pytree.tree_bytes``, ``launch.analysis.param_counts``), and the
@@ -12,12 +12,31 @@ dry run (``launch/dryrun.py``) runs a step on them.
 
 The batch specs (``train_batch_specs``, ``serve_batch_specs``,
 ``decode_specs``) have the reference's shapes and dtypes and no
-shardings: there is one card, and the reference's sharding rules
-(``param_specs``, ``adapter_specs``, ``cache_specs``) have no
-counterpart.  ``cache_index`` is a Python int, as ``decode_step`` takes
-it.
+shardings (one card's step).  ``cache_index`` is a Python int, as
+``decode_step`` takes it.
+
+The sharding specs are spec tuples (``utils/sharding.py``) over a grid
+(``launch/mesh.Grid`` or ``AbstractGrid``): ``param_specs`` (the
+reference's rule table), ``adapter_specs`` (a leading client axis over
+the data axes, else replicated) and ``cache_specs`` (the rows over the
+data axes, kv heads over 'model').  ``shard_tree`` cuts a whole tree to
+one rank's shard by them.  Where the port lays a tensor out otherwise
+than the reference's rules, it says so (ROADMAP C):
+
+  * k_proj / v_proj and the cache's kv heads stay whole on every rank
+    when the kv heads do not divide over 'model' (granite-34b's MQA,
+    gemma3-1b): the reference's rules split k_proj's columns (one head's
+    dh) and the cache's dh, and XLA gathers them;
+  * a served batch that does not divide over the data axes is the same
+    rows on every data rank (the small-batch path), so its cache is not
+    split: the reference splits its sequence over the data axes.
+
+``seq_shard_kv`` (a cache split on its sequence over 'model') raises, as
+the dry run's ``seqshard_kv`` variant does.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -26,6 +45,8 @@ from repro_torch.core import peft
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig
 from repro_torch.utils import pytree as pt
+from repro_torch.utils.sharding import (DEFAULT_PARAM_RULES, data_axis_names,
+                                        spec_for)
 
 
 def abstract_params(cfg: ArchConfig):
@@ -107,3 +128,107 @@ def decode_specs(cfg: ArchConfig, shape: InputShape):
     if cfg.n_enc_layers:
         args["enc_out"] = _meta((B, S // 2, cfg.d_model), _dt(cfg))
     return args
+
+
+# ---------------------------------------------------------------------------
+# sharding specs over a grid
+# ---------------------------------------------------------------------------
+
+def _bspec(mesh):
+    ax = data_axis_names(mesh)
+    return ax if len(ax) > 1 else (ax[0] if ax else None)
+
+
+def _dp(mesh) -> int:
+    return math.prod(mesh.shape[a] for a in data_axis_names(mesh))
+
+
+def _tp(mesh) -> int:
+    return mesh.shape.get("model", 1)
+
+
+def param_specs(cfg: ArchConfig, mesh, tree):
+    """The backbone's specs: ``DEFAULT_PARAM_RULES``, but k_proj and
+    v_proj whole where the kv heads do not divide over 'model' (module
+    docstring).  On a grid with a model axis of more than one rank the
+    families that are not split over it raise (``model.check_grid``)."""
+    M.check_grid(cfg, mesh)
+    whole_kv = cfg.n_kv_heads % _tp(mesh) != 0
+
+    def fn(path, x):
+        if whole_kv and (path.endswith("k_proj/kernel")
+                         or path.endswith("v_proj/kernel")):
+            return (None,) * len(x.shape)
+        return spec_for(path, len(x.shape), DEFAULT_PARAM_RULES, mesh)
+    return pt.tree_map_with_path(fn, tree)
+
+
+def adapter_specs(mesh, tree, client_axis: bool):
+    """Adapters are replicated, but for a leading client axis (when
+    ``client_axis``), split over the data axes: one client a shard."""
+    b = _bspec(mesh)
+    if client_axis:
+        return pt.tree_map(lambda x: (b,) + (None,) * (len(x.shape) - 1),
+                           tree)
+    return pt.tree_map(lambda _: (), tree)
+
+
+def cache_specs(cfg: ArchConfig, mesh, tree, batch: int,
+                seq_shard_kv: bool = False):
+    """The decode cache's specs: rows over the data axes when ``batch``
+    divides over them (else the same rows on every data rank), kv heads
+    over 'model' when they divide (else whole); SSM states' heads and
+    conv channels over 'model' when they divide (the reference's; the
+    SSM families run on a grid only with one model rank)."""
+    if seq_shard_kv:
+        raise ValueError("seq_shard_kv shards the KV cache's sequence over "
+                         "'model'; the port splits the kv heads or keeps "
+                         "them whole (ROADMAP A14, the seq_shard_kv variant)")
+    b, dp, tp = _bspec(mesh), _dp(mesh), _tp(mesh)
+    rows = b if batch >= dp and batch % dp == 0 else None
+
+    def fn(path, x):
+        shp = x.shape
+        if path.endswith("/k") or path.endswith("/v"):
+            lead = [None] * (len(shp) - 4)       # (n_sb?, B, S, K, dh)
+            K = shp[-2]
+            return tuple(lead + [rows, None, "model" if K % tp == 0 else None,
+                                 None])
+        if path.endswith("/state"):
+            lead = [None] * (len(shp) - 4)       # (n_sb?, B, H, P, N)
+            return tuple(lead + [rows, "model" if shp[-3] % tp == 0 else None,
+                                 None, None])
+        if "conv" in path:
+            lead = [None] * (len(shp) - 3)       # (n_sb?, B, k-1, C)
+            return tuple(lead + [rows, None,
+                                 "model" if shp[-1] % tp == 0 else None])
+        return ()
+    return pt.tree_map_with_path(fn, tree)
+
+
+def _cut(x, spec, grid):
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        n, idx = 1, 0
+        for a in axes:
+            n *= grid.shape[a]
+            idx = idx * grid.shape[a] + grid.coords[a]
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                             f"over {axes} ({n} ranks)")
+        size = x.shape[dim] // n
+        x = x.narrow(dim, idx * size, size)
+    return x
+
+
+def shard_tree(tree, specs, grid):
+    """This rank's shard of a whole tree: each leaf cut along every split
+    dimension of its spec to the block at the rank's coordinates
+    (``grid.coords``; a tuple of axes is split over their product, the
+    first the slowest), as a contiguous tensor of its own, so that the
+    rank does not hold the whole tree's storage."""
+    return pt.tree_map_with_path(
+        lambda path, x: _cut(x, pt.tree_get(specs, path), grid).clone(
+            memory_format=torch.contiguous_format), tree)

@@ -62,15 +62,36 @@ rank, and a stage-2 seed forces its replicated path.  ``FedSim`` draws
 its masks client after client from one generator, so the two engines
 agree mask for mask only at ``lora_dropout = 0`` (ROADMAP C).
 
-Mixture of experts: each rank runs ``layers.moe_ffn_local`` on its own
-micro-batch (and on its slice in the sharded stage 2), with the
-capacity from those tokens.  That is what the reference's
-``moe_ffn_manual`` computes: a per-shard grouping, an all-to-all to the
-slots' owners and the same all-to-all back.  The ranks share one
-backbone on one card, so every expert slot is resident on every rank
-and there is no exchange; the reference's ``base_manual_specs`` (slots
-sharded over the data axes) has no counterpart.  There is no jit:
-``round_step_raw`` is ``round_step``.
+The grid.  ``mesh`` is a client group (``make_client_mesh``: one rank a
+client, each with the whole backbone) or a ``Grid`` (``make_debug_mesh``
+/ ``make_production_mesh``): the clients on its data axis, each client's
+backbone split over its model axis.  On a grid ``base`` is this rank's
+shard (``launch/specs.shard_tree(base, param_specs(cfg, grid, base),
+grid)``), and the adapters, optimizer state and batches are the client's
+whole trees on every rank of its model row:
+
+  * the forward and backward pass run tensor-parallel over the model row
+    (``models/layers.py``), with a vocab-parallel CE;
+  * after each step's backward every adapter gradient is all-reduced
+    (summed) over the model row: each rank's is a partial sum, as the
+    layers lay them out (those computed whole on every rank, the Houlsby
+    adapter, the prompt, the Eq. 11 regularizer and FedProx's term, take
+    their gradient at 1/n_model a rank: ``utils/collectives.scale_grad``).
+    The clip and AdamW then run identically on every rank of the row;
+  * the method's collective, the sharded stage 2 and the metrics' means
+    run over the data column only;
+  * dropout generators are seeded by the data rank, so that the model
+    ranks of one client draw the same masks;
+  * MoE runs ``layers.moe_ffn_manual``: the base's expert slots split
+    over the data axis (``base_manual_specs``, part of ``param_specs``),
+    tokens exchanged by all-to-all at the capacity of the rank's own
+    micro-batch.
+
+On a client group, MoE runs ``layers.moe_ffn_local`` on each rank's own
+micro-batch (and its slice in the sharded stage 2), every slot resident
+on every rank: what the reference's ``moe_ffn_manual`` computes with its
+per-shard grouping and all-to-all.  There is no jit: ``round_step_raw``
+is ``round_step``.
 """
 from __future__ import annotations
 
@@ -89,12 +110,13 @@ from repro_torch.core import peft
 from repro_torch.core.methods import get_method
 from repro_torch.device import check_on, resolve_device
 from repro_torch.fed.simulate import stage_loss, value_and_grad
-from repro_torch.launch.mesh import data_axes, dp_size
+from repro_torch.launch.mesh import Grid, data_axes, dp_size
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim import adamw, masked
 from repro_torch.optim.optimizers import apply_updates, clip_by_global_norm
 from repro_torch.utils import pytree as pt
+from repro_torch.utils.collectives import model_group
 
 Params = Any
 
@@ -328,6 +350,10 @@ def make_fed_pipeline_step(cfg: ArchConfig, mesh, settings: TrainSettings,
     group = data_axes(mesh)
     dp = dp_size(mesh)
     rank = fedagg.client_index(group)
+    grid = mesh if isinstance(mesh, Grid) else None
+    M.check_grid(cfg, grid)
+    tp = model_group(grid)
+    manual = grid.replace(manual=True) if grid is not None else None
     micro = settings.micro_batches
     method = get_method(settings.method)
     keep_rx = re.compile(method.keep_local) if method.keep_local else None
@@ -383,7 +409,8 @@ def make_fed_pipeline_step(cfg: ArchConfig, mesh, settings: TrainSettings,
                     else None)
         _, met, g = value_and_grad(lambda leaves: stage_loss(
             base, leaves, mb, cfg, gen=gen, lam=stage_lam, reg_mask=reg_mask,
-            prox_mu=stage_prox, prox_ref=prox_ref, remat=settings.remat), ad)
+            prox_mu=stage_prox, prox_ref=prox_ref, remat=settings.remat,
+            mesh=manual), ad)
         return met, g
 
     def pmean(met):
@@ -435,6 +462,9 @@ def make_fed_pipeline_step(cfg: ArchConfig, mesh, settings: TrainSettings,
                                                                g_acc, acc)
                 n_acc = n_acc + n
                 mets.append(met_m)
+            if tp is not None:      # the row's partial sums
+                gs = iter(tp.all_reduce(pt.tree_leaves(g_acc)))
+                g_acc = pt.tree_map(lambda _: next(gs), g_acc)
             if sharded:
                 n_tot, *gs = group.all_reduce(
                     [n_acc] + pt.tree_leaves(g_acc))
@@ -620,6 +650,19 @@ def make_fed_train_step(cfg: ArchConfig, mesh, settings: TrainSettings, *,
         return adapters, opt_state, met
 
     return train_step, pipe.opt_init
+
+
+def base_manual_specs(base, cfg: ArchConfig):
+    """The base's specs over the data axis alone (the reference's): MoE
+    expert slots split over 'data', everything else whole.  The port's
+    ``launch/specs.param_specs`` carries these entries together with the
+    rule table's 'model' ones, and an engine on a grid takes the base cut
+    by it."""
+    def fn(path, x):
+        if cfg.n_experts and re.search(r"moe/experts/", path):
+            return (None,) * (len(x.shape) - 3) + ("data", None, None)
+        return (None,) * len(x.shape)
+    return pt.tree_map_with_path(fn, base)
 
 
 def abstract_base(cfg: ArchConfig):

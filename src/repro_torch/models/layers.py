@@ -28,6 +28,27 @@ pooled adapters through the BGMV ops.  ``kernel_impl`` threads down to
 all of them: None launches the CUDA kernel for CUDA tensors (the plain
 version for CPU ones); "torch" forces the plain versions, for explicit
 comparisons only.
+
+Tensor parallelism (``tp``: a grid's model row, ``launch/mesh.Grid``;
+None or a group of one computes whole tensors).  The backbone leaves are
+this rank's shard (``launch/specs.shard_tree`` by the rule table of
+``utils/sharding.py``); every adapter leaf is whole on every rank, as the
+rules say.  ``linear(split="col")`` (q/k/v/gate/up) computes the rank's
+columns: x·W0[:, cols], the adapter's h from the whole x and the rank's
+columns of B (``B_dir``, ``lora_B``).  ``linear(split="row")`` (o/down)
+computes the rank's partial sum from its rows of the input: x_r·W0[rows]
+plus the adapter's partial h_r = (x_r ⊙ A_mag[rows])·A_dir[rows] carried
+through the whole B, and one all-reduce over the group sums both: Σ_r
+(h_r ⊙ b)·B is (Σ_r h_r ⊙ b)·B, so h's all-reduce rides the product's;
+a bias is added once, after it.  That keeps every adapter leaf's
+gradient a partial sum on each rank, so the engine's one sum over the
+model group after the backward is exact (an all-reduce of h before B
+would leave B's gradient whole on every rank, and the sum would count it
+n_model times).  Adapters that every rank applies whole to whole
+activations (the Houlsby adapter, ``model.forward``'s prompt) go through
+``scale_grad`` by 1/n_model, so their gradients are partial sums too.  ``fused_dora`` takes the rank's slice of W0 and of the
+adapter unchanged, columns or rows.  The region's input goes through
+``copy_to`` once a sublayer (identity forward, all-reduce backward).
 """
 from __future__ import annotations
 
@@ -39,8 +60,18 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels._wrap import resolve_impl
+from repro_torch.utils.collectives import (all_to_all, copy_to, mean_over,
+                                           model_group, reduce_from,
+                                           scale_grad)
 
 Params = Any
+
+
+def wide(t):
+    """``t`` in f32, or left in f64: where the reference computes in f32,
+    an f64 run (the tests' witness) stays f64, so that a tensor-parallel
+    run's other summation order is not rounded through f32 there."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -161,9 +192,51 @@ def _has_pooled(p: Params) -> bool:
     return "pool_A" in p or "pool_dB_mag" in p
 
 
+# adapter leaves by the axis a tensor-parallel slice cuts: the output
+# columns (a column-parallel target) or the input rows (a row-parallel one)
+_OUT_COLS = ("lora_B", "local_B", "B_dir")
+_IN_ROWS = ("lora_A", "local_A", "A_dir", "dA_dir", "A_mag")
+
+
+def _tp_slice(p: Params, tp, split: str) -> Params:
+    """``p`` with its whole adapter leaves (and bias) cut to this rank's
+    columns ("col") or rows ("row") of the projection, whose kernel is
+    already the rank's shard (views)."""
+    if "kernel" not in p:
+        raise ValueError("tensor parallelism needs a plain kernel (the "
+                         "quantized backbone is not split over a grid)")
+    if _has_pooled(p):
+        raise ValueError("pooled adapters are not served on a grid (as in "
+                         "the reference, whose mesh path refuses "
+                         "adapter_idx)")
+    w = p["kernel"]
+    if split == "col":
+        n = w.shape[-1]
+        sl = {k: p[k][..., tp.rank * n:(tp.rank + 1) * n]
+              for k in _OUT_COLS + ("bias",) if k in p}
+    else:
+        n = w.shape[0]
+        sl = {k: p[k][tp.rank * n:(tp.rank + 1) * n]
+              for k in _IN_ROWS if k in p}
+    return {**p, **sl}
+
+
 def linear(p: Params, x, *, lora_scale: float = 0.0, dropout_gen=None,
            dropout: float = 0.0, fused: bool = False, adapter_idx=None,
-           kernel_impl=None):
+           kernel_impl=None, tp=None, split=None):
+    """x · W0 (+ bias) + the adapter's delta.  ``tp`` / ``split``: the
+    rank's columns or its row-parallel partial, all-reduced over ``tp``
+    (module docstring)."""
+    kw = dict(lora_scale=lora_scale, dropout_gen=dropout_gen,
+              dropout=dropout, fused=fused, adapter_idx=adapter_idx,
+              kernel_impl=kernel_impl)
+    if tp is not None and split is not None:
+        q = _tp_slice(p, tp, split)
+        if split == "col":
+            return linear(q, x, **kw)
+        bias = q.pop("bias", None)
+        y = reduce_from(linear(q, x, **kw), tp)
+        return y if bias is None else y + bias.to(y.dtype)
     if (fused and "A_dir" in p and lora_scale
             and (adapter_idx is None or not _has_pooled(p))
             and (dropout_gen is None or dropout == 0.0)
@@ -288,11 +361,36 @@ def _target_scale(cfg, proj: str, lora_scale: float) -> float:
     return lora_scale if proj in cfg.lora_targets else 0.0
 
 
+def kv_split(cfg, tp) -> bool:
+    """Whether k_proj / v_proj and the cache's kv heads split over the
+    model group: when the kv heads divide over it.  Otherwise (an MQA
+    model such as granite-34b, gemma3-1b's one kv head) every rank keeps
+    them whole and reads the heads its q heads use, where the reference's
+    rule table would split k_proj's columns (one kv head's dh) and let
+    XLA gather them (ROADMAP C)."""
+    return tp is not None and cfg.n_kv_heads % tp.size == 0
+
+
+def _kv_for_heads(k, v, h0: int, H: int, rep: int):
+    """The kv heads that q heads h0 … h0 + H − 1 of the whole model read
+    (head h reads kv head h // rep), from whole (B, S, K, dh) k / v, as
+    (k, v) whose grouped layout (q head i reads kv head i // (H / K'))
+    matches: one kv head where the q heads sit in one group (an MQA
+    model's), else one kv head a q head.  (Where the q heads cover whole
+    groups the kv heads divide over the ranks, and ``kv_split`` splits
+    them instead.)"""
+    if h0 // rep == (h0 + H - 1) // rep:
+        j = slice(h0 // rep, h0 // rep + 1)
+        return k[:, :, j], v[:, :, j]
+    idx = torch.arange(h0, h0 + H, device=k.device) // rep
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def attention(p: Params, x, positions, cfg, *, kind: str = "global",
               causal: bool = True, cache=None, cache_index=None,
               kv_source=None, lora_scale: float = 0.0, dropout_gen=None,
               return_cache: bool = False, cache_len: int = 0,
-              adapter_idx=None, kernel_impl=None):
+              adapter_idx=None, kernel_impl=None, tp=None):
     """Attention sublayer (pre-norm outside).  Returns (y, new_cache).
     ``kind="local"`` attends the last ``cfg.sliding_window`` positions
     only; ``q_norm`` / ``k_norm`` in ``p`` normalize q and k over the
@@ -328,28 +426,50 @@ def attention(p: Params, x, positions, cfg, *, kind: str = "global",
     ``window`` keys and values in ring layout, or is zero-padded up to
     ``window`` (``cache_len`` is for the global layers).
     adapter_idx: (B,) int32 pool slot per row for batched-LoRA serving.
+
+    tp: the model group.  The rank computes its q heads (a contiguous
+    block: q_proj's column shard) and, where ``kv_split``, its kv heads
+    (their groups' block), or else all kv heads, of which it reads those
+    its q heads use; the cache holds the kv heads the rank computes;
+    o_proj is row-parallel.  Not for cross-attention (the
+    encoder-decoder is not split over a grid).
     """
     B, S, D = x.shape
-    H, Kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dh = cfg.head_dim
     window = cfg.sliding_window if kind == "local" else None
     scale = 1.0 / math.sqrt(dh)
     kw = dict(fused=cfg.use_fused_dora, adapter_idx=adapter_idx,
               kernel_impl=kernel_impl)
     drop = dict(dropout_gen=dropout_gen, dropout=cfg.lora_dropout)
+    if tp is not None:
+        if kv_source is not None:
+            raise ValueError("cross-attention is not split over a grid "
+                             "(ROADMAP A14c)")
+        x = copy_to(x, tp)
     kv_in = x if kv_source is None else kv_source
+    col = dict(tp=tp, split="col") if tp is not None else {}
+    kv_col = col if kv_split(cfg, tp) else {}
     q = linear(p["q_proj"], x, lora_scale=_target_scale(cfg, "q_proj",
                                                         lora_scale),
-               **drop, **kw)
+               **drop, **kw, **col)
     k = linear(p["k_proj"], kv_in, lora_scale=_target_scale(cfg, "k_proj",
                                                             lora_scale),
-               **drop, **kw)
+               **drop, **kw, **kv_col)
     v = linear(p["v_proj"], kv_in, lora_scale=_target_scale(cfg, "v_proj",
                                                             lora_scale),
-               **drop, **kw)
+               **drop, **kw, **kv_col)
     Skv = kv_in.shape[1]
+    H, Kh = q.shape[-1] // dh, k.shape[-1] // dh
     q = q.reshape(B, S, H, dh)
     k = k.reshape(B, Skv, Kh, dh)
     v = v.reshape(B, Skv, Kh, dh)
+
+    def heads(kk, vv):
+        """The kv heads this rank's q heads read."""
+        if tp is None or kv_col:
+            return kk, vv
+        return _kv_for_heads(kk, vv, tp.rank * H, H,
+                             cfg.n_heads // cfg.n_kv_heads)
     if "q_norm" in p:                      # qwen3 qk-norm, over the head dim
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -389,16 +509,17 @@ def attention(p: Params, x, positions, cfg, *, kind: str = "global",
             valid = ar < min(idx + 1, Sc)
             mask = valid[None, None, None, :]              # (1,1,1,Sc)
         new_cache = cache
-        out = _sdpa(q, ck, cv, mask, scale)
+        out = _sdpa(q, *heads(ck, cv), mask, scale)
     else:
+        ka, va = heads(k, v)
         if S >= 2048 and S % 512 == 0:
-            out = _long_attention(q, k, v, scale, window, kernel_impl,
+            out = _long_attention(q, ka, va, scale, window, kernel_impl,
                                   causal)
         elif causal or window is not None:
             mask = _causal_window_mask(S, S, 0, window, x.device, causal)
-            out = _sdpa(q, k, v, mask[None, None], scale)
+            out = _sdpa(q, ka, va, mask[None, None], scale)
         else:
-            out = _sdpa(q, k, v, None, scale)
+            out = _sdpa(q, ka, va, None, scale)
         if return_cache:
             if window is not None and S > window:
                 # the last `window` keys and values, rolled so position p
@@ -412,7 +533,8 @@ def attention(p: Params, x, positions, cfg, *, kind: str = "global",
                              "v": F.pad(v, (0, 0, 0, 0, 0, pad))}
 
     y = linear(p["o_proj"], out.reshape(B, S, H * dh),
-               lora_scale=_target_scale(cfg, "o_proj", lora_scale), **kw)
+               lora_scale=_target_scale(cfg, "o_proj", lora_scale), **kw,
+               **({"tp": tp, "split": "row"} if tp is not None else {}))
     return y, new_cache
 
 
@@ -434,26 +556,39 @@ def init_attn_cache(cfg, batch, seq_len: int, kind: str, dtype, device):
 # ---------------------------------------------------------------------------
 
 def dense_ffn(p: Params, x, cfg, lora_scale: float = 0.0, adapter_idx=None,
-              kernel_impl=None):
+              kernel_impl=None, tp=None):
     """SwiGLU FFN; with {adapter_down, adapter_up} in ``p``, a Houlsby
     adapter after down_proj: y + gelu(y @ down) @ up, gelu in its tanh
     form (``jax.nn.gelu``'s default) computed in f32.  The adapter's
     factors are cast to the activation dtype, as ``lora_delta`` casts
     its own, so a bf16 model stays bf16 (the reference's f32
-    ``adapter_up`` promotes a bf16 block to f32: ROADMAP C, caveat 3)."""
+    ``adapter_up`` promotes a bf16 block to f32: ROADMAP C, caveat 3).
+    ``tp``: gate and up column-parallel, down row-parallel (the Houlsby
+    adapter then runs whole on the all-reduced output)."""
     kw = dict(fused=cfg.use_fused_dora, adapter_idx=adapter_idx,
               kernel_impl=kernel_impl)
+    col, row = {}, {}
+    if tp is not None:
+        x = copy_to(x, tp)
+        col, row = dict(tp=tp, split="col"), dict(tp=tp, split="row")
     g = linear(p["gate_proj"], x,
-               lora_scale=_target_scale(cfg, "gate_proj", lora_scale), **kw)
+               lora_scale=_target_scale(cfg, "gate_proj", lora_scale), **kw,
+               **col)
     u = linear(p["up_proj"], x,
-               lora_scale=_target_scale(cfg, "up_proj", lora_scale), **kw)
+               lora_scale=_target_scale(cfg, "up_proj", lora_scale), **kw,
+               **col)
     h = F.silu(g.float()).to(x.dtype) * u
     y = linear(p["down_proj"], h,
-               lora_scale=_target_scale(cfg, "down_proj", lora_scale), **kw)
+               lora_scale=_target_scale(cfg, "down_proj", lora_scale), **kw,
+               **row)
     if "adapter_down" in p:                              # Houlsby adapter
-        a = F.gelu((y @ p["adapter_down"].to(y.dtype)).float(),
+        down, up = p["adapter_down"], p["adapter_up"]
+        if tp is not None:          # whole on every rank: a 1/n share each
+            down, up = (scale_grad(down, 1.0 / tp.size),
+                        scale_grad(up, 1.0 / tp.size))
+        a = F.gelu((y @ down.to(y.dtype)).float(),
                    approximate="tanh").to(y.dtype)
-        y = y + a @ p["adapter_up"].to(y.dtype)
+        y = y + a @ up.to(y.dtype)
     return y
 
 
@@ -480,7 +615,7 @@ def moe_router(p: Params, xt, cfg):
     weights are a softmax over the top-k.  aux is the Switch load-balance
     loss E · Σ_e f_e · p_e, with f_e the share of the (logical) top-k
     picks that went to e and p_e the mean router probability."""
-    logits = (xt @ p["router"]["kernel"].to(xt.dtype)).float()
+    logits = wide(xt @ p["router"]["kernel"].to(xt.dtype))
     top_i = torch.sort(logits, dim=-1, descending=True,
                        stable=True).indices[:, :cfg.top_k]
     top_w = torch.softmax(torch.gather(logits, -1, top_i), dim=-1).to(
@@ -554,10 +689,10 @@ def moe_ffn_local(p: Params, x, cfg):
     Expert weights are stored in slot layout (E·fsplit, D, F/fsplit)
     (``cfg.ep_fsplit``; plain for 1).  Every slot computes its C rows
     (C from this call's T tokens, ``moe_capacity``), so a token's output
-    depends on the batch whenever capacity drops picks.  The production
-    engine runs it on each rank's own micro-batch: every slot is
-    resident on every rank (one card), which is what the reference's
-    per-shard grouping and all-to-all compute (``moe_ffn_manual``)."""
+    depends on the batch whenever capacity drops picks.  On a client
+    mesh the production engine runs it on each rank's own micro-batch,
+    every slot resident on every rank: what ``moe_ffn_manual``'s
+    per-shard grouping and all-to-all compute (a grid runs that)."""
     B, S, D = x.shape
     T = B * S
     xt = x.reshape(T, D)
@@ -571,6 +706,99 @@ def moe_ffn_local(p: Params, x, cfg):
                      e["down"]).reshape(E_slots * C, D)
     y = _combine_from_expert(yg, combine, T)
     return y.reshape(B, S, D), aux
+
+
+def _moe_sharded(p: Params, x, cfg, data, tp, *, replicated: bool):
+    """The body of ``moe_ffn_ep`` / ``moe_ffn_manual`` on this rank: its
+    tokens x (B_l, S, D) and its resident slots (E_loc = E_slots / dp of
+    them, each with its tp slice of d_ff: ``p["experts"]`` is the rank's
+    shard).  Returns (y, this rank's aux)."""
+    B_l, S, D = x.shape
+    T = B_l * S
+    fsplit = cfg.ep_fsplit
+    E_slots = cfg.n_experts * fsplit
+    dp = data.size
+    if E_slots % dp:
+        raise ValueError(f"{E_slots} expert slots do not split over {dp} "
+                         f"data ranks")
+    E_loc = E_slots // dp
+    e = p["experts"]
+    if e["gate"].shape[0] != E_loc:
+        raise ValueError(f"the rank holds {e['gate'].shape[0]} expert slots, "
+                         f"not its {E_loc} of {E_slots} (shard the base by "
+                         f"launch/specs.param_specs)")
+    xt = copy_to(x.reshape(T, D), tp)
+    C = moe_capacity(cfg, T)
+    top_i, top_w, aux = moe_router(p, xt, cfg)
+    if tp is not None:
+        # every model rank computes the same aux from the same router
+        # input, whose gradient copy_to sums over the group
+        aux = scale_grad(aux, 1.0 / tp.size)
+    xg, combine = _group_by_expert(xt, top_i, top_w, E_slots, C, fsplit)
+    if replicated:
+        # the small-batch path: every data rank holds the same tokens and
+        # computes its resident slots; the sum over data and model below
+        # assembles every slot's (partial) rows
+        lo = data.rank * E_loc
+        y_loc = _expert_mlp(xg.reshape(E_slots, C, D)[lo:lo + E_loc],
+                            e["gate"], e["up"], e["down"])
+        yg = torch.cat([y_loc.new_zeros((lo, C, D)), y_loc,
+                        y_loc.new_zeros((E_slots - lo - E_loc, C, D))])
+        y = _combine_from_expert(yg.reshape(E_slots * C, D), combine, T)
+        y = reduce_from(reduce_from(y, data), tp)
+        return y.reshape(B_l, S, D), aux
+    # dispatch: chunk j (slots of data rank j) to rank j; receive each
+    # rank's rows for this rank's slots, source-major
+    xr = all_to_all(xg.reshape(dp, E_loc, C, D), data)
+    xr = xr.transpose(0, 1).reshape(E_loc, dp * C, D)
+    yr = _expert_mlp(xr, e["gate"], e["up"], e["down"])    # partial over F
+    yr = yr.reshape(E_loc, dp, C, D).transpose(0, 1).contiguous()
+    yg = all_to_all(yr, data)                              # back to the owners
+    y = _combine_from_expert(yg.reshape(E_slots * C, D), combine, T)
+    y = reduce_from(y, tp)               # the d_ff partials, after the combine
+    return y.reshape(B_l, S, D), aux
+
+
+def moe_ffn_manual(p: Params, x, cfg, mesh):
+    """The MoE body of the production engine on a grid (``mesh``: a
+    ``launch/mesh.Grid``): x is this rank's client's tokens, the slots
+    are split over the data group (``launch/train.base_manual_specs``)
+    and exchanged by all-to-all, their d_ff over the model group.  The
+    capacity comes from the rank's own T.  Returns (y, the rank's aux):
+    the engine means the metrics over the clients."""
+    return _moe_sharded(p, x, cfg, mesh.data, model_group(mesh),
+                        replicated=False)
+
+
+def moe_ffn_ep(p: Params, x, cfg, mesh):
+    """Expert-parallel MoE on a grid (the reference's ``moe_ffn_ep``):
+    expert slots split over the data group and d_ff over the model group
+    (``("data", None, "model")``).  When the batch's rows are split over
+    the data ranks (``mesh.rows_split``): per rank, route its tokens,
+    group them by slot at the capacity of its own T, all-to-all to the
+    slots' owners, the grouped SwiGLU on the resident slots, all-to-all
+    back, the weighted combine, then the all-reduce of the d_ff partials
+    over the model group.  Otherwise (a batch that does not divide over
+    the data ranks, as a one-row decode step) every data rank holds the
+    same tokens, computes its resident slots for them, and the outputs
+    are summed over data and model.
+
+    The aux is the mean over the data ranks (the reference's pmean over
+    the batch axes), and carries its gradient.  With the rows split, the
+    backward is the mean too: each rank's gradient holds its own aux at
+    full weight, as its CE holds its own rows, so the mean of the ranks'
+    gradients is the whole batch's.  On the small-batch path every data
+    rank computes the same aux from the same tokens, and its gradient is
+    taken at 1/dp a rank, a partial sum over the data ranks like the
+    outputs'."""
+    data = mesh.data
+    y, aux = _moe_sharded(p, x, cfg, data, model_group(mesh),
+                          replicated=not mesh.rows_split)
+    if mesh.rows_split:
+        aux = mean_over(aux, data)
+    else:
+        aux = scale_grad(aux, 1.0 / data.size)
+    return y, aux
 
 
 def moe_ffn_dense_ref(p: Params, x, cfg):

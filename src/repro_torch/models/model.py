@@ -24,6 +24,15 @@ its non-causal encoder (``params["encoder"]``) reads.  The decoder's
 layers are then ``cfg.dec_pattern()``: self-attention with no FFN, then
 cross-attention over the encoder's output with a dense FFN.
 
+On a grid (``mesh=``: a ``launch/mesh.Grid``) each rank runs its own rows with its shard of the
+backbone (``launch/specs.shard_tree``): attention and the dense FFN
+split over the model group (``layers``), the embedding and the lm_head
+over the vocabulary (a masked lookup and an all-reduce; logits gathered,
+the CE's max and sum-exp all-reduced in f32), MoE slots over the data
+group with an all-to-all (``layers.moe_ffn_ep``, or ``moe_ffn_manual``
+on the engine's grid, whose ``manual`` is set).  The SSM and hybrid families and the
+encoder-decoder are not split over a model group (``check_grid``).
+
 Entry points:
   init_params(generator, cfg, device=)      → param tree (no adapters)
   forward(params, batch, cfg, ...)          → (hidden, cache, aux)
@@ -44,6 +53,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ArchConfig, SubLayer
 from repro_torch.utils import pytree as pt
+from repro_torch.utils.collectives import (copy_to, gather_from, model_group,
+                                           reduce_from, scale_grad)
 
 Params = Any
 
@@ -61,6 +72,26 @@ def _layout(cfg: ArchConfig):
     if cfg.n_enc_layers:
         return cfg.n_layers, 0, cfg.dec_pattern()
     return cfg.blocks_layout()
+
+
+def check_grid(cfg: ArchConfig, mesh) -> None:
+    """Refuse a family that is not split over a model axis of more than
+    one rank (``mesh``: a grid, abstract or not), naming the ROADMAP
+    item that queues it."""
+    shape = getattr(mesh, "shape", None)
+    if not isinstance(shape, dict) or shape.get("model", 1) == 1:
+        return
+    if cfg.n_enc_layers:
+        raise ValueError(
+            f"{cfg.name}: the encoder-decoder (its encoder and cross-"
+            "attention) is not split over a model axis yet (ROADMAP A14c); "
+            "run it on a grid with n_model 1")
+    if any(sub.mixer == "ssm" for sub in cfg.pattern()):
+        raise ValueError(
+            f"{cfg.name}: the SSM mixer (in_proj's packed z / x / B / C / dt "
+            "columns, the gated norm over a split inner dimension) is not "
+            "split over a model axis yet (ROADMAP A14b); run it on a grid "
+            "with n_model 1")
 
 
 # ---------------------------------------------------------------------------
@@ -199,13 +230,15 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, *,
 def _apply_sublayer(p, x, sub: SubLayer, cfg, *, positions, cache=None,
                     cache_index=None, enc_out=None, causal=True,
                     lora_scale=0.0, dropout_gen=None, return_cache=False,
-                    cache_len=0, adapter_idx=None, kernel_impl=None):
+                    cache_len=0, adapter_idx=None, kernel_impl=None,
+                    mesh=None):
     """One sublayer: its mixer (attention; cross-attention over
     ``enc_out``, never causal and with no cache; or the Mamba-2 mixer, to
     which the reference passes no ``adapter_idx``), then its FFN (dense,
     MoE or none).  Returns (x, new_cache, aux: the MoE aux, None without
-    one)."""
+    one).  ``mesh``: the grid (module docstring)."""
     new_cache = {}
+    tp = model_group(mesh)
     h = L.rms_norm(x, p["input_norm"], cfg.norm_eps)
     key = "ssm" if sub.mixer == "ssm" else "attn"
     mcache = cache.get(key) if cache else None
@@ -223,7 +256,7 @@ def _apply_sublayer(p, x, sub: SubLayer, cfg, *, positions, cache=None,
                             lora_scale=lora_scale, dropout_gen=dropout_gen,
                             return_cache=return_cache,
                             cache_len=cache_len, adapter_idx=adapter_idx,
-                            kernel_impl=kernel_impl)
+                            kernel_impl=kernel_impl, tp=tp)
     if nc is not None:
         new_cache[key] = nc
     x = x + y
@@ -231,10 +264,15 @@ def _apply_sublayer(p, x, sub: SubLayer, cfg, *, positions, cache=None,
         return x, new_cache, None
     h = L.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
     if sub.ffn == "moe":
-        y, aux = L.moe_ffn_local(p["moe"], h, cfg)
+        if getattr(mesh, "manual", False):
+            y, aux = L.moe_ffn_manual(p["moe"], h, cfg, mesh)
+        elif mesh is not None and mesh.size > 1:
+            y, aux = L.moe_ffn_ep(p["moe"], h, cfg, mesh)
+        else:
+            y, aux = L.moe_ffn_local(p["moe"], h, cfg)
         return x + y, new_cache, aux
     x = x + L.dense_ffn(p["mlp"], h, cfg, lora_scale, adapter_idx=adapter_idx,
-                        kernel_impl=kernel_impl)
+                        kernel_impl=kernel_impl, tp=tp)
     return x, new_cache, None
 
 
@@ -309,7 +347,7 @@ def _remat_superblock(x, p_sb, pattern, cfg, remat, kw):
 def _run_blocks(blocks, tail, x, pattern, cfg, *, positions, cache=None,
                 cache_index=None, enc_out=None, causal=True,
                 dropout_gen=None, return_cache=False, cache_len=0,
-                adapter_idx=None, kernel_impl=None, remat=False):
+                adapter_idx=None, kernel_impl=None, remat=False, mesh=None):
     """Loop over the stacked superblocks, then the unstacked ``tail``
     (``{}``: none).  A decode cache is updated in place and returned; a
     prefill cache (return_cache) is stacked back to the (n_sb, ...)
@@ -322,7 +360,7 @@ def _run_blocks(blocks, tail, x, pattern, cfg, *, positions, cache=None,
               enc_out=enc_out, causal=causal,
               dropout_gen=dropout_gen, return_cache=return_cache,
               cache_len=cache_len,
-              adapter_idx=adapter_idx, kernel_impl=kernel_impl)
+              adapter_idx=adapter_idx, kernel_impl=kernel_impl, mesh=mesh)
     if remat and (cache is not None or return_cache):
         raise ValueError("remat is for training; it keeps no cache")
     leaves = pt.tree_leaves(blocks)
@@ -389,11 +427,22 @@ def _encode(params, frontend_emb, cfg: ArchConfig, *, rng=None,
     return L.rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
-def _embed(params, tokens, cfg: ArchConfig, frontend_emb=None):
+def _embed(params, tokens, cfg: ArchConfig, frontend_emb=None, tp=None):
     """Token embeddings (B, S, D); with ``cfg.frontend`` and a
     ``frontend_emb`` (B, F, D), that cast to the embedding dtype in
-    front: (B, F + S, D)."""
-    emb = params["embed"]["embedding"][tokens.to(torch.int64)]
+    front: (B, F + S, D).  ``tp``: the table is this rank's rows of the
+    vocabulary; each rank looks up the tokens it holds (zeros for the
+    rest) and an all-reduce sums them, exactly (one term is nonzero)."""
+    table = params["embed"]["embedding"]
+    tokens = tokens.to(torch.int64)
+    if tp is None:
+        emb = table[tokens]
+    else:
+        Vl = table.shape[0]
+        local = tokens - tp.rank * Vl
+        own = (local >= 0) & (local < Vl)
+        emb = reduce_from(table[local.clamp(0, Vl - 1)]
+                          * own[..., None].to(table.dtype), tp)
     if cfg.frontend and frontend_emb is not None:
         emb = torch.cat([frontend_emb.to(emb.dtype), emb], dim=1)
     return emb
@@ -401,7 +450,7 @@ def _embed(params, tokens, cfg: ArchConfig, frontend_emb=None):
 
 def forward(params, batch, cfg: ArchConfig, *, rng=None,
             return_cache=False, cache_len=0, kernel_impl=None, remat=False,
-            enc_out=None):
+            enc_out=None, mesh=None):
     """Training / prefill forward → (hidden (B,S,D), cache, aux).
     ``batch`` holds ``tokens`` (B, S) and optionally ``positions``
     ((B, S) or M-RoPE's (B, S, 3), over every row the blocks see),
@@ -416,13 +465,17 @@ def forward(params, batch, cfg: ArchConfig, *, rng=None,
     sequence, the positions run over every row, and the prompt rows are
     dropped before the final norm.  ``remat``: checkpoint each
     superblock (True) or keep only its matmul outputs ("dots"), as the
-    reference's."""
+    reference's.  ``mesh``: the grid; the batch is this rank's rows."""
+    check_grid(cfg, mesh)
     fe = None if cfg.n_enc_layers else batch.get("frontend_emb")
-    x = _embed(params, batch["tokens"], cfg, fe)
+    tp = model_group(mesh)
+    x = _embed(params, batch["tokens"], cfg, fe, tp)
     B, S = x.shape[0], x.shape[1]
     n_p = 0
     if "prompt_embed" in params:                 # prompt-tuning baseline
         pe = params["prompt_embed"]
+        if tp is not None:          # whole on every rank: a 1/n share each
+            pe = scale_grad(pe, 1.0 / tp.size)
         n_p = pe.shape[0]
         x = torch.cat([pe[None].to(x.dtype).expand(B, n_p, x.shape[-1]), x],
                       dim=1)
@@ -438,7 +491,7 @@ def forward(params, batch, cfg: ArchConfig, *, rng=None,
         positions=positions, enc_out=enc_out,
         dropout_gen=rng, return_cache=return_cache, cache_len=cache_len,
         adapter_idx=batch.get("adapter_idx"), kernel_impl=kernel_impl,
-        remat=remat)
+        remat=remat, mesh=mesh)
     x = L.rms_norm(x[:, n_p:], params["final_norm"], cfg.norm_eps)
     return x, cache, aux
 
@@ -454,8 +507,8 @@ def _ce_chunk(kern, hb, tb, mb):
     chunk; run under ``checkpoint``, so its (B, Sc, V) logits are
     recomputed in the backward pass instead of kept."""
     logits = hb @ kern.to(hb.dtype)
-    lse = torch.logsumexp(logits.float(), dim=-1)
-    tgt = torch.gather(logits, -1, tb[..., None])[..., 0].float()
+    lse = torch.logsumexp(L.wide(logits), dim=-1)
+    tgt = L.wide(torch.gather(logits, -1, tb[..., None])[..., 0])
     loss = torch.sum((lse - tgt) * mb)
     # accuracy counts only full-weight (answer) positions; fractional
     # mask weights are auxiliary LM signal
@@ -464,8 +517,31 @@ def _ce_chunk(kern, hb, tb, mb):
     return loss, correct, torch.sum(amb)
 
 
+def _ce_chunk_tp(kern, hb, tb, mb, tp):
+    """``_ce_chunk`` over a vocabulary split over ``tp``: ``kern`` is this
+    rank's (D, V/n) columns (vocabulary ids from rank · V/n).  The
+    log-sum-exp's max (no gradient) and sum of exps are all-reduced in
+    f32, the target's logit comes from the rank that holds it, and the
+    greedy pick is ``argmax_over_shards``."""
+    logits = hb @ kern.to(hb.dtype)
+    lf = L.wide(logits)
+    Vl = logits.shape[-1]
+    gmax = tp.reduce_max(lf.detach().amax(dim=-1))
+    se = reduce_from(torch.exp(lf - gmax[..., None]).sum(dim=-1), tp)
+    lse = torch.log(se) + gmax
+    local = tb - tp.rank * Vl
+    own = (local >= 0) & (local < Vl)
+    tgt = torch.gather(logits, -1, local.clamp(0, Vl - 1)[..., None])[..., 0]
+    tgt = reduce_from(L.wide(tgt) * own, tp)
+    loss = torch.sum((lse - tgt) * mb)
+    amb = (mb >= 0.999).float()
+    correct = torch.sum((argmax_over_shards(logits.detach(), tp) == tb) * amb)
+    return loss, correct, torch.sum(amb)
+
+
 def loss_and_metrics(params, batch, cfg: ArchConfig, *, rng=None,
-                     n_loss_chunks: int = 0, aux_weight=0.01, remat=False):
+                     n_loss_chunks: int = 0, aux_weight=0.01, remat=False,
+                     mesh=None):
     """Masked next-token CE → (loss, {ce, acc, aux, n_tok}), 0-d tensors.
 
     The CE over the vocabulary runs in sequence chunks, each under
@@ -473,8 +549,12 @@ def loss_and_metrics(params, batch, cfg: ArchConfig, *, rng=None,
     backward pass.  ``acc`` counts positions where loss_mask ≥ 0.999,
     argmax ties going to the first index; ``task_id`` is ignored.
     ``remat``: as ``forward``'s.  A decoder-only model's ``frontend_emb``
-    rows are dropped before the CE (the loss is over the tokens)."""
-    hidden, _, aux = forward(params, batch, cfg, rng=rng, remat=remat)
+    rows are dropped before the CE (the loss is over the tokens).
+    ``mesh``: the grid; the CE is vocab-parallel (``_ce_chunk_tp``), and
+    every rank of a model row computes the same loss."""
+    hidden, _, aux = forward(params, batch, cfg, rng=rng, remat=remat,
+                             mesh=mesh)
+    tp = model_group(mesh)
     if cfg.frontend and not cfg.n_enc_layers and "frontend_emb" in batch:
         hidden = hidden[:, batch["frontend_emb"].shape[1]:]
     tokens, mask = batch["tokens"].to(torch.int64), batch["loss_mask"]
@@ -482,16 +562,21 @@ def loss_and_metrics(params, batch, cfg: ArchConfig, *, rng=None,
     targets, h, m = tokens[:, 1:], hidden[:, :-1], mask[:, :-1]
     Sl = Stot - 1
     kern = _head_kernel(params, cfg)
-    V = kern.shape[-1]
+    V = kern.shape[-1] * (tp.size if tp is not None else 1)
     if n_loss_chunks <= 0:
         n_loss_chunks = max(1, min(32, (B * Sl * V) // (1 << 26)))
     while Sl % n_loss_chunks:
         n_loss_chunks -= 1
     Sc = Sl // n_loss_chunks
     tot_loss = tot_correct = tot_ans = 0.0
+    if tp is not None:
+        h = copy_to(h, tp)
+        chunk = lambda *a: _ce_chunk_tp(*a, tp)     # noqa: E731
+    else:
+        chunk = _ce_chunk
     for i in range(n_loss_chunks):
         sl = slice(i * Sc, (i + 1) * Sc)
-        l_c, a_c, n_c = checkpoint(_ce_chunk, kern, h[:, sl], targets[:, sl],
+        l_c, a_c, n_c = checkpoint(chunk, kern, h[:, sl], targets[:, sl],
                                    m[:, sl], use_reentrant=False)
         tot_loss, tot_correct, tot_ans = (tot_loss + l_c, tot_correct + a_c,
                                           tot_ans + n_c)
@@ -508,6 +593,30 @@ def argmax_first(logits):
     m = logits.max(dim=-1, keepdim=True).values
     ids = torch.arange(logits.shape[-1], device=logits.device)
     return torch.where(logits == m, ids, logits.shape[-1]).min(dim=-1).values
+
+
+def argmax_over_shards(logits, tp):
+    """``argmax_first`` over a vocabulary split over ``tp`` (this rank's
+    logits are ids rank · V/n …): each rank's max and its first index,
+    gathered; the first rank holding the greatest max wins, so a tie
+    goes to the lower index."""
+    Vl = logits.shape[-1]
+    vals, = tp.all_gather([logits.amax(dim=-1).float()])    # (n, ...)
+    ids, = tp.all_gather([argmax_first(logits) + tp.rank * Vl])
+    n = vals.shape[0]
+    rank = torch.arange(n, device=vals.device).reshape((n,) + (1,) * (
+        vals.dim() - 1))
+    first = torch.where(vals == vals.amax(dim=0, keepdim=True), rank,
+                        n).amin(dim=0)
+    return torch.gather(ids, 0, first[None])[0]
+
+
+def _logits(x, params, cfg, tp):
+    """f32 logits (..., V) of the final hidden rows ``x``; on a grid each
+    rank computes its vocabulary columns and they are gathered."""
+    x = copy_to(x, tp)
+    return gather_from((x @ _head_kernel(params, cfg).to(x.dtype)).float(),
+                       tp, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -539,20 +648,24 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *, device="cuda"):
 
 
 def decode_step(params, new_token, cache, cache_index, cfg: ArchConfig, *,
-                enc_out=None, adapter_idx=None):
+                enc_out=None, adapter_idx=None, mesh=None):
     """One-token decode.  new_token: (B,) int; cache_index: int / 0-d
     shared position or (B,) int per-row positions (mixed batching; under
     M-RoPE the position is repeated over the three components).  An
     encoder-decoder needs ``enc_out`` (B, S_enc, D), the encoder's output
     (``_encode``), which each cross-attention sublayer reads.  Writes the
-    cache in place.  Returns (logits (B,V) f32, cache)."""
+    cache in place.  Returns (logits (B,V) f32, cache).  ``mesh``: the
+    grid; new_token and the cache are this rank's rows, the cache its kv
+    heads; the logits cover the whole vocabulary."""
     _refuse_prompt(params, "decode_step")
+    check_grid(cfg, mesh)
+    tp = model_group(mesh)
     if cfg.n_enc_layers and enc_out is None:
         raise ValueError("decode_step: an encoder-decoder model needs the "
                          "encoder's output (enc_out); without it the "
                          "reference's cross-attention attends the new "
                          "token alone")
-    x = params["embed"]["embedding"][new_token.to(torch.int64)[:, None]]
+    x = _embed(params, new_token[:, None], cfg, tp=tp)
     B = x.shape[0]
     if torch.is_tensor(cache_index) and cache_index.dim() == 1:
         positions = cache_index[:, None].to(torch.int64)
@@ -562,10 +675,9 @@ def decode_step(params, new_token, cache, cache_index, cfg: ArchConfig, *,
     x, new_cache, _ = _run_blocks(
         params["blocks"], params.get("tail", {}), x, _layout(cfg)[2], cfg,
         positions=positions, cache=cache, cache_index=cache_index,
-        enc_out=enc_out, adapter_idx=adapter_idx)
+        enc_out=enc_out, adapter_idx=adapter_idx, mesh=mesh)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x[:, 0] @ _head_kernel(params, cfg).to(x.dtype)).float()
-    return logits, new_cache
+    return _logits(x[:, 0], params, cfg, tp), new_cache
 
 
 def _refuse_prompt(params, what):
@@ -579,16 +691,16 @@ def _refuse_prompt(params, what):
             "prefill offsets the cache by it")
 
 
-def prefill(params, batch, cfg: ArchConfig, *, cache_len=0, enc_out=None):
+def prefill(params, batch, cfg: ArchConfig, *, cache_len=0, enc_out=None,
+            mesh=None):
     """Process a prompt (with its ``frontend_emb`` and ``positions`` when
     given), returning (last_logits, cache).  cache_len pads the caches
     with headroom for subsequent decode steps; a frontend's F rows sit
     in front of the tokens', so a decode step continues at F + S.  An
     encoder-decoder encodes ``frontend_emb`` here unless ``enc_out`` is
-    given."""
+    given.  ``mesh``: the grid (as ``decode_step``'s)."""
     _refuse_prompt(params, "prefill")
     hidden, cache, _ = forward(params, batch, cfg, return_cache=True,
-                               cache_len=cache_len, enc_out=enc_out)
-    logits = (hidden[:, -1] @ _head_kernel(params, cfg).to(hidden.dtype)
-              ).float()
-    return logits, cache
+                               cache_len=cache_len, enc_out=enc_out,
+                               mesh=mesh)
+    return _logits(hidden[:, -1], params, cfg, model_group(mesh)), cache

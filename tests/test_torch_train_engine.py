@@ -201,7 +201,9 @@ def assert_parity(name, got, want, tol=TOL):
 def run_rounds(pool, name, *, ranks=None, weights=None, micro=1):
     kw = dict(prox_mu=prox(name), client_ranks=ranks, client_weights=weights)
     sim, rng = sim64(name, **kw), data(name)
-    start = R.host(sim.client_adapters)
+    # copies: passing the adapters to the pool moves their storage into
+    # shared memory, and a numpy view would keep pointing at the old one
+    start = {p: x.copy() for p, x in R.host(sim.client_adapters).items()}
     per_round = [client_batches(rng) for _ in range(ROUNDS)]
     st = dict(settings(name, **kw), micro_batches=micro)
     res = pool.run(R.rounds, CFG, st, sim.base, sim.client_adapters,
