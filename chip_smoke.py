@@ -485,8 +485,39 @@ Phase 19 the 'model' axis, after phase 18: one ClientPool grid of 2 data
          engine once there: a process's first meta-tensor ops import
          PyTorch's reference implementations, seconds of host time);
          from then the phase takes at most 90 s.  ``python3
-         chip_smoke.py --mesh-only`` runs phase 19 alone on every card
-         there is (NCCL when each rank has its own).
+         chip_smoke.py --mesh-only`` runs phases 19 and 20 alone on every
+         card there is (NCCL when each rank has its own).
+Phase 20 the SSM, hybrid and encoder-decoder families on phase 19's grid,
+         each rank's shard by param_specs (the Mamba-2 mixer split by
+         heads), beside the unsharded path on the same card.  (a)
+         mamba2-2.7b at full width: the prefill step of 2 x 4096 tokens,
+         a row a data rank, each rank's 40 of 80 heads through ssd_scan
+         once a layer, then 16 greedy decode steps: through 8 layers in
+         f32 the prefill logits within 1e-4 of max and the 17 tokens
+         equal; through CHECK_DEPTH layers in bf16 within 2e-2; all 64
+         layers in bf16 reported (64 ssd_scan launches a rank).  (b)
+         jamba-v0.1-52b at full width, at the drop-free capacity, 2 x
+         2048 and 4 decode steps: its first 2 layers (attention + dense,
+         SSM + MoE: 64 of 128 SSM heads, 16 of 32 attention heads, 8 of
+         16 expert slots a data rank with half their d_ff) in f32, the
+         prefill's and the decode steps' logits within 1e-4 of max over
+         the rows routed alike in every layer (the tokens routed
+         otherwise printed); one superblock of 8 layers in bf16 reported.
+         (c) seamless-m4t-large-v2 at full width: 2 rows of 4096 frames
+         and 2048 tokens, a row a data rank, the encoder over the rank's
+         rows and 8 of 16 heads (flash_attention non-causal once an
+         encoder layer; its output whole over the model row), the
+         decoder's self- (causal) and cross-attention through
+         flash_attention too, 72 launches a rank at 24 + 24 layers, then
+         16 greedy steps with the encoder's output: at 24 + 24 layers in
+         f32 the prefill logits within 1e-4 of max and the 17 tokens
+         equal; at CHECK_DEPTH + CHECK_DEPTH in bf16 within 2e-2.  Every
+         rank returns the same logits; each launches exactly its
+         prefill's kernels.  (d) phase 19 (b) at mamba2-2.7b's width, 8
+         layers, adapters on x_proj / out_proj, against FedSim with 2
+         clients, f64 and f32 held as there.  Prints each part's times,
+         each rank's peak and shard bytes and the collectives' calls,
+         bytes and seconds; the phase takes at most 90 s.
 Every run starts with every launch count at 0.  Each path's prefill
 logits, kernels against plain versions, relative to max |logit|: bf16
 weights through the first CHECK_DEPTH layers within 2e-2, f32 weights
@@ -4178,7 +4209,10 @@ def dense_generate(torch, label, params, cfg, tokens, n_new,
 
 
 def free(torch):
+    """Release what this process no longer holds, the memory the grid's
+    ranks mapped from it (CUDA IPC) and have dropped included."""
     gc.collect()
+    torch.cuda.ipc_collect()
     torch.cuda.empty_cache()
 
 
@@ -6759,19 +6793,21 @@ def mesh_serving(torch, pool):
     return report, flash
 
 
-def mesh_engine(torch, pool):
+def mesh_engine(torch, pool, arch=MESH_ARCH, layers=MESH_F32_DEPTH,
+                label="(b)"):
     """Phase 19 (b): one fedlora_opt pipeline iteration on the grid at
-    llama2-7b width, MESH_F32_DEPTH layers, against FedSim from the same
-    initial adapters and batches: in f64, every client and server leaf
-    within MESH_ENGINE_TOL of its max (``mesh_engine_check``); in f32 the
-    same by the f64 witness (``mesh_engine_f32_check``: the AdamW steps
-    that move dA_dir and B_dir from zero sit at its eps for the elements
-    of smallest gradient, where f32's other summation order moves them:
-    PERF.md)."""
+    ``arch``'s width (llama2-7b), ``layers`` layers, against FedSim from
+    the same initial adapters and batches: in f64, every client and
+    server leaf within MESH_ENGINE_TOL of its max (``mesh_engine_check``);
+    in f32 the same by the f64 witness (``mesh_engine_f32_check``: the
+    AdamW steps that move dA_dir and B_dir from zero sit at its eps for
+    the elements of smallest gradient, where f32's other summation order
+    moves them: PERF.md).  Phase 20 (d) runs it at mamba2-2.7b's width
+    (adapters on x_proj / out_proj), ``label`` naming the part."""
     from repro_torch.fed.simulate import FedHyper, FedSim
     from repro_torch.utils import pytree as pt
-    cfg, params = dense_model(torch, MESH_ARCH, layers=MESH_F32_DEPTH,
-                              dtype="float32", seed=20)
+    cfg, params = dense_model(torch, arch, layers=layers, dtype="float32",
+                              seed=20)
     hp = FedHyper(**MESH_ENGINE_HP)
     C, T, B, S = hp.n_clients, hp.local_steps, hp.batch, hp.seq_len
     g = torch.Generator(device="cuda").manual_seed(21)
@@ -6794,7 +6830,8 @@ def mesh_engine(torch, pool):
                     personal_steps=hp.personal_steps, lam=hp.lam)
     n_model = MESH_GRID[1]
     report = {"config": dict(MESH_ENGINE_HP, server_rows=MESH_SERVER_ROWS,
-                             layers=cfg.n_layers, remat=False)}
+                             arch=arch, layers=cfg.n_layers, remat=False,
+                             lora_targets=list(cfg.lora_targets))}
     ad0, runs = None, {}
     for dn, dt in (("f64", torch.float64), ("f32", torch.float32)):
         base = pt.tree_map(lambda t: t.to(dt), params)
@@ -6830,8 +6867,8 @@ def mesh_engine(torch, pool):
                       for p, x in pt.tree_leaves_with_path(res[r]["adapters"]))
                   and all(torch.equal(x, pt.tree_get(res[0]["agg"], p))
                           for p, x in pt.tree_leaves_with_path(res[r]["agg"])),
-                  f"mesh engine {dn}: rank {r} holds its model row's client "
-                  f"and the one server model bit for bit")
+                  f"mesh engine {label} {dn}: rank {r} holds its model "
+                  f"row's client and the one server model bit for bit")
         clients = [res[d * n_model]["adapters"] for d in range(C)]
         got = pt.tree_map_with_path(lambda p, _: torch.cat(
             [pt.tree_get(c, p) for c in clients]), clients[0])
@@ -6841,7 +6878,8 @@ def mesh_engine(torch, pool):
         worst = max(e[0] for part in errs.values() for e in part.values())
         for part, e in errs.items():
             top = sorted(e.items(), key=lambda kv: -kv[1][0])[:4]
-            print(f"mesh (b) engine {dn}, {part}: leaves farthest from "
+            print(f"mesh {label} engine {arch} {dn}, {part}: leaves "
+                  f"farthest from "
                   f"FedSim's (max |Δ| / max, ‖Δ‖ / ‖leaf‖, share beyond 1e-3 "
                   f"of max): " + json.dumps(top))
         report[dn] = {
@@ -6856,11 +6894,12 @@ def mesh_engine(torch, pool):
             "rank_peak_bytes": [r["peak_bytes"] for r in res],
             "rank_shard_bytes": [r["shard_bytes"] for r in res],
             "collectives": [r["collectives"] for r in res]}
-        print(f"mesh (b) engine {dn} [{GPU}]: " + json.dumps(report[dn]))
+        print(f"mesh {label} engine {arch} {dn} [{GPU}]: "
+              + json.dumps(report[dn]))
         if dn == "f64":
-            mesh_engine_check(errs)
+            mesh_engine_check(errs, label)
         else:
-            report[dn]["witness"] = mesh_engine_f32_check(torch, runs)
+            report[dn]["witness"] = mesh_engine_f32_check(torch, runs, label)
         del base, res
         free(torch)
     del params
@@ -6868,7 +6907,7 @@ def mesh_engine(torch, pool):
     return report
 
 
-def mesh_engine_f32_check(torch, runs):
+def mesh_engine_f32_check(torch, runs, label="(b)"):
     """(b) in f32, by the f64 witness (the rule of the CPU tests' f32
     comparisons, ``tests/test_torch_tp.py``, with the share bound taken
     from FedSim's own f32 run: at full width a tenth to a fifth of
@@ -6899,20 +6938,20 @@ def mesh_engine_f32_check(torch, runs):
                 ("fedsim_off_f64", off_f),
                 ("unresolved_beyond", beyond & ~(off_g | off_f)))}
             out[f"{part} {p.split('/', 2)[-1]}"] = dict(n, elements=w.numel())
-    print(f"mesh (b) engine f32 by the f64 witness [{GPU}]: "
+    print(f"mesh {label} engine f32 by the f64 witness [{GPU}]: "
           + json.dumps({k: v for k, v in out.items() if v["beyond"]}))
     for leaf, n in out.items():
         check(n["unresolved_beyond"] == 0
               and n["grid_off_f64"] <= 2 * n["fedsim_off_f64"] + 2,
-              f"mesh engine f32 {leaf}: {n['beyond']} of {n['elements']} "
-              f"elements beyond {MESH_ENGINE_TOL} of max, each one f32 does "
+              f"mesh engine {label} f32 {leaf}: {n['beyond']} of "
+              f"{n['elements']} elements beyond {MESH_ENGINE_TOL} of max, each one f32 does "
               f"not resolve ({n['unresolved_beyond']} not); the grid off "
               f"its f64 at {n['grid_off_f64']} <= 2 x {n['fedsim_off_f64']}"
               f" + 2 (FedSim's)")
     return out
 
 
-def mesh_engine_check(errs):
+def mesh_engine_check(errs, label="(b)"):
     """(b) in f64: every client and server leaf within MESH_ENGINE_TOL of
     its max of FedSim's, but dA_dir, which one AdamW step moves from zero
     (each element by -lr · g / (|g| + eps)), so that an element whose
@@ -6924,12 +6963,13 @@ def mesh_engine_check(errs):
         for p, (mx, nrm, share) in e.items():
             if p.endswith("dA_dir"):
                 check(nrm <= MESH_ENGINE_TOL and share <= MESH_EPS_SHARE,
-                      f"mesh engine f64 {part} {p}: ‖Δ‖ {nrm:.3e} <= "
+                      f"mesh engine {label} f64 {part} {p}: ‖Δ‖ {nrm:.3e} <= "
                       f"{MESH_ENGINE_TOL} of ‖leaf‖, {share:.2e} <= "
                       f"{MESH_EPS_SHARE} of elements beyond 1e-3 of max "
                       f"(max {mx:.3e})")
             else:
-                check(mx <= MESH_ENGINE_TOL, f"mesh engine f64 {part} {p}: "
+                check(mx <= MESH_ENGINE_TOL, f"mesh engine {label} f64 "
+                      f"{part} {p}: "
                       f"{mx:.3e} <= {MESH_ENGINE_TOL} of max |leaf|")
 
 
@@ -7204,6 +7244,359 @@ def phase_mesh(torch, mesh_pool):
     return report, flash
 
 
+# --- phase 20: the SSM, hybrid and encoder-decoder families on the grid ---
+
+FAM_MAMBA = "mamba2-2.7b"
+FAM_JAMBA = "jamba-v0.1-52b"
+FAM_SEAMLESS = "seamless-m4t-large-v2"
+FAM_MAMBA_S = 4096      # (a)'s prompt a row: one row a data rank
+FAM_JAMBA_S = 2048      # (b)'s
+FAM_FRAMES = 4096       # (c)'s frames into the encoder a row ...
+FAM_TOKENS = 2048       # ... and its tokens into the decoder
+FAM_NEW = 17            # greedy tokens in (a) and (c): 16 decode steps
+FAM_JAMBA_NEW = 5       # in (b): 4 decode steps
+FAM_MAMBA_F32_DEPTH = 8  # (a)'s f32 check and (d)'s engine, layers
+FAM_JAMBA_F32_DEPTH = 2  # (b)'s f32 check: attention + dense, SSM + MoE
+FAM_JAMBA_DEPTH = 8     # (b)'s bf16 run: one superblock
+FAM_BUDGET_S = 90       # the phase's wall time
+
+
+FAM_KEPT = {}            # on a rank: the shard fam_keep_rank cut
+
+
+def fam_keep_rank(grid, cfg, params):
+    """Cut the rank's shard of ``params`` and keep it on the rank for the
+    next ``fam_serve_rank`` (given no params), so that the caller can
+    free its whole copy first; returns the shard's bytes."""
+    FAM_KEPT["shard"] = mesh_rank_start(grid, cfg, params)
+    return FAM_KEPT["shard"][1]
+
+
+def fam_serve_rank(grid, cfg, params, batch, n_new, record=False):
+    """Phase 20 on one rank: its shard of ``params``; an encoder-decoder's
+    encoder over the rank's rows of frames first (``model._encode`` on
+    the grid: over the rank's heads, its output whole over the model
+    row); the prefill step of the whole ``batch`` with room for ``n_new``
+    tokens (ssd_scan and flash_attention over the rank's heads), then
+    ``n_new`` - 1 greedy decode steps with the encoder's output, every
+    row's logits gathered; ``params`` None: the shard ``fam_keep_rank``
+    kept.  With ``record``, every MoE layer's router picks of the rank's
+    rows, call after call.  Returns host copies, the times, launches,
+    peak and the collectives' readings."""
+    import torch
+    from repro_torch.launch.serve import (_rows, make_decode_step,
+                                          make_prefill_step)
+    from repro_torch.models import model as M
+    if params is None:
+        mine, shard_bytes, shard_s = FAM_KEPT.pop("shard")
+        torch.cuda.reset_peak_memory_stats()
+    else:
+        mine, shard_bytes, shard_s = mesh_rank_start(grid, cfg, params)
+    prefill, decode = make_prefill_step(cfg, grid), make_decode_step(cfg, grid)
+    S = batch["tokens"].shape[1]
+    before = stats_copy(grid.stats)
+    reset_launches()
+    with torch.no_grad(), RecordedPicks() as rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = None
+        if cfg.n_enc_layers:
+            local, rows = _rows(batch, grid)
+            enc = M._encode(mine, local["frontend_emb"], cfg, mesh=rows)
+        logits, cache = prefill(mine, batch, enc_out=enc,
+                                cache_len=S + n_new)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        first, steps = logits.cpu(), []
+        tok = M.argmax_first(logits)
+        toks = [tok]
+        for i in range(n_new - 1):
+            logits, cache = decode(mine, tok, cache, S + i, enc_out=enc)
+            steps.append(logits.cpu())
+            tok = M.argmax_first(logits)
+            toks.append(tok)
+        toks = torch.stack(toks, dim=1).cpu()
+        t2 = time.perf_counter()
+    launches = read_launches()
+    out = {"logits": first, "steps": steps if record else [],
+           "tokens": toks, "picks": rec.picks if record else [],
+           "prefill_ms": 1e3 * (t1 - t0),
+           "decode_step_ms": 1e3 * (t2 - t1) / max(n_new - 1, 1),
+           "launches": {k: v for k, v in launches.items() if v},
+           "shard_bytes": shard_bytes, "shard_s": shard_s,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "collectives": stats_delta(before, grid.stats)}
+    del mine, cache, logits, enc
+    torch.cuda.empty_cache()
+    return out
+
+
+def fam_unsharded(torch, cfg, params, batch, n_new):
+    """The unsharded path on the same card, as ``fam_serve_rank`` runs
+    the grid (the encoder, the prefill, greedy decode steps with its
+    output): (prefill logits, the decode steps' logits, the tokens, the
+    router's picks)."""
+    from repro_torch.models import model as M
+    S = batch["tokens"].shape[1]
+    with torch.no_grad(), RecordedPicks() as rec:
+        enc = (M._encode(params, batch["frontend_emb"], cfg)
+               if cfg.n_enc_layers else None)
+        logits, cache = M.prefill(params, batch, cfg, cache_len=S + n_new,
+                                  enc_out=enc)
+        first, steps = logits.cpu(), []
+        tok = M.argmax_first(logits)
+        toks = [tok]
+        for i in range(n_new - 1):
+            logits, cache = M.decode_step(params, tok, cache, S + i, cfg,
+                                          enc_out=enc)
+            steps.append(logits.cpu())
+            tok = M.argmax_first(logits)
+            toks.append(tok)
+    del cache, enc
+    return first, steps, torch.stack(toks, dim=1).cpu(), rec.picks
+
+
+def fam_expect(cfg):
+    """Each kernel's launches in one prefill on a rank: ssd_scan once an
+    SSM layer, flash_attention once an attention layer (an
+    encoder-decoder's: an encoder layer, and self- and cross-attention a
+    decoder layer)."""
+    if cfg.n_enc_layers:
+        return {"flash_attention": mm_flash_per_prefill(cfg)}
+    n = mixer_counts(cfg)
+    return {k: v for k, v in (("ssd_scan", n["ssm"]),
+                              ("flash_attention", n["attn"])) if v}
+
+
+def fam_alike(res, want_picks, rows, n_moe, n_steps):
+    """Per row of the grid's run: whether every token of it picked the
+    same experts as the unsharded run's in every MoE layer of the prefill
+    (``[0]``) and of it and every decode step up to step j (``[j + 1]``)."""
+    import torch
+    n_model = MESH_GRID[1]
+    per = [res[d * n_model]["picks"] for d in range(MESH_GRID[0])]
+    got = [torch.cat([p[i] for p in per]) for i in range(len(per[0]))]
+    out = [rows_alike(got[:n_moe], want_picks[:n_moe], rows)]
+    for j in range(n_steps):
+        a, b = n_moe * (j + 1), n_moe * (j + 2)
+        out.append(out[-1] & rows_alike(got[a:b], want_picks[a:b], rows))
+    return out, routed_otherwise(got, want_picks)
+
+
+def fam_run(torch, pool, arch, cfg, params, batch, depth, dn, tol, n_new):
+    """One depth of (a), (b) or (c): the grid beside the unsharded path
+    (``tol`` None: the grid alone, reported; ``params`` None: on the
+    shards ``fam_keep_rank`` kept).  Held: every rank returns
+    the same logits and tokens; each rank launches ssd_scan and
+    flash_attention ``fam_expect`` times; with ``tol``, the prefill
+    logits within it of max of the unsharded path's (an MoE model's over
+    the rows routed alike in every layer, its decode steps' too), and
+    with f32 weights the greedy tokens equal.  Returns the report and
+    the ranks' launches."""
+    from repro_torch.utils import pytree as pt
+    label = f"{depth} layers {dn}"
+    moe = bool(cfg.n_experts)
+    want = None
+    if tol is not None:                 # the unsharded path first, alone
+        want = fam_unsharded(torch, cfg, params, batch, n_new)
+    t0 = time.perf_counter()
+    res = pool.run(fam_serve_rank, cfg, params, batch, n_new, moe)
+    wall = time.perf_counter() - t0
+    for r in res[1:]:
+        check(torch.equal(r["logits"], res[0]["logits"])
+              and torch.equal(r["tokens"], res[0]["tokens"]),
+              f"mesh {arch} {label}: every rank returns the same logits "
+              f"and tokens for every row")
+    expect = fam_expect(cfg)
+    for r, x in enumerate(res):
+        check(x["launches"] == expect, f"mesh {arch} {label}: rank {r} "
+              f"launched {x['launches']} = {expect} (one prefill over its "
+              f"heads)")
+    check(all(torch.isfinite(r["logits"]).all() for r in res),
+          f"mesh {arch} {label}: the grid's logits are finite")
+    B = batch["tokens"].shape[0]
+    out = {"layers": depth, "rows": B,
+           "prompt": {k: list(v.shape[:2]) for k, v in batch.items()},
+           "grid_wall_s": wall,
+           "prefill_ms": [r["prefill_ms"] for r in res],
+           "decode_step_ms": [r["decode_step_ms"] for r in res],
+           "rank_peak_bytes": [r["peak_bytes"] for r in res],
+           "rank_shard_bytes": [r["shard_bytes"] for r in res],
+           "shard_s": [r["shard_s"] for r in res],
+           "launches": [r["launches"] for r in res],
+           "collectives": [r["collectives"] for r in res]}
+    if moe:
+        out["capacity_factor"] = cfg.capacity_factor
+    if want is not None:
+        first, steps, toks, picks = want
+        rows = torch.ones(B, dtype=torch.bool)
+        if moe:
+            n_moe = sum(t.shape[0] if t.dim() == 3 else 1 for p, t in
+                        pt.tree_leaves_with_path(params)
+                        if p.endswith("router/kernel"))
+            alike, flips = fam_alike(res, picks, B, n_moe, n_new - 1)
+            rows = alike[0]
+            out["rows_routed_alike"] = [[bool(b) for b in a] for a in alike]
+            out["token_layers_routed_otherwise"] = flips
+            out["token_layers"] = sum(x.shape[0] for x in picks)
+            check(bool(rows.any()), f"mesh {arch} {label}: a row of the "
+                  f"prefill routed alike in every layer")
+            errs = [rel_err(r[a], w[a])[0] for r, w, a in zip(
+                res[0]["steps"], steps, alike[1:]) if a.any()]
+            out["decode_logits_rel_err"] = max(errs, default=None)
+            check(all(e <= tol for e in errs), f"mesh {arch} {label}: the "
+                  f"decode steps' logits on the grid vs the unsharded "
+                  f"path {errs} <= {tol} of max over the rows routed alike")
+        err = rel_err(res[0]["logits"][rows], first[rows])[0]
+        check(err <= tol, f"mesh {arch} {label}: prefill logits on the "
+              f"grid vs the unsharded path {err:.3e} <= {tol} of max "
+              f"|logit| over {int(rows.sum())} of {B} rows")
+        out["logits_rel_err"] = err
+        if dn == "f32" and n_new > 1:
+            check(torch.equal(toks[rows], res[0]["tokens"][rows]),
+                  f"mesh {arch} {label}: {n_new} greedy tokens on the grid "
+                  f"equal the unsharded path's")
+            out["greedy_tokens_equal"] = n_new
+    print(f"mesh 20 {arch} {label} [{GPU}]: " + json.dumps(out))
+    return out, [r["launches"] for r in res]
+
+
+def fam_depths(torch, pool, arch, cfg, params, batch, runs):
+    """``runs`` of (dtype name, depth, tol, new tokens) through
+    ``fam_run``, each on ``params`` cut to its first layers (cast to f32
+    for an f32 run).  Returns the report and the launches summed over
+    the ranks and runs."""
+    from repro_torch.utils import pytree as pt
+    report, launches = {}, {}
+    for dn, depth, tol, n_new in runs:
+        cut, ccfg = (params, cfg) if depth == cfg.n_layers else \
+            first_layers(params, cfg, depth)
+        if dn == "f32" and cfg.dtype != "float32":
+            cut = pt.tree_map(lambda t: t.float(), cut)
+            ccfg = dataclasses.replace(ccfg, dtype="float32")
+        report[f"{depth} layers {dn}"], ls = fam_run(
+            torch, pool, arch, ccfg, cut, batch, depth, dn, tol, n_new)
+        for rank in ls:
+            for k, v in rank.items():
+                launches[k] = launches.get(k, 0) + v
+        del cut
+        free(torch)
+    return report, launches
+
+
+def fam_mamba(torch, pool):
+    """(a): mamba2-2.7b at full width, 2 x 4096 a row a data rank, each
+    rank's 40 of 80 heads through ssd_scan once a layer: f32 at 8 layers
+    held within LOGITS_F32_TOL and its 17 greedy tokens, bf16 at
+    CHECK_DEPTH within TOL, all 64 layers in bf16 reported."""
+    cfg, params = dense_model(torch, FAM_MAMBA)
+    batch = {"tokens": dense_tokens(torch, cfg, MESH_GRID[0], FAM_MAMBA_S,
+                                    seed=24)}
+    out = fam_depths(torch, pool, FAM_MAMBA, cfg, params, batch, (
+        ("f32", FAM_MAMBA_F32_DEPTH, LOGITS_F32_TOL, FAM_NEW),
+        ("bf16", CHECK_DEPTH, TOL["bfloat16"], 1),
+        ("bf16", cfg.n_layers, None, FAM_NEW)))
+    del params
+    free(torch)
+    return out
+
+
+def fam_jamba(torch, pool):
+    """(b): jamba-v0.1-52b at full width, 2 x 2048 a row a data rank, at
+    the drop-free capacity (E / k: no slot drops a token, on the grid's
+    shards or the unsharded batch): the first 2 layers (attention +
+    dense, SSM + MoE) in f32, drawn apart so that the grid and the
+    unsharded run fit the card together, held within LOGITS_F32_TOL over
+    the rows routed alike (prefill and 4 decode steps); one superblock
+    of 8 layers (1 attention, 7 SSM, 4 MoE) in bf16 reported, its
+    shards cut before this process frees its whole copy (15.3 B
+    parameters: the copy and the ranks' prefills do not fit together)."""
+    cfg, params = dense_model(torch, FAM_JAMBA, layers=FAM_JAMBA_F32_DEPTH,
+                              dtype="float32", seed=25)
+    cfg = drop_free(cfg)
+    batch = {"tokens": dense_tokens(torch, cfg, MESH_GRID[0], FAM_JAMBA_S,
+                                    seed=26)}
+    report, launches = fam_depths(
+        torch, pool, FAM_JAMBA, cfg, params, batch,
+        (("f32", FAM_JAMBA_F32_DEPTH, LOGITS_F32_TOL, FAM_JAMBA_NEW),))
+    del params
+    free(torch)
+    cfg, params = dense_model(torch, FAM_JAMBA, layers=FAM_JAMBA_DEPTH,
+                              seed=25)
+    cfg = drop_free(cfg)
+    pool.run(fam_keep_rank, cfg, params)
+    del params
+    free(torch)
+    label = f"{FAM_JAMBA_DEPTH} layers bf16"
+    report[label], ls = fam_run(torch, pool, FAM_JAMBA, cfg, None, batch,
+                                FAM_JAMBA_DEPTH, "bf16", None, FAM_JAMBA_NEW)
+    for rank in ls:
+        for k, v in rank.items():
+            launches[k] = launches.get(k, 0) + v
+    return report, launches
+
+
+def fam_seamless(torch, pool):
+    """(c): seamless-m4t-large-v2 at full width, 2 rows of 4096 frames +
+    2048 tokens a row a data rank, the rank's 8 of 16 heads through
+    flash_attention in every encoder layer (non-causal) and in the
+    decoder's self- (causal) and cross-attention, then 16 greedy decode
+    steps with the encoder's output: f32 at 24 + 24 layers held within
+    LOGITS_F32_TOL and its tokens, bf16 at CHECK_DEPTH + CHECK_DEPTH
+    within TOL."""
+    cfg, params = dense_model(torch, FAM_SEAMLESS, dtype="float32")
+    batch = mm_batch(torch, cfg, MESH_GRID[0], FAM_FRAMES, FAM_TOKENS,
+                     seed=27)
+    report, launches = fam_depths(torch, pool, FAM_SEAMLESS, cfg, params,
+                                  batch, (("f32", cfg.n_layers,
+                                           LOGITS_F32_TOL, FAM_NEW),))
+    del params
+    free(torch)
+    cfg, params = dense_model(torch, FAM_SEAMLESS, layers=CHECK_DEPTH)
+    r, ls = fam_depths(torch, pool, FAM_SEAMLESS, cfg, params, batch,
+                       (("bf16", CHECK_DEPTH, TOL["bfloat16"], 1),))
+    report.update(r)
+    for k, v in ls.items():
+        launches[k] = launches.get(k, 0) + v
+    del params
+    free(torch)
+    return report, launches
+
+
+def phase_families(torch, mesh_pool):
+    """Phase 20: mamba2-2.7b, jamba-v0.1-52b and seamless-m4t-large-v2 on
+    phase 19's 2 data x 2 model grid: (a)-(c) serving beside the
+    unsharded path, (d) the production engine at mamba2's width against
+    FedSim.  Returns the report and the ranks' ssd_scan and
+    flash_attention launches."""
+    t0 = time.perf_counter()
+    pool = mesh_pool.get()
+    report, launches = {}, {}
+    try:
+        for part, fn in (("mamba2", fam_mamba), ("jamba", fam_jamba),
+                         ("seamless", fam_seamless)):
+            t = time.perf_counter()
+            report[part], ls = fn(torch, pool)
+            report[part]["wall_s"] = time.perf_counter() - t
+            for k, v in ls.items():
+                launches[k] = launches.get(k, 0) + v
+        t = time.perf_counter()
+        report["engine"] = mesh_engine(torch, pool, FAM_MAMBA,
+                                       FAM_MAMBA_F32_DEPTH, "20 (d)")
+        report["engine"]["wall_s"] = time.perf_counter() - t
+    except RuntimeError as e:
+        raise CheckFailed(f"mesh 20: a rank failed:\n{e}")
+    report["wall_s"] = time.perf_counter() - t0
+    report["launches"] = launches
+    print(f"mesh 20 [{GPU}]: phase {report['wall_s']:.1f} s (mamba2 "
+          f"{report['mamba2']['wall_s']:.1f}, jamba "
+          f"{report['jamba']['wall_s']:.1f}, seamless "
+          f"{report['seamless']['wall_s']:.1f}, engine "
+          f"{report['engine']['wall_s']:.1f}); launches on the ranks "
+          f"{launches}")
+    return report, launches
+
+
 def kernel_entry(name, src, replaces, launches, row, shape, extra=None):
     keys = ("ms", "plain_ms", "library_ms", "eager_ms", "eager_plain_ms",
             "eager_library_ms")
@@ -7220,12 +7613,12 @@ def kernel_entry(name, src, replaces, launches, row, shape, extra=None):
 
 
 def mesh_only(torch):
-    """``--mesh-only``: phase 19 alone, on every card there is (its grid
-    on NCCL when each rank has a card of its own), after building
-    flash_attention; prints its report.  Not the chip check: that is the
-    run with no arguments."""
+    """``--mesh-only``: phases 19 and 20 alone, on every card there is
+    (the grid on NCCL when each rank has a card of its own), after
+    building flash_attention and ssd_scan; prints their reports.  Not
+    the chip check: that is the run with no arguments."""
     from repro_torch.kernels import _build
-    _build.build_all(["flash_attention"])
+    _build.build_all(["flash_attention", "ssd_scan"])
     workdir = ROOT / "build" / "phase19"
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
@@ -7233,15 +7626,18 @@ def mesh_only(torch):
     mesh_pool = MeshPool(workdir)
     try:
         report, flash = phase_mesh(torch, mesh_pool)
+        t19 = time.perf_counter() - t0
+        families, _ = phase_families(torch, mesh_pool)
     except CheckFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
     finally:
         mesh_pool.close()
         shutil.rmtree(workdir, ignore_errors=True)
-    print(f"phase 19 (the model axis) took {time.perf_counter() - t0:.1f} s "
-          f"on {torch.cuda.device_count()} card(s)")
-    print(json.dumps({"mesh": report}))
+    print(f"phase 19 (the model axis) took {t19:.1f} s, phase 20 "
+          f"{families['wall_s']:.1f} s on {torch.cuda.device_count()} "
+          f"card(s)")
+    print(json.dumps({"mesh": report, "families": families}))
     print(f"gpu: {GPU}")
     return 0
 
@@ -7452,6 +7848,15 @@ def main():
         print(f"phase 19 (the model axis) took {t_mesh:.1f} s")
         check(t_mesh <= MESH_BUDGET_S, f"phase 19 took {t_mesh:.1f} s <= "
               f"{MESH_BUDGET_S} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        report["families"], fam_launches = phase_families(torch, mesh_pool)
+        t_fam = time.perf_counter() - t0
+        print(f"phase 20 (the model axis: SSM, hybrid, encoder-decoder) "
+              f"took {t_fam:.1f} s")
+        check(t_fam <= FAM_BUDGET_S, f"phase 20 took {t_fam:.1f} s <= "
+              f"{FAM_BUDGET_S} s")
     except CheckFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -7532,7 +7937,7 @@ def main():
         f"{pallas}/flash_attention/flash_attention.py:87",
         dense_launches["flash_attention"] + moe_launches["flash_attention"]
         + ssm_launches["flash_attention"] + mm_launches["flash_attention"]
-        + mesh_flash,
+        + mesh_flash + fam_launches["flash_attention"],
         fa["prefill"],
         "llama2-7b prefill: q, k, v (1, 4096, 32, 128) bf16, causal (phase 6 "
         "runs it with the other configs' shapes); launches: the prefills of "
@@ -7544,9 +7949,14 @@ def main():
         "causal decoder over 2048 tokens and non-causal cross-attention of "
         "2048 over 4096), phase 19 (llama2-7b's 2 x 4096 prefill on a 2 x "
         "2 grid of ranks, each rank over its 16 q heads, at 8 layers f32, "
-        "2 and 32 layers bf16)",
+        "2 and 32 layers bf16), phase 20 (the same grid: jamba-v0.1-52b's "
+        "attention layers over 16 of 32 heads at 2 x 2048, 2 layers f32 and "
+        "8 bf16; seamless-m4t-large-v2's encoder, decoder self- and "
+        "cross-attention over 8 of 16 heads at 2 x (4096 frames + 2048 "
+        "tokens), 24 + 24 layers f32 and 2 + 2 bf16)",
         {"launches_phase6_standalone": launches_6["flash_attention"],
          "launches_phase19_mesh_ranks": mesh_flash,
+         "launches_phase20_mesh_ranks": fam_launches["flash_attention"],
          "launches_phase13_by_config": report["dense"]["flash_launches"],
          "launches_phase14_by_config": report["moe"]["flash_launches"],
          "launches_phase15_by_config":
@@ -7564,14 +7974,19 @@ def main():
     sd = rows["ssd_scan"]
     kernels.append(kernel_entry(
         "ssd_scan", f"{kdir}/ssd_scan/csrc/ssd_scan.cu",
-        f"{pallas}/ssd_scan/ssd_scan.py:85", ssm_launches["ssd_scan"],
+        f"{pallas}/ssd_scan/ssd_scan.py:85",
+        ssm_launches["ssd_scan"] + fam_launches["ssd_scan"],
         sd["mamba2 bf16"],
         "mamba2-2.7b: x (1, 4096, 80, 64) bf16, B and C (1, 4096, 1, 128), "
         "chunk 128; library_ms null: no single PyTorch call computes the "
         "scan; launches: phase 15's SSM path (the 1 x 4096 prefills of "
         "mamba2-2.7b and jamba-v0.1-52b, mamba2's eval forwards in "
-        "training and its served clients, jamba's pooled prefill)",
-        {"launches_phase15_ssm_prefill":
+        "training and its served clients, jamba's pooled prefill) and "
+        "phase 20's grid (each rank's 40 of mamba2-2.7b's 80 heads at 2 x "
+        "4096, 8 layers f32, 2 and 64 bf16; 64 of jamba-v0.1-52b's 128 at "
+        "2 x 2048, 2 layers f32 and 8 bf16)",
+        {"launches_phase20_mesh_ranks": fam_launches["ssd_scan"],
+         "launches_phase15_ssm_prefill":
              report["ssm"]["launches"]["ssd_scan_prefill"],
          "launches_phase15_eval_and_serve":
              report["ssm"]["launches"]["ssd_scan_eval_and_serve"],

@@ -361,6 +361,10 @@ def _rank_main(rank, n_clients, n_model, device, init_file, timeout_s,
             out = (True, fn(group, *args, **kwargs))
         except Exception:
             out = (False, traceback.format_exc())
+        # drop the arguments now, not at the next task: a CUDA tensor the
+        # caller sent is its memory, mapped here, which it cannot free
+        # while a rank holds it
+        del task, fn, args, kwargs
         try:
             conn.send(out)
         except Exception:       # a result that does not pickle

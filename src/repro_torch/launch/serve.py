@@ -17,7 +17,9 @@ rank's place on a grid: the rank passes its shard of the backbone
 split over the data ranks when they divide (else every data rank runs
 them all, the reference's small-batch path), the backbone over the model
 ranks, and the logits come back for every row and the whole vocabulary.
-``greedy_generate(mesh=)`` decodes on the grid the same way.
+``greedy_generate(mesh=)`` decodes on the grid the same way.  Every
+family runs on a grid: an encoder-decoder's encoder runs there too, over
+the rank's frame rows, and its output is passed to every decode step.
 """
 from __future__ import annotations
 
@@ -57,8 +59,7 @@ def make_prefill_step(cfg: ArchConfig, mesh=None):
     logits, cache)``: ``models.model.prefill`` bound to ``cfg``; with
     ``mesh``, this rank's part of it (module docstring): its shard of
     ``params``, the whole ``batch``, every row's logits and the rank's
-    cache (its rows, its kv heads)."""
-    M.check_grid(cfg, mesh)
+    cache (its rows, its kv heads and SSM heads)."""
 
     def prefill_step(params, batch, enc_out=None, cache_len=0):
         if mesh is None:
@@ -77,8 +78,8 @@ def make_decode_step(cfg: ArchConfig, mesh=None):
     → (logits, cache)``: ``models.model.decode_step`` bound to ``cfg``
     (an encoder-decoder needs ``enc_out``); with ``mesh``, the rank's
     part: every row's new_token, the rank's cache (from its prefill
-    step), every row's logits."""
-    M.check_grid(cfg, mesh)
+    step; an encoder-decoder's ``enc_out`` of the rank's rows, whole
+    over the model group), every row's logits."""
 
     def decode_step(params, new_token, cache, cache_index, enc_out=None):
         if mesh is None:
@@ -117,7 +118,6 @@ def greedy_generate(params, prompt_batch: dict, cfg: ArchConfig,
             raise NotImplementedError(
                 "pooled-adapter routing (adapter_idx) is not served on a "
                 "grid; serve merged per-tenant models")
-        M.check_grid(cfg, mesh)
     batch = {k: torch.as_tensor(prompt_batch[k], device=dev)
              for k in ("tokens", "frontend_emb", "positions")
              if prompt_batch.get(k) is not None}
@@ -131,7 +131,7 @@ def greedy_generate(params, prompt_batch: dict, cfg: ArchConfig,
     grid = None
     if mesh is not None:
         batch, grid = _rows(batch, mesh)
-    enc_out = (M._encode(params, batch["frontend_emb"], cfg)
+    enc_out = (M._encode(params, batch["frontend_emb"], cfg, mesh=grid)
                if cfg.n_enc_layers else None)
     logits, cache = M.prefill(params, batch, cfg, cache_len=S + n_new,
                               enc_out=enc_out, mesh=grid)

@@ -19,14 +19,23 @@ The sharding specs are spec tuples (``utils/sharding.py``) over a grid
 (``launch/mesh.Grid`` or ``AbstractGrid``): ``param_specs`` (the
 reference's rule table), ``adapter_specs`` (a leading client axis over
 the data axes, else replicated) and ``cache_specs`` (the rows over the
-data axes, kv heads over 'model').  ``shard_tree`` cuts a whole tree to
-one rank's shard by them.  Where the port lays a tensor out otherwise
-than the reference's rules, it says so (ROADMAP C):
+data axes, kv heads and SSM heads over 'model').  ``shard_tree`` cuts a
+whole tree to one rank's shard by them.  Where the port lays a tensor
+out otherwise than the reference's rules, it says so (ROADMAP C):
 
   * k_proj / v_proj and the cache's kv heads stay whole on every rank
     when the kv heads do not divide over 'model' (granite-34b's MQA,
     gemma3-1b): the reference's rules split k_proj's columns (one head's
     dh) and the cache's dh, and XLA gathers them;
+  * the Mamba-2 mixer is split by heads: z_proj, x_proj and dt_proj by
+    columns and conv_x by channels over 'model' (a rank's H / n_model
+    contiguous heads), B_proj / C_proj / conv_B / conv_C by groups where
+    the groups divide over 'model', else whole on every rank (both
+    configs have one group).  The reference's rules replicate the five
+    projections and the convs (its ``ssm/in_proj`` matches no leaf) and
+    split A_log, D_skip, dt_bias, norm_w and out_proj's rows, and XLA
+    moves the data; the port computes a rank's heads from its column
+    shard, so heads that do not divide over 'model' raise;
   * a served batch that does not divide over the data axes is the same
     rows on every data rank (the small-batch path), so its cache is not
     split: the reference splits its sequence over the data axes.
@@ -147,18 +156,51 @@ def _tp(mesh) -> int:
     return mesh.shape.get("model", 1)
 
 
+def _ssm_heads(cfg: ArchConfig) -> int:
+    return cfg.d_model * cfg.ssm_expand // cfg.ssm_headdim
+
+
+def _mixer_spec(path: str, ndim: int, groups_split: bool):
+    """The mixer's head split (module docstring), or None for a leaf the
+    rule table places (A_log, D_skip, dt_bias, norm_w, out_proj, the
+    adapters)."""
+    if "/ssm/" not in path:
+        return None
+    lead = (None,) * (ndim - 2)
+    if path.endswith(("/z_proj/kernel", "/x_proj/kernel", "/dt_proj/kernel")):
+        return lead + (None, "model")
+    if path.endswith("/conv_x"):
+        return lead + ("model", None)
+    if path.endswith(("/B_proj/kernel", "/C_proj/kernel")):
+        return lead + (None, "model" if groups_split else None)
+    if path.endswith(("/conv_B", "/conv_C")):
+        return lead + ("model" if groups_split else None, None)
+    return None
+
+
 def param_specs(cfg: ArchConfig, mesh, tree):
     """The backbone's specs: ``DEFAULT_PARAM_RULES``, but k_proj and
-    v_proj whole where the kv heads do not divide over 'model' (module
-    docstring).  On a grid with a model axis of more than one rank the
-    families that are not split over it raise (``model.check_grid``)."""
-    M.check_grid(cfg, mesh)
-    whole_kv = cfg.n_kv_heads % _tp(mesh) != 0
+    v_proj whole where the kv heads do not divide over 'model', and the
+    Mamba-2 mixer split by heads (module docstring).  Raises where the
+    mixer's heads do not divide over 'model'."""
+    tp = _tp(mesh)
+    whole_kv = cfg.n_kv_heads % tp != 0
+    ssm = "model" in mesh.axis_names and any(
+        sub.mixer == "ssm" for sub in cfg.pattern())
+    if ssm and _ssm_heads(cfg) % tp:
+        raise ValueError(
+            f"{cfg.name}: the SSM mixer's {_ssm_heads(cfg)} heads do not "
+            f"divide over {tp} model ranks")
+    groups_split = ssm and cfg.ssm_groups % tp == 0
 
     def fn(path, x):
         if whole_kv and (path.endswith("k_proj/kernel")
                          or path.endswith("v_proj/kernel")):
             return (None,) * len(x.shape)
+        spec = (_mixer_spec(path, len(x.shape), groups_split) if ssm
+                else None)
+        if spec is not None:
+            return spec
         return spec_for(path, len(x.shape), DEFAULT_PARAM_RULES, mesh)
     return pt.tree_map_with_path(fn, tree)
 
@@ -177,31 +219,33 @@ def cache_specs(cfg: ArchConfig, mesh, tree, batch: int,
                 seq_shard_kv: bool = False):
     """The decode cache's specs: rows over the data axes when ``batch``
     divides over them (else the same rows on every data rank), kv heads
-    over 'model' when they divide (else whole); SSM states' heads and
-    conv channels over 'model' when they divide (the reference's; the
-    SSM families run on a grid only with one model rank)."""
+    over 'model' when they divide (else whole); an SSM state's heads and
+    conv_x's channels over 'model', conv_B / conv_C's over it only where
+    their kernels are split (the groups divide: ``param_specs``), so that
+    every cache shard is what the rank's mixer writes."""
     if seq_shard_kv:
         raise ValueError("seq_shard_kv shards the KV cache's sequence over "
                          "'model'; the port splits the kv heads or keeps "
                          "them whole (ROADMAP A14, the seq_shard_kv variant)")
     b, dp, tp = _bspec(mesh), _dp(mesh), _tp(mesh)
     rows = b if batch >= dp and batch % dp == 0 else None
+    groups = "model" if cfg.ssm_groups % tp == 0 else None
+
+    def split(n):
+        return "model" if n % tp == 0 else None
 
     def fn(path, x):
         shp = x.shape
         if path.endswith("/k") or path.endswith("/v"):
             lead = [None] * (len(shp) - 4)       # (n_sb?, B, S, K, dh)
-            K = shp[-2]
-            return tuple(lead + [rows, None, "model" if K % tp == 0 else None,
-                                 None])
+            return tuple(lead + [rows, None, split(shp[-2]), None])
         if path.endswith("/state"):
             lead = [None] * (len(shp) - 4)       # (n_sb?, B, H, P, N)
-            return tuple(lead + [rows, "model" if shp[-3] % tp == 0 else None,
-                                 None, None])
-        if "conv" in path:
+            return tuple(lead + [rows, split(shp[-3]), None, None])
+        if path.endswith(("/conv_x", "/conv_B", "/conv_C")):
             lead = [None] * (len(shp) - 3)       # (n_sb?, B, k-1, C)
-            return tuple(lead + [rows, None,
-                                 "model" if shp[-1] % tp == 0 else None])
+            ch = (split(shp[-1]) if path.endswith("/conv_x") else groups)
+            return tuple(lead + [rows, None, ch])
         return ()
     return pt.tree_map_with_path(fn, tree)
 

@@ -71,7 +71,9 @@ grid)``), and the adapters, optimizer state and batches are the client's
 whole trees on every rank of its model row:
 
   * the forward and backward pass run tensor-parallel over the model row
-    (``models/layers.py``), with a vocab-parallel CE;
+    (``models/layers.py``; the Mamba-2 mixer over the rank's heads,
+    ``models/ssm.py``; an encoder-decoder's encoder too), with a
+    vocab-parallel CE: every family;
   * after each step's backward every adapter gradient is all-reduced
     (summed) over the model row: each rank's is a partial sum, as the
     layers lay them out (those computed whole on every rank, the Houlsby
@@ -351,7 +353,6 @@ def make_fed_pipeline_step(cfg: ArchConfig, mesh, settings: TrainSettings,
     dp = dp_size(mesh)
     rank = fedagg.client_index(group)
     grid = mesh if isinstance(mesh, Grid) else None
-    M.check_grid(cfg, grid)
     tp = model_group(grid)
     manual = grid.replace(manual=True) if grid is not None else None
     micro = settings.micro_batches

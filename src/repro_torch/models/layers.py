@@ -431,8 +431,10 @@ def attention(p: Params, x, positions, cfg, *, kind: str = "global",
     block: q_proj's column shard) and, where ``kv_split``, its kv heads
     (their groups' block), or else all kv heads, of which it reads those
     its q heads use; the cache holds the kv heads the rank computes;
-    o_proj is row-parallel.  Not for cross-attention (the
-    encoder-decoder is not split over a grid).
+    o_proj is row-parallel.  Cross-attention likewise: ``kv_source`` is
+    whole on every rank of the group and enters through ``copy_to``, so
+    that the partial gradients the ranks' heads send back to it are
+    summed.
     """
     B, S, D = x.shape
     dh = cfg.head_dim
@@ -442,10 +444,9 @@ def attention(p: Params, x, positions, cfg, *, kind: str = "global",
               kernel_impl=kernel_impl)
     drop = dict(dropout_gen=dropout_gen, dropout=cfg.lora_dropout)
     if tp is not None:
-        if kv_source is not None:
-            raise ValueError("cross-attention is not split over a grid "
-                             "(ROADMAP A14c)")
         x = copy_to(x, tp)
+        if kv_source is not None:
+            kv_source = copy_to(kv_source, tp)
     kv_in = x if kv_source is None else kv_source
     col = dict(tp=tp, split="col") if tp is not None else {}
     kv_col = col if kv_split(cfg, tp) else {}
@@ -538,15 +539,20 @@ def attention(p: Params, x, positions, cfg, *, kind: str = "global",
     return y, new_cache
 
 
-def init_attn_cache(cfg, batch, seq_len: int, kind: str, dtype, device):
+def init_attn_cache(cfg, batch, seq_len: int, kind: str, dtype, device,
+                    n_model: int = 1):
     """Zero k/v buffers of shape (*batch, Sc, K, dh); ``batch`` is an int
     or a tuple of leading dims (the stacked superblock axis first).  A
     local layer's buffer is a ring of Sc = min(seq_len, window) slots, a
-    global layer's a linear buffer of seq_len."""
+    global layer's a linear buffer of seq_len.  ``n_model``: a rank's
+    share of a model group of that many ranks, K / n_model kv heads where
+    they divide (``kv_split``), else all of them."""
     window = cfg.sliding_window if kind == "local" else None
     Sc = min(seq_len, window) if window is not None else seq_len
     lead = (batch,) if isinstance(batch, int) else tuple(batch)
-    shape = (*lead, Sc, cfg.n_kv_heads, cfg.head_dim)
+    K = cfg.n_kv_heads
+    shape = (*lead, Sc, K // n_model if K % n_model == 0 else K,
+             cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 

@@ -30,8 +30,11 @@ split over the model group (``layers``), the embedding and the lm_head
 over the vocabulary (a masked lookup and an all-reduce; logits gathered,
 the CE's max and sum-exp all-reduced in f32), MoE slots over the data
 group with an all-to-all (``layers.moe_ffn_ep``, or ``moe_ffn_manual``
-on the engine's grid, whose ``manual`` is set).  The SSM and hybrid families and the
-encoder-decoder are not split over a model group (``check_grid``).
+on the engine's grid, whose ``manual`` is set), the Mamba-2 mixer over
+the rank's heads (``ssm.mamba2_mixer``), and an encoder-decoder's
+encoder over the rank's heads too, its output whole on every rank of the
+model group for the decoder's cross-attention.  Every family runs on a
+grid.
 
 Entry points:
   init_params(generator, cfg, device=)      → param tree (no adapters)
@@ -72,26 +75,6 @@ def _layout(cfg: ArchConfig):
     if cfg.n_enc_layers:
         return cfg.n_layers, 0, cfg.dec_pattern()
     return cfg.blocks_layout()
-
-
-def check_grid(cfg: ArchConfig, mesh) -> None:
-    """Refuse a family that is not split over a model axis of more than
-    one rank (``mesh``: a grid, abstract or not), naming the ROADMAP
-    item that queues it."""
-    shape = getattr(mesh, "shape", None)
-    if not isinstance(shape, dict) or shape.get("model", 1) == 1:
-        return
-    if cfg.n_enc_layers:
-        raise ValueError(
-            f"{cfg.name}: the encoder-decoder (its encoder and cross-"
-            "attention) is not split over a model axis yet (ROADMAP A14c); "
-            "run it on a grid with n_model 1")
-    if any(sub.mixer == "ssm" for sub in cfg.pattern()):
-        raise ValueError(
-            f"{cfg.name}: the SSM mixer (in_proj's packed z / x / B / C / dt "
-            "columns, the gated norm over a split inner dimension) is not "
-            "split over a model axis yet (ROADMAP A14b); run it on a grid "
-            "with n_model 1")
 
 
 # ---------------------------------------------------------------------------
@@ -246,7 +229,7 @@ def _apply_sublayer(p, x, sub: SubLayer, cfg, *, positions, cache=None,
         y, nc = S.mamba2_mixer(p["ssm"], h, cfg, cache=mcache,
                                lora_scale=lora_scale, dropout_gen=dropout_gen,
                                return_cache=return_cache,
-                               kernel_impl=kernel_impl)
+                               kernel_impl=kernel_impl, tp=tp)
     else:
         cross = sub.mixer == "cross_attn"
         y, nc = L.attention(p["attn"], h, positions, cfg, kind=sub.attn_kind,
@@ -398,12 +381,15 @@ def _run_blocks(blocks, tail, x, pattern, cfg, *, positions, cache=None,
 
 
 def _encode(params, frontend_emb, cfg: ArchConfig, *, rng=None,
-            kernel_impl=None, remat=False):
+            kernel_impl=None, remat=False, mesh=None):
     """An encoder-decoder's encoder: the frame embeddings (B, S_enc, D),
     cast to the model dtype, through ``cfg.n_enc_layers`` non-causal
     attention + dense layers at positions 0 … S_enc − 1 (a long input
     through ``_long_attention``'s non-causal form), then the encoder's
-    ``final_norm``.  Returns enc_out (B, S_enc, D).
+    ``final_norm``.  Returns enc_out (B, S_enc, D).  ``mesh``: the grid;
+    ``params`` is the rank's shard and ``frontend_emb`` its rows; each
+    layer runs over the rank's heads and d_ff (row-parallel outputs
+    all-reduced), so enc_out is whole on every rank of the model group.
 
     No ``adapter_idx``, as in the reference, whose ``linear`` then adds
     nothing for pooled leaves without ``A_dir`` or ``lora_A``: a pooled
@@ -423,7 +409,7 @@ def _encode(params, frontend_emb, cfg: ArchConfig, *, rng=None,
     pos = torch.arange(Se, device=x.device)[None].expand(B, Se)
     x, _, _ = _run_blocks(enc["blocks"], {}, x, ENC_PATTERN, cfg,
                           positions=pos, causal=False, dropout_gen=rng,
-                          kernel_impl=kernel_impl, remat=remat)
+                          kernel_impl=kernel_impl, remat=remat, mesh=mesh)
     return L.rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
@@ -466,7 +452,6 @@ def forward(params, batch, cfg: ArchConfig, *, rng=None,
     dropped before the final norm.  ``remat``: checkpoint each
     superblock (True) or keep only its matmul outputs ("dots"), as the
     reference's.  ``mesh``: the grid; the batch is this rank's rows."""
-    check_grid(cfg, mesh)
     fe = None if cfg.n_enc_layers else batch.get("frontend_emb")
     tp = model_group(mesh)
     x = _embed(params, batch["tokens"], cfg, fe, tp)
@@ -485,7 +470,7 @@ def forward(params, batch, cfg: ArchConfig, *, rng=None,
             B, S + n_p)
     if cfg.n_enc_layers and enc_out is None:
         enc_out = _encode(params, batch["frontend_emb"], cfg, rng=rng,
-                          kernel_impl=kernel_impl, remat=remat)
+                          kernel_impl=kernel_impl, remat=remat, mesh=mesh)
     x, cache, aux = _run_blocks(
         params["blocks"], params.get("tail", {}), x, _layout(cfg)[2], cfg,
         positions=positions, enc_out=enc_out,
@@ -623,23 +608,31 @@ def _logits(x, params, cfg, tp):
 # serving: cache init / prefill / decode
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *, device="cuda"):
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *, device="cuda",
+               mesh=None):
     """Zero decode caches, per sublayer {"attn": k/v buffers} or {"ssm":
     state and conv states}, stacked (n_sb, batch, ...) in ``blocks`` and
     (batch, ...) in ``tail``.  A cross-attention sublayer has none (its
     k and v come from the encoder's output each step), and is left out,
     as the reference leaves it out.  On ``device="meta"`` the tree has
-    the shapes and dtypes only."""
+    the shapes and dtypes only.  ``mesh``: a grid (abstract or not);
+    the caches are a rank's of ``batch`` rows: its kv heads where they
+    divide over 'model', its SSM heads and conv_x channels, and conv_B /
+    conv_C split only where the groups divide (``launch/specs
+    .cache_specs``)."""
     dev = (torch.device("meta") if str(device) == "meta"
            else resolve_device(device))
     n_sb, tail, pattern = _layout(cfg)
     dtype = _dtype(cfg)
+    shape = getattr(mesh, "shape", None)
+    n = shape.get("model", 1) if isinstance(shape, dict) else 1
 
     def one(sub, lead):
         if sub.mixer == "ssm":
-            return {"ssm": S.init_ssm_cache(cfg, lead, dtype, dev)}
+            return {"ssm": S.init_ssm_cache(cfg, lead, dtype, dev,
+                                            n_model=n)}
         return {"attn": L.init_attn_cache(cfg, lead, seq_len, sub.attn_kind,
-                                          dtype, dev)}
+                                          dtype, dev, n_model=n)}
     blocks = ({f"sub{i}": one(sub, (n_sb, batch))
                for i, sub in enumerate(pattern) if sub.mixer != "cross_attn"}
               if n_sb else {})
@@ -656,9 +649,9 @@ def decode_step(params, new_token, cache, cache_index, cfg: ArchConfig, *,
     (``_encode``), which each cross-attention sublayer reads.  Writes the
     cache in place.  Returns (logits (B,V) f32, cache).  ``mesh``: the
     grid; new_token and the cache are this rank's rows, the cache its kv
-    heads; the logits cover the whole vocabulary."""
+    heads; the logits cover the whole vocabulary; ``enc_out`` is whole
+    on every rank of the model group (``_encode`` on the grid)."""
     _refuse_prompt(params, "decode_step")
-    check_grid(cfg, mesh)
     tp = model_group(mesh)
     if cfg.n_enc_layers and enc_out is None:
         raise ValueError("decode_step: an encoder-decoder model needs the "

@@ -39,6 +39,7 @@ from repro_torch.kernels._wrap import resolve_impl
 # the module, not its names: models/layers.py imports the kernels
 # package, whose ssd_scan/ref.py imports this module
 from repro_torch.models import layers as L
+from repro_torch.utils.collectives import copy_to, sum_over
 
 Params = Any
 
@@ -46,18 +47,19 @@ Params = Any
 def _causal_conv(x, w, state=None):
     """Depthwise causal conv.  x: (B, S, C); w: (C, k); state: (B, k−1, C)
     trailing context (decode) or None (zero padding).  The k shifted
-    products are summed in f32 (no (B, S, k, C) gather) and the result
-    is cast to x's dtype.  Returns (y, new_state), new_state the padded
-    input's trailing k − 1 rows (a copy, not a view of it)."""
+    products are summed in f32 (f64 stays f64: ``layers.wide``; no (B,
+    S, k, C) gather) and the result is cast to x's dtype.  Returns (y,
+    new_state), new_state the padded input's trailing k − 1 rows (a
+    copy, not a view of it)."""
     B, S, C = x.shape
     k = w.shape[-1]
     pad = (x.new_zeros((B, k - 1, C)) if state is None
            else state.to(x.dtype))
     xp = torch.cat([pad, x], dim=1)                      # (B, S+k-1, C)
-    wf = w.float()
-    y = torch.zeros((B, S, C), dtype=torch.float32, device=x.device)
+    wf = L.wide(w)
+    y = torch.zeros((B, S, C), dtype=L.wide(x).dtype, device=x.device)
     for j in range(k):
-        y = y + xp[:, j:j + S].float() * wf[:, j]
+        y = y + L.wide(xp[:, j:j + S]) * wf[:, j]
     return y.to(x.dtype), xp[:, S:].clone()
 
 
@@ -187,9 +189,25 @@ def _refuse_pooled(p: Params) -> None:
                 f"greedy_generate)")
 
 
+def _gated_norm(y, w, eps: float, tp=None):
+    """mamba2's RMSNorm of the gated y (B, S, d) over the whole inner
+    dimension, in f32 (f64 stays f64: ``layers.wide``).  ``tp``: y and w
+    are this rank's slice of d_inner; each rank's sum of squares is
+    summed over the model group (``sum_over``: its backward sums the
+    ranks' partial gradients of it too) and divided by the whole d_inner
+    before the rank scales its own slice."""
+    yf = L.wide(y)
+    if tp is None:
+        ms = yf.square().mean(dim=-1, keepdim=True)
+    else:
+        ms = sum_over(yf.square().sum(dim=-1, keepdim=True), tp) / (
+            y.shape[-1] * tp.size)
+    return (yf * torch.rsqrt(ms + eps) * w.to(yf.dtype)).to(y.dtype)
+
+
 def mamba2_mixer(p: Params, x, cfg, *, cache: Optional[dict] = None,
                  lora_scale: float = 0.0, dropout_gen=None,
-                 return_cache: bool = False, kernel_impl=None):
+                 return_cache: bool = False, kernel_impl=None, tp=None):
     """The Mamba-2 block body (the pre-norm is the caller's).  Returns
     (y (B, S, D), cache).
 
@@ -199,30 +217,51 @@ def mamba2_mixer(p: Params, x, cfg, *, cache: Optional[dict] = None,
     through ``_ssd`` (``kernel_impl`` as there); ``return_cache`` returns
     the final state in x's dtype and the three convs' trailing k − 1
     rows.  With a cache (one token: decode) the state and the conv states
-    are written into it in place and the same dict is returned."""
+    are written into it in place and the same dict is returned.
+
+    ``tp``: the model group.  ``p`` is the rank's shard
+    (``launch/specs.param_specs``): its H / n contiguous heads of z_proj,
+    x_proj and dt_proj's columns, conv_x's channels, A_log, D_skip,
+    dt_bias and norm_w, and out_proj's rows; B_proj / C_proj / conv_B /
+    conv_C are the rank's groups, or whole (one group, or groups that do
+    not divide), of which it reads those its heads use.  The head count
+    comes from the leaves.  The scan and the recurrence run over the
+    rank's heads, the cache holds them, the gated norm's mean of squares
+    is over the whole d_inner (``_gated_norm``), and out_proj is
+    row-parallel.  x enters through ``copy_to``: the gradients the ranks
+    send back to it (through their columns, and through the B / C every
+    rank computes whole but uses for its own heads) are partial sums."""
     _refuse_pooled(p)
     f32 = torch.float32
     B, S, D = x.shape
-    H = cfg.d_model * cfg.ssm_expand // cfg.ssm_headdim
-    Pd, G, N = cfg.ssm_headdim, cfg.ssm_groups, cfg.ssm_state
+    H = p["A_log"].shape[-1]
+    Pd, N = cfg.ssm_headdim, cfg.ssm_state
     tgt = cfg.lora_targets
-    z = L.linear(p["z_proj"], x)
+    col = {}
+    if tp is not None:
+        x = copy_to(x, tp)
+        col = dict(tp=tp, split="col")
+    z = L.linear(p["z_proj"], x, **col)
     xi = L.linear(p["x_proj"], x,
                   lora_scale=(lora_scale if "x_proj" in tgt
                               or "in_proj" in tgt else 0.0),
-                  dropout_gen=dropout_gen, dropout=cfg.lora_dropout)
+                  dropout_gen=dropout_gen, dropout=cfg.lora_dropout, **col)
     Bv = L.linear(p["B_proj"], x)
     Cv = L.linear(p["C_proj"], x)
-    dt = L.linear(p["dt_proj"], x)
+    dt = L.linear(p["dt_proj"], x, **col)
 
     names = ("conv_x", "conv_B", "conv_C")
     convs = [_causal_conv(t, p[n], None if cache is None else cache[n])
              for t, n in zip((xi, Bv, Cv), names)]
-    xi, Bv, Cv = (F.silu(y.to(f32)).to(x.dtype) for y, _ in convs)
+    xi, Bv, Cv = (F.silu(L.wide(y)).to(x.dtype) for y, _ in convs)
     dt = F.softplus(dt.to(f32) + p["dt_bias"].to(f32))            # (B,S,H)
+    G = Bv.shape[-1] // N
     xh = xi.reshape(B, S, H, Pd)
     Bh = Bv.reshape(B, S, G, N)
     Ch = Cv.reshape(B, S, G, N)
+    if tp is not None and 1 < G == cfg.ssm_groups:
+        # whole groups that do not divide: those the rank's heads read
+        Bh, Ch = L._kv_for_heads(Bh, Ch, tp.rank * H, H, tp.size * H // G)
 
     if cache is None:
         y, st = _ssd(xh, dt, p["A_log"], Bh, Ch, cfg.ssm_chunk, kernel_impl)
@@ -240,20 +279,25 @@ def mamba2_mixer(p: Params, x, cfg, *, cache: Optional[dict] = None,
     y = y.reshape(B, S, H * Pd).to(x.dtype)
     # gated RMSNorm (mamba2): norm(y * silu(z)) * w
     y = y * F.silu(z.to(f32)).to(x.dtype)
-    y = L.rms_norm(y, p["norm_w"], cfg.norm_eps)
+    y = _gated_norm(y, p["norm_w"], cfg.norm_eps, tp)
     y = L.linear(p["out_proj"], y,
-                 lora_scale=lora_scale if "out_proj" in tgt else 0.0)
+                 lora_scale=lora_scale if "out_proj" in tgt else 0.0,
+                 **({"tp": tp, "split": "row"} if tp is not None else {}))
     return y, new_cache
 
 
-def init_ssm_cache(cfg, batch, dtype, device):
+def init_ssm_cache(cfg, batch, dtype, device, n_model: int = 1):
     """Zero state (*lead, H, P, N) and conv states (*lead, k−1, d_inner) /
     (*lead, k−1, G·N) in ``dtype``; ``batch`` is an int or a tuple of
     leading dims (the stacked superblock axis first), as
-    ``layers.init_attn_cache`` takes it."""
-    H = cfg.d_model * cfg.ssm_expand // cfg.ssm_headdim
+    ``layers.init_attn_cache`` takes it.  ``n_model``: a rank's share of
+    a model group of that many ranks: H / n_model heads and their conv_x
+    channels, and the groups' conv states split only where the groups
+    divide (``launch/specs.param_specs``)."""
+    H = cfg.d_model * cfg.ssm_expand // cfg.ssm_headdim // n_model
     lead = (batch,) if isinstance(batch, int) else tuple(batch)
-    GN = cfg.ssm_groups * cfg.ssm_state
+    G = cfg.ssm_groups
+    GN = (G // n_model if G % n_model == 0 else G) * cfg.ssm_state
     k = cfg.ssm_conv
 
     def z(*shape):

@@ -21,6 +21,11 @@ rank of the group computes whole and back-propagates from its own copy:
                        ranks' gradients backward: a quantity each rank
                        adds whole to a loss of its own rows, where the
                        ranks' gradients are meaned (a grid's data axis)
+  sum_over(x, g)       all-reduce forward and backward: each rank's
+                       partial sum of a quantity every rank then uses
+                       whole for its own slice (the gated norm's sum of
+                       squares over a split inner dimension), so each
+                       rank's gradient of it is partial too
   scale_grad(x, s)     identity forward, the gradient times s backward
 
 ``model_group(mesh)`` reads the group that splits one backbone off a
@@ -128,6 +133,10 @@ def all_to_all(x, group):
 
 def mean_over(x, group):
     return x if _trivial(group) else _MeanOver.apply(x, group)
+
+
+def sum_over(x, group):
+    return reduce_from(copy_to(x, group), group)
 
 
 def scale_grad(x, s: float):

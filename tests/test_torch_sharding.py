@@ -121,27 +121,45 @@ def whole_kv(path, cfg, tp):
             and path.endswith(("k_proj/kernel", "v_proj/kernel")))
 
 
+def mixer_split(path, cfg, tp):
+    """The port's head split of the Mamba-2 mixer where the rule table
+    replicates a leaf (``launch/specs.py``): the last two entries of its
+    spec, or None where the port keeps the table's."""
+    if "/ssm/" not in path:
+        return None
+    groups = "model" if cfg.ssm_groups % tp == 0 else None
+    if path.endswith(("z_proj/kernel", "x_proj/kernel", "dt_proj/kernel")):
+        return (None, "model")
+    if path.endswith(("B_proj/kernel", "C_proj/kernel")):
+        return (None, groups)
+    if path.endswith("conv_x"):
+        return ("model", None)
+    if path.endswith(("conv_B", "conv_C")):
+        return (groups, None)
+    return None
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_param_specs_are_the_reference_rules_but_for_whole_kv(trees, arch):
     """The rule table's specs, but k_proj / v_proj whole where the kv
-    heads do not divide over 'model' (granite-34b, gemma3-1b).  Grids
-    of one model rank everywhere; of two for the families split over it."""
+    heads do not divide over 'model' (granite-34b, gemma3-1b), and the
+    Mamba-2 mixer split by heads (z_proj / x_proj / dt_proj columns,
+    conv_x channels; B_proj / C_proj / conv_B / conv_C by groups where
+    they divide, else whole), on grids of one and two model ranks."""
     t = trees[arch]
     cfg = t["cfg"]
-    sizes = [(4, 1)]
-    try:
-        M.check_grid(cfg, AbstractGrid((2, 2)))
-        sizes.append((2, 2))
-    except ValueError:
-        pass
-    for size in sizes:
+    for size in ((4, 1), (2, 2)):
         grid, mesh = AbstractGrid(size), AbstractMesh(size, ("data", "model"))
         got = port_flat(SP.param_specs(cfg, grid, t["base"]))
         want = flat_specs(JSP.param_specs(t["jcfg"], mesh, t["jbase"]))
         assert set(got) == set(want)
         for p, w in want.items():
+            mixer = mixer_split(p, cfg, size[1])
             if whole_kv(p, cfg, size[1]):
                 assert got[p] == (None,) * len(w), (arch, p)
+            elif mixer is not None:
+                assert w == (None,) * len(w), (arch, p)   # the table's
+                assert got[p] == w[:-2] + mixer, (arch, p)
             else:
                 assert got[p] == w, (arch, p)
 
@@ -226,7 +244,8 @@ def reassemble(shards, specs, grid_shape, axes):
 @pytest.mark.parametrize("rules", ("param_specs", "fsdp"))
 @pytest.mark.parametrize("arch", ("llama2-7b", "granite-34b", "gemma3-1b",
                                   "qwen3-moe-30b-a3b", "mixtral-8x22b",
-                                  "qwen2-vl-2b"))
+                                  "qwen2-vl-2b", "mamba2-2.7b",
+                                  "jamba-v0.1-52b", "seamless-m4t-large-v2"))
 def test_shard_tree_and_a_concatenation_give_back_the_whole_tree(arch,
                                                                  rules):
     """Every rank's shard of a SMOKE backbone, put back together: the

@@ -45,8 +45,7 @@ from repro_torch.core import peft
 from repro_torch.core.methods import get_method
 from repro_torch.fed.simulate import stage_loss, value_and_grad
 from repro_torch.kernels import fused_dora
-from repro_torch.launch import specs as SP
-from repro_torch.launch.mesh import AbstractGrid, ClientPool
+from repro_torch.launch.mesh import ClientPool
 from repro_torch.launch.serve import (greedy_generate, make_decode_step,
                                       make_prefill_step)
 from repro_torch.models import layers as L
@@ -66,8 +65,6 @@ ST = dict(lr=1e-2, micro_batches=1, clip=1.0, remat=False,
           global_steps=TG, personal_steps=TP, lam=1e-2)
 ALL_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
                "up_proj", "down_proj")
-LEFT_OUT = {"mamba2-2.7b": "A14b", "jamba-v0.1-52b": "A14b",
-            "seamless-m4t-large-v2": "A14c"}
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
 JAX_HEAD = r"""
@@ -271,9 +268,9 @@ def test_grid_places_rank_r_at_data_r_div_n_model(pool):
 
 
 def test_collectives_carry_their_gradients(pool):
-    """copy_to, reduce_from, gather_from (model row), all_to_all and
-    mean_over (data column), forward and backward, against their
-    definitions."""
+    """copy_to, reduce_from, gather_from, sum_over (model row),
+    all_to_all and mean_over (data column), forward and backward, against
+    their definitions."""
     x = np.arange(8, dtype=np.float64).reshape(4, 2) / 3
     res = pool.run(R.collectives, x)
     w = np.arange(8, dtype=np.float64).reshape(4, 2) / 7
@@ -302,6 +299,10 @@ def test_collectives_carry_their_gradients(pool):
         np.testing.assert_allclose(y, (col[0] + col[1]) / 2)
         # the column's weights 1 + m and 3 + m, meaned
         np.testing.assert_allclose(g, (2 + m) * w)
+        y, g = out["sum_over"]
+        np.testing.assert_allclose(y, row[0] + row[1])
+        # the row's weights 1 + 2d and 2 + 2d, summed
+        np.testing.assert_allclose(g, (3 + 4 * d) * w)
 
 
 def test_argmax_over_shards_breaks_ties_to_the_lower_index(pool):
@@ -321,17 +322,30 @@ def test_argmax_over_shards_breaks_ties_to_the_lower_index(pool):
 # training: the gradient and remat on the grid
 # ---------------------------------------------------------------------------
 
+FAMILIES = ("mamba2-2.7b", "jamba-v0.1-52b", "seamless-m4t-large-v2")
+GRAD_TARGETS = {"llama2-7b": ALL_TARGETS,
+                "jamba-v0.1-52b": ("q_proj", "v_proj", "x_proj", "out_proj"),
+                "seamless-m4t-large-v2": ALL_TARGETS}
+
+
 @pytest.mark.parametrize("arch,method", [(a, "fedlora_opt") for a in PIPE]
                          + [("llama2-7b", "adapter"),
-                            ("llama2-7b", "prompt")])
+                            ("llama2-7b", "prompt")]
+                         + [(a, "fedlora_opt") for a in FAMILIES])
 def test_grid_gradient_sums_to_the_unsharded_one(pool, arch, method):
     """The stage-1 gradient of each client, summed over its model row as
     the engine sums it, against the whole model's, in f64: llama2-7b with
     adapters on every projection (column- and row-parallel targets),
-    qwen3-moe through ``moe_ffn_manual`` with its aux, and the Houlsby
+    qwen3-moe through ``moe_ffn_manual`` with its aux, the Houlsby
     adapter and the prompt (computed whole on every rank, each rank's
-    gradient at 1/n_model)."""
-    kw = dict(lora_targets=ALL_TARGETS) if arch == "llama2-7b" else {}
+    gradient at 1/n_model), mamba2 (x_proj column-parallel over the
+    rank's heads, out_proj row-parallel, the gated norm's sum of squares
+    all-reduced forward and backward), jamba (its attention and MoE
+    sublayers, and adapters on its mixers too) and seamless with
+    adapters on every projection (the encoder's adapters reached through
+    enc_out, whole on every rank and summed back by ``copy_to``)."""
+    kw = ({"lora_targets": GRAD_TARGETS[arch]} if arch in GRAD_TARGETS
+          else {})
     cfg, base = random_model(arch, **kw)
     base = pt.tree_map(torch.Tensor.double, base)
     g = torch.Generator().manual_seed(1)
@@ -344,6 +358,9 @@ def test_grid_gradient_sums_to_the_unsharded_one(pool, arch, method):
     batch = {"tokens": torch.as_tensor(rng.integers(
         5, cfg.vocab_size, size=(C, 2, 16))),
         "loss_mask": torch.ones((C, 2, 16), dtype=torch.float64)}
+    if cfg.frontend:
+        batch["frontend_emb"] = torch.as_tensor(rng.normal(
+            size=(C, 2, F, cfg.d_model)))
     res = pool.run(R.grads, cfg, base, ad, batch)
     for r, (got, met) in enumerate(res):
         d = r // 2
@@ -425,7 +442,7 @@ def test_kv_heads_a_rank_reads_where_they_stay_whole():
 
 
 # ---------------------------------------------------------------------------
-# fused_dora on a slice, and the families left out
+# fused_dora on a slice
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("split", ("col", "row"))
@@ -456,30 +473,6 @@ def test_fused_dora_on_a_tensor_parallel_slice(split):
                                     b_mag, da[k], db, scale=4.0))
     if parts:
         assert rel(sum(parts), whole) <= 1e-6
-
-
-@pytest.mark.parametrize("arch", sorted(LEFT_OUT))
-def test_families_left_out_refuse_a_model_axis(arch):
-    """mamba2, jamba and seamless on a grid with a model axis of 2 raise,
-    naming their ROADMAP item, at every entry point; with one model rank
-    they are not refused."""
-    cfg = get_smoke_config(arch)
-    grid = AbstractGrid((2, 2))
-    base = SP.abstract_params(cfg)
-    for call in (lambda: make_prefill_step(cfg, grid),
-                 lambda: make_decode_step(cfg, grid),
-                 lambda: SP.param_specs(cfg, grid, base),
-                 lambda: M.check_grid(cfg, grid)):
-        with pytest.raises(ValueError, match=LEFT_OUT[arch]):
-            call()
-    M.check_grid(cfg, AbstractGrid((4, 1)))
-    SP.param_specs(cfg, AbstractGrid((4, 1)), base)
-
-
-def test_the_engine_refuses_a_left_out_family_on_the_grid(pool):
-    msgs = pool.run(R.refuse, get_smoke_config("jamba-v0.1-52b"))
-    assert all(m is not None and "A14b" in m for m in msgs)
-    assert pool.run(R.refuse, get_smoke_config("llama2-7b")) == [None] * 4
 
 
 # ---------------------------------------------------------------------------

@@ -9,17 +9,20 @@ import numpy as np
 import torch
 
 from repro_torch.launch import specs as SP
-from repro_torch.launch.serve import (greedy_generate, make_decode_step,
-                                      make_prefill_step)
+from repro_torch.launch.serve import (_rows, greedy_generate,
+                                      make_decode_step, make_prefill_step)
 from repro_torch.launch.train import (TrainSettings, make_fed_pipeline_step,
                                       rank_slice)
 from repro_torch.models import layers as L
+from repro_torch.models import model as M
 from repro_torch.utils import pytree as pt
 from repro_torch.utils.sharding import DEFAULT_PARAM_RULES, tree_specs
 
 
 def host(tree):
-    return {p: x.detach().cpu().numpy() for p, x in
+    """{path: a numpy copy} (not a view: a decode step writes its cache
+    in place)."""
+    return {p: x.detach().cpu().numpy().copy() for p, x in
             pt.tree_leaves_with_path(tree)}
 
 
@@ -36,16 +39,20 @@ def serve(grid, cfg, params, batch, n_new):
     ``greedy_generate``'s tokens."""
     mine = shard(grid, cfg, params)
     S = batch["tokens"].shape[1]
-    if "frontend_emb" in batch:
+    if "frontend_emb" in batch and not cfg.n_enc_layers:
         S += batch["frontend_emb"].shape[1]
     prefill, decode = make_prefill_step(cfg, grid), make_decode_step(cfg, grid)
     with torch.no_grad():
         logits, cache = prefill(mine, batch, cache_len=S + n_new)
         first = host(cache)
+        enc_out = None
+        if cfg.n_enc_layers:        # the rank's rows, whole over its row
+            local, g = _rows(batch, grid)
+            enc_out = M._encode(mine, local["frontend_emb"], cfg, mesh=g)
         steps = [logits.numpy()]
         tok = logits.argmax(-1)
         for i in range(n_new - 1):
-            logits, cache = decode(mine, tok, cache, S + i)
+            logits, cache = decode(mine, tok, cache, S + i, enc_out=enc_out)
             steps.append(logits.numpy())
             tok = logits.argmax(-1)
         toks = greedy_generate(mine, batch, cfg, n_new, device="cpu",
@@ -134,16 +141,6 @@ def grads(grid, cfg, base, adapters, batch):
             {k: float(v) for k, v in met.items()})
 
 
-def refuse(grid, cfg):
-    """The message the production engine raises with on this grid for a
-    family that is not split over 'model', or None."""
-    try:
-        make_fed_pipeline_step(cfg, grid, TrainSettings(), device="cpu")
-    except ValueError as e:
-        return str(e)
-    return None
-
-
 def argmax_ties(grid, logits):
     """``model.argmax_over_shards`` of the rank's vocabulary columns of
     whole ``logits`` (..., V)."""
@@ -156,8 +153,9 @@ def argmax_ties(grid, logits):
 def collectives(grid, x):
     """Each gradient-carrying collective of ``utils/collectives`` on the
     rank's x (a different value a rank: x + rank), forward and backward
-    under a loss Σ w ⊙ y with w fixed (times 1 + rank for ``mean_over``,
-    whose backward means the ranks' weights): {name: (y, dL/dx)}."""
+    under a loss Σ w ⊙ y with w fixed (times 1 + rank for ``mean_over``
+    and ``sum_over``, whose backwards mean and sum the ranks' weights):
+    {name: (y, dL/dx)}."""
     from repro_torch.utils import collectives as K
     out = {}
     g = grid.model
@@ -167,7 +165,8 @@ def collectives(grid, x):
             ("gather_from", lambda t: K.gather_from(t, g, -1), 1),
             ("all_to_all", lambda t: K.all_to_all(t, grid.data), 1),
             ("mean_over", lambda t: K.mean_over(t, grid.data),
-             1 + grid.rank)):
+             1 + grid.rank),
+            ("sum_over", lambda t: K.sum_over(t, g), 1 + grid.rank)):
         t = (torch.as_tensor(x) + grid.rank).requires_grad_(True)
         y = fn(t)
         w = torch.arange(y.numel(), dtype=y.dtype).reshape(y.shape) / 7 * k
