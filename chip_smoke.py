@@ -485,7 +485,7 @@ Phase 19 the 'model' axis, after phase 18: one ClientPool grid of 2 data
          engine once there: a process's first meta-tensor ops import
          PyTorch's reference implementations, seconds of host time);
          from then the phase takes at most 90 s.  ``python3
-         chip_smoke.py --mesh-only`` runs phases 19 and 20 alone on every
+         chip_smoke.py --mesh-only`` runs phases 19 to 21 alone on every
          card there is (NCCL when each rank has its own).
 Phase 20 the SSM, hybrid and encoder-decoder families on phase 19's grid,
          each rank's shard by param_specs (the Mamba-2 mixer split by
@@ -518,6 +518,27 @@ Phase 20 the SSM, hybrid and encoder-decoder families on phase 19's grid,
          clients, f64 and f32 held as there.  Prints each part's times,
          each rank's peak and shard bytes and the collectives' calls,
          bytes and seconds; the phase takes at most 90 s.
+Phase 21 the sequence-split KV cache and the grid's account on phase
+         19's grid.  (a) gemma3-1b at full width (one kv head, 26 layers:
+         local rings of 512 slots and global layers), 2 x 4096 prompt
+         tokens, a row a data rank, 16 greedy tokens on the grid's
+         seq_shard_kv layout (a cache of 4112 slots split on its
+         sequence, 2056 a rank, its rings 256): in f32 every step's
+         logits within 1e-4 of max of the unsharded path on the same card
+         and the tokens equal; through CHECK_DEPTH layers in bf16, both
+         fed the unsharded path's tokens, within 2e-2; each rank's cache
+         half the default layout's (the kv head whole on every rank),
+         whose decode step is timed beside.  (b) granite-34b at full
+         width (48 heads, MQA), 4 of 88 layers, the same in f32.  (c)
+         each rank's step against its meta account on a meta grid at its
+         place (launch/dryrun.py): (a)'s prefill step and one
+         sequence-split decode step at gemma3-1b's config, and phase 19's
+         llama2-7b prefill step at 8 layers (bf16): the step's growth of
+         max_memory_allocated within 5% or 64 MiB of peak_estimate −
+         argument_bytes, and its collectives' calls and bytes equal to
+         the meta group's exactly.  Prints each rank's decode step ms on
+         both layouts, the collectives' bytes a step and the ranks'
+         peaks; the phase takes at most 90 s.
 Every run starts with every launch count at 0.  Each path's prefill
 logits, kernels against plain versions, relative to max |logit|: bf16
 weights through the first CHECK_DEPTH layers within 2e-2, f32 weights
@@ -7597,6 +7618,288 @@ def phase_families(torch, mesh_pool):
     return report, launches
 
 
+# --- phase 21: the sequence-split cache and the grid's account -------------
+
+SEQ_ARCH = "gemma3-1b"  # (a): one kv head, local rings of 512, global layers
+SEQ_BIG = "granite-34b"     # (b): MQA, 48 heads
+SEQ_BIG_DEPTH = 4       # (b)'s layers of full width (of 88)
+SEQ_S = 4096            # the prompt a row: one row a data rank
+SEQ_NEW = 16            # greedy tokens: a cache of 4112 slots, 2056 a rank
+SEQ_ACCOUNT_LLAMA = 8   # (c): phase 19's llama2-7b prefill step, layers
+SEQ_BUDGET_S = 90       # the phase's wall time
+
+
+def seq_serve_rank(grid, cfg, params, tokens, n_new, seq, feed=None):
+    """Phase 21 (a), (b) on one rank: its shard of ``params``; with
+    ``seq`` the grid's ``seq_shard_kv`` layout (the cache split on its
+    sequence over the model row), else the default (the one kv head whole
+    on every rank); the prefill step of the whole (B, S) ``tokens`` with
+    room for ``n_new`` tokens, then ``n_new`` - 1 decode steps fed the
+    greedy tokens (or the (B, n_new) ``feed``), every row's logits of
+    every step.  Returns host copies, the times, the rank's cache bytes,
+    launches, peak and the collectives' readings."""
+    import torch
+    from repro_torch.launch.serve import make_decode_step, make_prefill_step
+    from repro_torch.models import model as M
+    from repro_torch.utils import pytree as pt
+    mine, shard_bytes, shard_s = mesh_rank_start(grid, cfg, params)
+    S = tokens.shape[1]
+    g = grid.replace(seq_shard_kv=seq, kv_len=S + n_new)
+    prefill, decode = make_prefill_step(cfg, g), make_decode_step(cfg, g)
+    before = stats_copy(grid.stats)
+    reset_launches()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(mine, {"tokens": tokens}, cache_len=S + n_new)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mid = stats_copy(grid.stats)
+        cache_bytes = sum(x.numel() * x.element_size()
+                          for x in pt.tree_leaves(cache))
+        steps, toks = [logits], [M.argmax_first(logits)]
+        for i in range(n_new - 1):
+            tok = toks[-1] if feed is None else feed[:, i].to(grid.device)
+            logits, cache = decode(mine, tok, cache, S + i)
+            steps.append(logits)
+            toks.append(M.argmax_first(logits))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    launches = read_launches()
+    out = {"steps": torch.stack(steps).cpu(),
+           "tokens": torch.stack(toks, dim=1).cpu(),
+           "prefill_ms": 1e3 * (t1 - t0),
+           "decode_step_ms": 1e3 * (t2 - t1) / max(n_new - 1, 1),
+           "cache_bytes": cache_bytes,
+           "launches": {k: v for k, v in launches.items() if v},
+           "shard_bytes": shard_bytes, "shard_s": shard_s,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "prefill_collectives": stats_delta(before, mid),
+           "decode_collectives": stats_delta(mid, grid.stats)}
+    del mine, cache, logits, steps
+    torch.cuda.empty_cache()
+    return out
+
+
+def seq_per_step(colls, n_steps):
+    """The collectives' bytes a decode step sends, per group and op."""
+    return {f"{g}/{op}": v["bytes"] / n_steps for g, ops in colls.items()
+            for op, v in ops.items() if v["calls"]}
+
+
+def seq_run(torch, pool, label, cfg, params, tokens, tol, feed=False,
+            layouts=(True, False)):
+    """One model of (a) or (b): the unsharded path on the same card, then
+    the grid on the sequence-split layout (and the default one, timed).
+    Held: every rank returns the same logits and tokens; every step's
+    logits within ``tol`` of max of the unsharded path's (with ``feed``,
+    both fed the unsharded path's tokens, else the greedy tokens equal);
+    each rank's cache half the default layout's; the prefill launches
+    flash_attention once an attention layer on every rank.  Returns the
+    report and the ranks' flash launches."""
+    want_first, want_steps, want_toks, _ = fam_unsharded(
+        torch, cfg, params, {"tokens": tokens}, SEQ_NEW)
+    want = torch.stack([want_first] + want_steps)
+    free(torch)
+    out, flash, res = {"layers": cfg.n_layers, "dtype": cfg.dtype}, 0, {}
+    for seq in layouts:
+        name = "seq" if seq else "default"
+        res[name] = pool.run(seq_serve_rank, cfg, params, tokens, SEQ_NEW,
+                             seq, want_toks if feed else None)
+        for r in res[name][1:]:
+            check(torch.equal(r["steps"], res[name][0]["steps"])
+                  and torch.equal(r["tokens"], res[name][0]["tokens"]),
+                  f"seq {label} {name}: every rank returns the same logits "
+                  f"and tokens")
+        n = [r["launches"].get("flash_attention", 0) for r in res[name]]
+        check(n == [cfg.n_layers] * len(n), f"seq {label} {name}: "
+              f"flash_attention launched {n} times on the ranks = "
+              f"{cfg.n_layers} (once an attention layer of the prefill)")
+        flash += sum(n)
+        steps = SEQ_NEW - 1
+        out[name] = {
+            "prefill_ms": [r["prefill_ms"] for r in res[name]],
+            "decode_step_ms": [r["decode_step_ms"] for r in res[name]],
+            "rank_cache_bytes": [r["cache_bytes"] for r in res[name]],
+            "rank_peak_bytes": [r["peak_bytes"] for r in res[name]],
+            "rank_shard_bytes": [r["shard_bytes"] for r in res[name]],
+            "decode_bytes_per_step": seq_per_step(
+                res[name][0]["decode_collectives"], steps),
+            "decode_calls_per_step": {
+                f"{g}/{op}": v["calls"] / steps for g, ops in
+                res[name][0]["decode_collectives"].items()
+                for op, v in ops.items() if v["calls"]},
+            "launches": [r["launches"] for r in res[name]]}
+        if seq:
+            err = max(rel_err(res[name][0]["steps"][i], want[i].cpu())[0]
+                      for i in range(want.shape[0]))
+            check(err <= tol, f"seq {label}: every step's logits on the "
+                  f"sequence-split cache vs the unsharded path {err:.3e} <= "
+                  f"{tol} of max |logit|")
+            out["logits_rel_err"] = err
+            if not feed:
+                check(torch.equal(res[name][0]["tokens"], want_toks),
+                      f"seq {label}: {SEQ_NEW} greedy tokens on the "
+                      f"sequence-split cache equal the unsharded path's")
+                out["greedy_tokens_equal"] = SEQ_NEW
+    if len(layouts) == 2:
+        for a, b in zip(res["seq"], res["default"]):
+            check(2 * a["cache_bytes"] == b["cache_bytes"],
+                  f"seq {label}: a rank's sequence-split cache "
+                  f"{a['cache_bytes']} bytes is half its whole cache's "
+                  f"{b['cache_bytes']}")
+    print(f"seq {label} [{GPU}]: " + json.dumps(out))
+    return out, flash
+
+
+def seq_account_rank(grid, cfg, shape, seq):
+    """Phase 21 (c) on one rank: its meta account on a meta grid at its
+    place (``launch.dryrun.account``), then the same step on the card
+    from ``dryrun.step_and_inputs`` on the rank's grid (its shard built
+    whole on the card and cut), run once: the growth of
+    max_memory_allocated across the step after its inputs, and the
+    collectives it issued (the rank's stats zeroed before it)."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_meta_grid
+    torch.backends.cuda.matmul.allow_tf32 = False
+    meta = make_meta_grid(grid.shape["data"], grid.shape["model"],
+                          rank=grid.rank)
+    t0 = time.perf_counter()
+    acc = dryrun.account(cfg, shape, grid=meta, seq_shard_kv=seq)
+    t_meta = time.perf_counter() - t0
+    step, make_args = dryrun.step_and_inputs(cfg, shape, device=grid.device,
+                                             grid=grid, seq_shard_kv=seq)
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = make_args()
+    torch.cuda.synchronize()
+    m2 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dryrun.zero_stats(grid)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = step(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    grew = torch.cuda.max_memory_allocated() - m2
+    colls = dryrun.collectives(grid)
+    finite = bool(torch.isfinite(out[0]).all())
+    del out, args
+    torch.cuda.empty_cache()
+    return {"account": acc["memory"], "account_collectives":
+            acc["collectives"], "account_s": t_meta, "card_step_bytes": grew,
+            "card_collectives": colls, "step_wall_s": wall,
+            "finite": finite,
+            "launches": {k: v for k, v in read_launches().items() if v}}
+
+
+def seq_account(torch, pool, gemma_cfg):
+    """Phase 21 (c): (a)'s prefill step and one sequence-split decode
+    step at gemma3-1b's full config, and phase 19's llama2-7b prefill
+    step at 8 layers, each rank against its meta account: the step's
+    allocation within DRY_STEP_TOL or DRY_STEP_FLOOR of peak_estimate −
+    argument_bytes, the collectives' calls and bytes equal exactly."""
+    from repro_torch.configs import InputShape, get_config
+    B = MESH_GRID[0]
+    llama = dataclasses.replace(get_config(MESH_ARCH),
+                                n_layers=SEQ_ACCOUNT_LLAMA)
+    cases = (("gemma3-1b prefill", gemma_cfg,
+              InputShape("p21", SEQ_S, B, "prefill"), False,
+              gemma_cfg.n_layers),
+             ("gemma3-1b sequence-split decode", gemma_cfg,
+              InputShape("d21", SEQ_S + SEQ_NEW, B, "decode"), True, 0),
+             (f"{MESH_ARCH} prefill", llama,
+              InputShape("p21", SEQ_S, B, "prefill"), False,
+              llama.n_layers))
+    report, flash = {}, 0
+    for label, cfg, shape, seq, n_flash in cases:
+        free(torch)
+        res = pool.run(seq_account_rank, cfg, shape, seq)
+        rows = []
+        for r, x in enumerate(res):
+            mem = x["account"]
+            want = mem["peak_estimate_bytes"] - mem["argument_bytes"]
+            bound = max(DRY_STEP_TOL * want, DRY_STEP_FLOOR)
+            check(abs(x["card_step_bytes"] - want) <= bound,
+                  f"seq (c) {label}, rank {r}: the step allocates "
+                  f"{x['card_step_bytes']} bytes on the card, its meta "
+                  f"account {want} (off by {x['card_step_bytes'] - want}, "
+                  f"bound {bound:.0f})")
+            check(x["card_collectives"] == x["account_collectives"],
+                  f"seq (c) {label}, rank {r}: the collectives on the card "
+                  f"{x['card_collectives']} = the meta account's "
+                  f"{x['account_collectives']}")
+            check(x["finite"], f"seq (c) {label}, rank {r}: finite logits")
+            n = x["launches"].get("flash_attention", 0)
+            check(n == n_flash, f"seq (c) {label}, rank {r}: flash_attention "
+                  f"launched {n} times = {n_flash}")
+            flash += n
+            rows.append({"card_step_bytes": x["card_step_bytes"],
+                         "account_step_bytes": want,
+                         "step_off_bytes": x["card_step_bytes"] - want,
+                         "collective_bytes": x["card_collectives"]["total"],
+                         "account_s": x["account_s"],
+                         "step_wall_s": x["step_wall_s"]})
+        report[label] = rows
+        print(f"seq (c) {label} [{GPU}]: " + json.dumps(rows))
+    return report, flash
+
+
+def phase_seq(torch, mesh_pool):
+    """Phase 21: the sequence-split KV cache and the grid's account on
+    phase 19's 2 data x 2 model grid.  Returns the report and the ranks'
+    flash_attention launches."""
+    from repro_torch.utils import pytree as pt
+    t0 = time.perf_counter()
+    pool = mesh_pool.get()
+    report, flash = {}, 0
+    try:
+        t = time.perf_counter()
+        cfg, params = dense_model(torch, SEQ_ARCH)
+        tokens = dense_tokens(torch, cfg, MESH_GRID[0], SEQ_S, seed=21)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = pt.tree_map(lambda x: x.float(), params)
+        report["gemma_f32"], n = seq_run(
+            torch, pool, f"(a) {SEQ_ARCH} {cfg.n_layers} layers f32", cfg32,
+            p32, tokens, LOGITS_F32_TOL)
+        flash += n
+        del p32
+        free(torch)
+        cut, ccfg = first_layers(params, cfg, CHECK_DEPTH)
+        report["gemma_bf16"], n = seq_run(
+            torch, pool, f"(a) {SEQ_ARCH} {CHECK_DEPTH} layers bf16", ccfg,
+            cut, tokens, TOL["bfloat16"], feed=True, layouts=(True,))
+        flash += n
+        del cut, params
+        free(torch)
+        report["gemma_wall_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        bcfg, bparams = dense_model(torch, SEQ_BIG, layers=SEQ_BIG_DEPTH,
+                                    dtype="float32")
+        btok = dense_tokens(torch, bcfg, MESH_GRID[0], SEQ_S, seed=22)
+        report["granite_f32"], n = seq_run(
+            torch, pool, f"(b) {SEQ_BIG} {SEQ_BIG_DEPTH} layers f32", bcfg,
+            bparams, btok, LOGITS_F32_TOL)
+        flash += n
+        del bparams
+        free(torch)
+        report["granite_wall_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        report["account"], n = seq_account(torch, pool, cfg)
+        flash += n
+        report["account_wall_s"] = time.perf_counter() - t
+    except RuntimeError as e:
+        raise CheckFailed(f"seq: a rank failed:\n{e}")
+    report["wall_s"] = time.perf_counter() - t0
+    report["flash_launches"] = flash
+    print(f"seq [{GPU}]: phase {report['wall_s']:.1f} s ((a) "
+          f"{report['gemma_wall_s']:.1f}, (b) {report['granite_wall_s']:.1f},"
+          f" (c) {report['account_wall_s']:.1f}); flash_attention {flash} "
+          f"launches on the ranks")
+    return report, flash
+
+
 def kernel_entry(name, src, replaces, launches, row, shape, extra=None):
     keys = ("ms", "plain_ms", "library_ms", "eager_ms", "eager_plain_ms",
             "eager_library_ms")
@@ -7613,7 +7916,7 @@ def kernel_entry(name, src, replaces, launches, row, shape, extra=None):
 
 
 def mesh_only(torch):
-    """``--mesh-only``: phases 19 and 20 alone, on every card there is
+    """``--mesh-only``: phases 19, 20 and 21 alone, on every card there is
     (the grid on NCCL when each rank has a card of its own), after
     building flash_attention and ssd_scan; prints their reports.  Not
     the chip check: that is the run with no arguments."""
@@ -7628,6 +7931,7 @@ def mesh_only(torch):
         report, flash = phase_mesh(torch, mesh_pool)
         t19 = time.perf_counter() - t0
         families, _ = phase_families(torch, mesh_pool)
+        seq, _ = phase_seq(torch, mesh_pool)
     except CheckFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -7635,9 +7939,9 @@ def mesh_only(torch):
         mesh_pool.close()
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"phase 19 (the model axis) took {t19:.1f} s, phase 20 "
-          f"{families['wall_s']:.1f} s on {torch.cuda.device_count()} "
-          f"card(s)")
-    print(json.dumps({"mesh": report, "families": families}))
+          f"{families['wall_s']:.1f} s, phase 21 {seq['wall_s']:.1f} s on "
+          f"{torch.cuda.device_count()} card(s)")
+    print(json.dumps({"mesh": report, "families": families, "seq": seq}))
     print(f"gpu: {GPU}")
     return 0
 
@@ -7857,6 +8161,15 @@ def main():
               f"took {t_fam:.1f} s")
         check(t_fam <= FAM_BUDGET_S, f"phase 20 took {t_fam:.1f} s <= "
               f"{FAM_BUDGET_S} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        report["seq"], seq_flash = phase_seq(torch, mesh_pool)
+        t_seq = time.perf_counter() - t0
+        print(f"phase 21 (the sequence-split cache and the grid's account) "
+              f"took {t_seq:.1f} s")
+        check(t_seq <= SEQ_BUDGET_S, f"phase 21 took {t_seq:.1f} s <= "
+              f"{SEQ_BUDGET_S} s")
     except CheckFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -7937,7 +8250,7 @@ def main():
         f"{pallas}/flash_attention/flash_attention.py:87",
         dense_launches["flash_attention"] + moe_launches["flash_attention"]
         + ssm_launches["flash_attention"] + mm_launches["flash_attention"]
-        + mesh_flash + fam_launches["flash_attention"],
+        + mesh_flash + fam_launches["flash_attention"] + seq_flash,
         fa["prefill"],
         "llama2-7b prefill: q, k, v (1, 4096, 32, 128) bf16, causal (phase 6 "
         "runs it with the other configs' shapes); launches: the prefills of "
@@ -7953,10 +8266,16 @@ def main():
         "attention layers over 16 of 32 heads at 2 x 2048, 2 layers f32 and "
         "8 bf16; seamless-m4t-large-v2's encoder, decoder self- and "
         "cross-attention over 8 of 16 heads at 2 x (4096 frames + 2048 "
-        "tokens), 24 + 24 layers f32 and 2 + 2 bf16)",
+        "tokens), 24 + 24 layers f32 and 2 + 2 bf16), phase 21 (the same "
+        "grid: gemma3-1b's 2 x 4096 prefills over 2 of 4 heads at 26 layers "
+        "f32 on both cache layouts and 2 layers bf16, granite-34b's over 24 "
+        "of 48 heads at 4 layers f32 on both, and the prefill steps held "
+        "against their meta accounts: gemma3-1b at 26 layers, llama2-7b at "
+        "8, bf16)",
         {"launches_phase6_standalone": launches_6["flash_attention"],
          "launches_phase19_mesh_ranks": mesh_flash,
          "launches_phase20_mesh_ranks": fam_launches["flash_attention"],
+         "launches_phase21_mesh_ranks": seq_flash,
          "launches_phase13_by_config": report["dense"]["flash_launches"],
          "launches_phase14_by_config": report["moe"]["flash_launches"],
          "launches_phase15_by_config":

@@ -5,14 +5,18 @@ Three terms per (architecture × input shape), in seconds:
 
   compute    = FLOPs_per_device / PEAK_FLOPS
   memory     = HBM_bytes_per_device / HBM_BW
-  collective = collective bytes per device over the interconnect
+  collective = collective bytes a device sends / NVLINK_BW
 
 The constants are one NVIDIA H100 SXM's (NVIDIA's data sheet, dense
 bf16, at the full 700 W): the figures the port's kernel bounds use.
-On one card there is no collective: the port's callers pass 0 bytes,
-and the reference's per-link ICI rate (``ICI_BW``) has no counterpart
-here, so ``roofline_terms`` refuses a nonzero collective volume rather
-than divide it by a rate the card does not have.
+The collective term is the reference's convention (its per-link ICI
+rate, ``ICI_BW``): the bytes a rank sends in a step, as a grid's
+``ClientGroup.stats`` count them (the dry run on a grid,
+``launch/dryrun.py``), over one card's NVLink 4 rate, 450 GB/s a
+direction (900 GB/s both ways) between the cards of one node.  It
+describes ranks on cards of their own; a grid whose ranks share one card
+over gloo moves its bytes through the host, which this term does not
+describe.  One card has no collective: 0 bytes.
 
 The formulas are the reference's, copied exactly (its tests hold the two
 equal for every supported pair).  Where they miss the port's work they
@@ -35,6 +39,7 @@ from repro_torch.utils import pytree as pt
 
 PEAK_FLOPS = 989e12          # H100 SXM bf16 dense / card
 HBM_BW = 3.35e12             # bytes/s / card
+NVLINK_BW = 450e9            # bytes/s / card, one direction (NVLink 4)
 
 
 # ---------------------------------------------------------------------------
@@ -191,15 +196,10 @@ class Roofline:
 
 def roofline_terms(flops_global: float, hbm_bytes_dev: float,
                    coll_bytes_dev: float, n_devices: int) -> Roofline:
-    """The three terms at the H100's peaks.  ``coll_bytes_dev`` must be 0
-    (one card: no interconnect term; see the module docstring)."""
-    if coll_bytes_dev:
-        raise ValueError(
-            f"roofline_terms: {coll_bytes_dev} collective bytes a device, "
-            "but the port's account is for one card and has no "
-            "interconnect rate; pass 0")
+    """The three terms at the H100's rates: ``coll_bytes_dev`` the bytes
+    a device sends in the step, over ``NVLINK_BW`` (module docstring)."""
     return Roofline(
         compute_s=flops_global / n_devices / PEAK_FLOPS,
         memory_s=hbm_bytes_dev / HBM_BW,
-        collective_s=0.0,
+        collective_s=coll_bytes_dev / NVLINK_BW,
     )

@@ -22,6 +22,11 @@ one process, a rank of a ``torch.distributed`` group:
   make_production_mesh(n_data=, n_model=)
                        the same over the node's cards, rank r on card
                        r mod ``torch.cuda.device_count()``
+  make_meta_grid(n_data, n_model, rank=0)
+                       one rank's place on such a grid with no processes,
+                       on ``device="meta"``: its groups (``MetaGroup``)
+                       make the real groups' buffers and count their
+                       bytes, and send nothing (the dry run on a grid)
   AbstractGrid         a grid's axes and shape with no processes, for the
                        sharding rules (``utils/sharding.py``,
                        ``launch/specs.py``)
@@ -112,15 +117,28 @@ class ClientGroup:
         return {dt: (torch.cat([tensors[i].reshape(-1) for i in idx]), idx)
                 for dt, idx in groups.items()}
 
+    _clock = staticmethod(time.perf_counter)
+
     def _collective(self, op, buf, fn):
         """Run ``fn`` on ``buf`` where it lies and count the call."""
         st = self.stats[op]
-        t0 = time.perf_counter()
+        t0 = self._clock()
         out = fn(buf)
         st["calls"] += 1
         st["bytes"] += buf.numel() * buf.element_size()
-        st["seconds"] += time.perf_counter() - t0
+        st["seconds"] += self._clock() - t0
         return out
+
+    # the communication itself, on buffers the methods below make: a
+    # meta group (``MetaGroup``) replaces these three and nothing else
+    def _all_reduce_(self, b, op=dist.ReduceOp.SUM):
+        dist.all_reduce(b, op=op, group=self.pg)
+
+    def _all_gather_(self, parts, b):
+        dist.all_gather(parts, b, group=self.pg)
+
+    def _all_to_all_(self, out, b):
+        dist.all_to_all_single(out, b, group=self.pg)
 
     def all_reduce(self, tensors: list) -> list:
         """[Σ over ranks of t for t in tensors], in one all-reduce a
@@ -130,7 +148,7 @@ class ClientGroup:
         out = [None] * len(tensors)
         for buf, idx in self._flat(tensors).values():
             def reduce(b):          # b is a fresh buffer (torch.cat)
-                dist.all_reduce(b, group=self.pg)
+                self._all_reduce_(b)
                 return b
             red = self._collective("all_reduce", buf, reduce)
             off = 0
@@ -147,7 +165,7 @@ class ClientGroup:
         buf = t.contiguous().clone()
 
         def reduce(b):
-            dist.all_reduce(b, op=dist.ReduceOp.MAX, group=self.pg)
+            self._all_reduce_(b, dist.ReduceOp.MAX)
             return b
         return self._collective("all_reduce", buf, reduce)
 
@@ -164,7 +182,7 @@ class ClientGroup:
 
         def exchange(b):
             out = torch.empty_like(b)
-            dist.all_to_all_single(out, b, group=self.pg)
+            self._all_to_all_(out, b)
             return out
         return self._collective("all_to_all", buf, exchange)
 
@@ -177,7 +195,7 @@ class ClientGroup:
         for buf, idx in self._flat(tensors).values():
             def gather(b):
                 parts = [torch.empty_like(b) for _ in range(self.size)]
-                dist.all_gather(parts, b, group=self.pg)
+                self._all_gather_(parts, b)
                 return torch.stack(parts)
             got = self._collective("all_gather", buf, gather)
             off = 0
@@ -187,6 +205,28 @@ class ClientGroup:
                     (self.size,) + tuple(tensors[i].shape))
                 off += n
         return out
+
+
+class MetaGroup(ClientGroup):
+    """A group of ``size`` ranks with no processes behind it, for a step
+    run on ``device="meta"`` tensors (the dry run on a grid,
+    ``launch/dryrun.py``): every collective makes the buffers and returns
+    the outputs the real group's makes (the same ``torch.cat`` buffers,
+    ``empty_like`` parts, stack and clone), so a storage tally sees the
+    same allocations, and counts ``stats`` the same way (calls, the
+    bytes this rank sends once); only the communication is left out, and
+    the seconds are 0."""
+
+    _clock = staticmethod(lambda: 0.0)
+
+    def _all_reduce_(self, b, op=None):
+        pass
+
+    def _all_gather_(self, parts, b):
+        pass
+
+    def _all_to_all_(self, out, b):
+        pass
 
 
 def make_client_mesh(n_clients: int) -> ClientGroup:
@@ -236,16 +276,29 @@ class Grid(AbstractGrid):
     the n_model ranks that split one backbone), the ``backend`` and the
     rank's ``device``.
 
-    Two modes, each set on a copy by ``replace``:
+    Modes, each set on a copy by ``replace``:
 
-      rows_split  how a served batch lies on the data axis: its rows
-                  split over the data ranks (True, the default), or the
-                  same rows on every data rank (False: a batch that does
-                  not divide, the reference's small-batch path);
-                  ``launch/serve.py`` sets it
-      manual      the production engine's grid (``launch/train.py`` sets
-                  it): each data rank is a client of its own, and MoE
-                  runs ``layers.moe_ffn_manual`` (else ``moe_ffn_ep``)"""
+      rows_split    how a served batch lies on the data axis: its rows
+                    split over the data ranks (True, the default), or the
+                    same rows on every data rank (False: a batch that
+                    does not divide, the reference's small-batch path);
+                    ``launch/serve.py`` sets it
+      manual        the production engine's grid (``launch/train.py``
+                    sets it): each data rank is a client of its own, and
+                    MoE runs ``layers.moe_ffn_manual`` (else
+                    ``moe_ffn_ep``)
+      seq_shard_kv  the decode cache's kv split on its sequence over the
+                    model row where the reference's rule splits it
+                    (``launch/specs.cache_specs(seq_shard_kv=True)``: the
+                    rows split over the data ranks, kv heads that do not
+                    divide over the model ranks, a length that does);
+                    False (the default): kv heads split where they
+                    divide, else whole.  The caller sets it
+      kv_len        with ``seq_shard_kv``, the whole decode cache's
+                    positions (a global layer's slots), which tell a
+                    decode step which of its caches are split
+                    (``launch/serve.greedy_generate`` sets it from its
+                    cache length; a prefill needs none)"""
 
     def __init__(self, n_data, n_model, rank, data: ClientGroup,
                  model: ClientGroup, backend: str, device):
@@ -254,15 +307,22 @@ class Grid(AbstractGrid):
         self.rank, self.data, self.model = rank, data, model
         self.backend, self.device = backend, torch.device(device)
         self.rows_split, self.manual = True, False
+        self.seq_shard_kv, self.kv_len = False, 0
 
     def replace(self, *, rows_split: bool | None = None,
-                manual: bool | None = None) -> "Grid":
+                manual: bool | None = None,
+                seq_shard_kv: bool | None = None,
+                kv_len: int | None = None) -> "Grid":
         """A copy with the modes given set (the groups are shared)."""
         out = copy.copy(self)
         if rows_split is not None:
             out.rows_split = bool(rows_split)
         if manual is not None:
             out.manual = bool(manual)
+        if seq_shard_kv is not None:
+            out.seq_shard_kv = bool(seq_shard_kv)
+        if kv_len is not None:
+            out.kv_len = int(kv_len)
         return out
 
     @property
@@ -315,6 +375,18 @@ def make_production_mesh(*, n_data: int, n_model: int,
     ``multi_pod`` raises: one node has no 'pod' axis."""
     return make_debug_mesh(n_data, n_model, multi_pod=multi_pod,
                            device="cuda")
+
+
+def make_meta_grid(n_data: int, n_model: int, rank: int = 0) -> Grid:
+    """Rank ``rank``'s Grid of ``n_data`` × ``n_model`` ranks on
+    ``device="meta"``, its groups ``MetaGroup``s: what a step on a grid
+    allocates and sends on one rank, with no processes and no storage
+    (the dry run on a grid)."""
+    if not 0 <= rank < n_data * n_model:
+        raise ValueError(f"rank {rank} is not on a {n_data} x {n_model} grid")
+    d, m = rank // n_model, rank % n_model
+    return Grid(n_data, n_model, rank, MetaGroup(d, n_data),
+                MetaGroup(m, n_model), "meta", "meta")
 
 
 def data_axes(mesh):

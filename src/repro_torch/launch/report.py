@@ -6,9 +6,13 @@ run's JSON records (``launch/dryrun.py``) and the obs event log (port of
 
 ``REPRO_DRYRUN_DIR`` names the records' directory (default
 experiments/dryrun_torch, where the dry run writes them); a telemetry
-JSONL path in ``REPRO_TELEMETRY`` appends §Telemetry.  The records are one
-card's: a "fits 80G" column and no collective columns or term, and the
-roofline's constants are the H100's (``launch/analysis.py``).
+JSONL path in ``REPRO_TELEMETRY`` appends §Telemetry.  A record is one
+card's or one rank's of a grid (its ``mesh``, "1" or "NxM"): §Dry-run
+has a mesh column, "fits 80G" and the rank's collective bytes; §Roofline
+reads the records on the most cards there are (the 4-card grids, where
+the reference's reads its 16 x 16 mesh), at the H100's constants and its
+NVLink rate (``launch/analysis.py``); §Grids puts each pair's grids side
+by side (a rank's peak, whether it fits, the three terms).
 ``telemetry_section`` renders the same text as the reference's for the
 same events.
 """
@@ -42,43 +46,67 @@ def _name(r) -> str:
                         else f" +{r['variant']}")
 
 
+def _n_dev(r) -> int:
+    return int(r.get("n_devices", 1))
+
+
+def _top_collectives(r) -> str:
+    """The record's two largest (group, op) byte counts."""
+    colls = r.get("collectives") or {}
+    ops = [(f"{g}/{op}", v["bytes"]) for g in ("data", "model")
+           for op, v in colls.get(g, {}).items()]
+    ops.sort(key=lambda kv: -kv[1])
+    return ", ".join(f"{k}:{b/1e9:.2f}GB" for k, b in ops[:2])
+
+
 def dryrun_section(recs) -> str:
     out = ["## §Dry-run", "",
-           "Per (arch × shape) on one card: status, the step's memory "
-           "from its run on meta tensors (launch/dryrun.py: inputs, "
-           "temporaries, the reference's peak estimate) and the FLOPs "
+           "Per (arch × shape × mesh): status, one rank's memory from its "
+           "step run on meta tensors (launch/dryrun.py: inputs, "
+           "temporaries, the reference's peak estimate; on a grid the "
+           "rank's shard and what its collectives send) and the FLOPs "
            "counted there.", "",
-           "| arch | shape | status | args | temps | peak estimate | "
-           "fits 80G | counted TFLOPs (matmuls + kernels) |",
-           "|---|---|---|---|---|---|---|---|"]
+           "| arch | shape | mesh | status | args | temps | peak estimate | "
+           "fits 80G | collective bytes/step (rank) | top collectives | "
+           "counted TFLOPs (matmuls + kernels) |",
+           "|---|---|---|---|---|---|---|---|---|---|---|"]
     for r in recs:
         if r.get("status") != "ok":
-            out.append(f"| {r['arch']} | {r['shape']} | "
-                       f"ERROR: {str(r.get('error'))[:60]} | | | | | |")
+            out.append(f"| {r['arch']} | {r['shape']} | {r.get('mesh', '1')} "
+                       f"| ERROR: {str(r.get('error'))[:60]} | | | | | | | |")
             continue
         m, ca = r["memory"], r["cost_analysis"]
         counted = ca["flops_counted"] + sum(ca["kernel_flops"].values())
+        coll = (r.get("collectives") or {}).get("total", 0)
         out.append(
-            f"| {_name(r)} | {r['shape']} | ok ({r['trace_s']}s) | "
-            f"{fmt_bytes(m['argument_bytes'])} | "
+            f"| {_name(r)} | {r['shape']} | {r['mesh']} | ok "
+            f"({r['trace_s']}s) | {fmt_bytes(m['argument_bytes'])} | "
             f"{fmt_bytes(m['temp_bytes'])} | "
             f"{fmt_bytes(m['peak_estimate_bytes'])} | "
             f"{'yes' if r['fits_80g'] else '**NO**'} | "
+            f"{fmt_bytes(coll)} | {_top_collectives(r)} | "
             f"{counted / 1e12:.1f} |")
     return "\n".join(out)
 
 
 def roofline_section(recs) -> str:
-    out = [f"## §Roofline (one H100, {AN.PEAK_FLOPS:.3g} FLOP/s bf16, "
-           f"{AN.HBM_BW:.3g} B/s)", "",
-           f"Terms in seconds/step — compute = analytic FLOPs ÷ "
-           f"{AN.PEAK_FLOPS:.3g}; memory = modeled HBM bytes ÷ "
-           f"{AN.HBM_BW:.3g}; one card has no collective term.  `useful` "
-           "= MODEL_FLOPS (6·N_active·tokens train / 2·N·tokens serve) ÷ "
-           "total analytic FLOPs.", "",
-           "| arch | shape | compute s | memory s | dominant | useful | "
-           "what would move the dominant term |",
-           "|---|---|---|---|---|---|---|"]
+    """The roofline of the records on the most cards there are (the 4-card
+    grids when their records are there, as the reference's reads its
+    16 x 16 mesh; else one card's)."""
+    ok = [r for r in recs if r.get("status") == "ok"]
+    n = max((_n_dev(r) for r in ok), default=1)
+    out = [f"## §Roofline ({n} H100{'s' if n > 1 else ''}, "
+           f"{AN.PEAK_FLOPS:.3g} FLOP/s bf16, {AN.HBM_BW:.3g} B/s, "
+           f"NVLink {AN.NVLINK_BW:.3g} B/s)", "",
+           f"Terms in seconds/step — compute = analytic FLOPs/dev ÷ "
+           f"{AN.PEAK_FLOPS:.3g}; memory = modeled HBM bytes/dev ÷ "
+           f"{AN.HBM_BW:.3g}; collective = the bytes a rank sends ÷ "
+           f"{AN.NVLINK_BW:.3g} (0 on one card).  `useful` = MODEL_FLOPS "
+           "(6·N_active·tokens train / 2·N·tokens serve) ÷ total analytic "
+           "FLOPs.", "",
+           "| arch | shape | mesh | compute s | memory s | collective s | "
+           "dominant | useful | what would move the dominant term |",
+           "|---|---|---|---|---|---|---|---|---|"]
     advice = {
         ("compute", "train"): "lower remat factor (3× fwd), fewer "
                               "recomputed passes",
@@ -89,18 +117,55 @@ def roofline_section(recs) -> str:
         ("memory", "prefill"): "KV-cache write coalescing, bf16 cache",
         ("memory", "decode"): "weight/cache quantization, larger batch to "
                               "amortize weight reads",
+        ("collective", "train"): "overlap the model row's all-reduces "
+                                 "with compute; bf16 payloads",
+        ("collective", "prefill"): "fewer activation all-reduces (sequence "
+                                   "parallelism)",
+        ("collective", "decode"): "fewer hops: the sequence split's "
+                                  "combine, the all-to-all",
     }
-    for r in recs:
-        if r.get("status") != "ok":
+    for r in ok:
+        if _n_dev(r) != n:
             continue
         ro = r["roofline"]
         kind = ("train" if r["shape"].startswith("train") else
                 "prefill" if "prefill" in r["shape"] else "decode")
         out.append(
-            f"| {_name(r)} | {r['shape']} | {ro['compute_s']:.3e} | "
-            f"{ro['memory_s']:.3e} | **{ro['dominant']}** | "
+            f"| {_name(r)} | {r['shape']} | {r['mesh']} | "
+            f"{ro['compute_s']:.3e} | {ro['memory_s']:.3e} | "
+            f"{ro['collective_s']:.3e} | **{ro['dominant']}** | "
             f"{ro['useful_flops_ratio']:.2f} | "
             f"{advice[(ro['dominant'], kind)]} |")
+    return "\n".join(out)
+
+
+_DOM = {"compute": "C", "memory": "M", "collective": "X"}
+
+
+def grid_section(recs) -> str:
+    """One row a (arch, variant, shape) of the grid records, one column a
+    grid: the rank's peak GB, whether it fits 80 GB, the compute /
+    memory / collective terms (s) and the dominant one's initial."""
+    ok = [r for r in recs if r.get("status") == "ok" and _n_dev(r) > 1]
+    meshes = sorted({r["mesh"] for r in ok})
+    cells: dict = {}
+    for r in ok:
+        ro = r["roofline"]
+        cells.setdefault((_name(r), r["shape"]), {})[r["mesh"]] = (
+            f"{r['memory']['peak_estimate_bytes'] / 1e9:.1f} "
+            f"{'fits' if r['fits_80g'] else '**no**'}; "
+            f"{ro['compute_s']:.2g} / {ro['memory_s']:.2g} / "
+            f"{ro['collective_s']:.2g} {_DOM[ro['dominant']]}")
+    out = ["## §Grids", "",
+           "Per (arch × shape), one rank of each grid (data x model "
+           "ranks): peak GB and whether it fits 80 GB; compute / memory / "
+           "collective s; the dominant term (C compute, M memory, X "
+           "collective).",
+           "", "| arch | shape | " + " | ".join(meshes) + " |",
+           "|---|---|" + "---|" * len(meshes)]
+    for (name, shape), row in sorted(cells.items()):
+        out.append(f"| {name} | {shape} | "
+                   + " | ".join(row.get(m, "") for m in meshes) + " |")
     return "\n".join(out)
 
 
@@ -242,10 +307,12 @@ def telemetry_section(events) -> str:
 def summarize(recs) -> str:
     ok = [r for r in recs if r.get("status") == "ok"]
     bad = [r for r in recs if r.get("status") != "ok"]
+    n = max((_n_dev(r) for r in ok), default=1)
     by_dom = defaultdict(int)
     for r in ok:
-        by_dom[r["roofline"]["dominant"]] += 1
-    return (f"{len(ok)} ok / {len(bad)} failed; one-card dominants: "
+        if _n_dev(r) == n:
+            by_dom[r["roofline"]["dominant"]] += 1
+    return (f"{len(ok)} ok / {len(bad)} failed; {n}-card dominants: "
             + ", ".join(f"{k}={v}" for k, v in sorted(by_dom.items())))
 
 
@@ -255,6 +322,9 @@ def main():
     print(dryrun_section(recs))
     print()
     print(roofline_section(recs))
+    if any(_n_dev(r) > 1 for r in recs if r.get("status") == "ok"):
+        print()
+        print(grid_section(recs))
     if TELEMETRY and os.path.exists(TELEMETRY):
         print()
         print(telemetry_section(TELEMETRY))

@@ -17,7 +17,13 @@ rank's place on a grid: the rank passes its shard of the backbone
 split over the data ranks when they divide (else every data rank runs
 them all, the reference's small-batch path), the backbone over the model
 ranks, and the logits come back for every row and the whole vocabulary.
-``greedy_generate(mesh=)`` decodes on the grid the same way.  Every
+``greedy_generate(mesh=)`` decodes on the grid the same way.  A grid
+whose ``seq_shard_kv`` layout is on (``grid.replace(seq_shard_kv=True)``)
+splits the decode cache on its sequence over the model ranks where the
+kv heads do not divide over them: ``greedy_generate`` reads the cache's
+length from its own arguments, and a prefill step needs none; a decode
+step of ``make_decode_step`` reads it from the grid
+(``grid.replace(seq_shard_kv=True, kv_len=cache_len)``).  Every
 family runs on a grid: an encoder-decoder's encoder runs there too, over
 the rank's frame rows, and its output is passed to every decode step.
 """
@@ -85,9 +91,11 @@ def make_decode_step(cfg: ArchConfig, mesh=None):
         if mesh is None:
             return M.decode_step(params, new_token, cache, cache_index, cfg,
                                  enc_out=enc_out)
-        local, grid = _rows({"tokens": new_token}, mesh)
+        # per-row (B,) positions are cut to the rank's rows with the tokens
+        local, grid = _rows({"tokens": new_token, "index": cache_index},
+                            mesh)
         logits, cache = M.decode_step(params, local["tokens"], cache,
-                                      cache_index, cfg, enc_out=enc_out,
+                                      local["index"], cfg, enc_out=enc_out,
                                       mesh=grid)
         return _all_rows(logits, grid), cache
 
@@ -109,7 +117,10 @@ def greedy_generate(params, prompt_batch: dict, cfg: ArchConfig,
     output (the reference's decode loop drops it, ROADMAP C).
 
     ``mesh``: this rank's part on a grid, with its shard of ``params``
-    and the whole prompt batch; returns every row's tokens.  Pooled
+    and the whole prompt batch; returns every row's tokens.  With the
+    grid's ``seq_shard_kv`` layout the cache of S + n_new positions is
+    split on its sequence where the reference's rule splits it (a
+    length that does not divide over the model ranks stays whole).  Pooled
     adapters are not served on a grid (the reference raises too)."""
     dev = resolve_device(device)
     check_on(params["embed"]["embedding"], dev, "params")
@@ -131,6 +142,8 @@ def greedy_generate(params, prompt_batch: dict, cfg: ArchConfig,
     grid = None
     if mesh is not None:
         batch, grid = _rows(batch, mesh)
+        if grid.seq_shard_kv:
+            grid = grid.replace(kv_len=S + n_new)
     enc_out = (M._encode(params, batch["frontend_emb"], cfg, mesh=grid)
                if cfg.n_enc_layers else None)
     logits, cache = M.prefill(params, batch, cfg, cache_len=S + n_new,

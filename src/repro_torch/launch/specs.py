@@ -40,8 +40,12 @@ out otherwise than the reference's rules, it says so (ROADMAP C):
     rows on every data rank (the small-batch path), so its cache is not
     split: the reference splits its sequence over the data axes.
 
-``seq_shard_kv`` (a cache split on its sequence over 'model') raises, as
-the dry run's ``seqshard_kv`` variant does.
+``cache_specs(seq_shard_kv=True)`` is the reference's variant, leaf by
+leaf: a k / v cache whose rows divide over the data axes, whose kv heads
+do not divide over 'model' and whose slots do is split on its sequence
+over 'model' (``models/layers.seq_split``; a grid's ``seq_shard_kv``
+mode runs it); where the kv heads divide it changes nothing, and a cache
+whose rows do not divide stays as above.
 """
 from __future__ import annotations
 
@@ -222,11 +226,10 @@ def cache_specs(cfg: ArchConfig, mesh, tree, batch: int,
     over 'model' when they divide (else whole); an SSM state's heads and
     conv_x's channels over 'model', conv_B / conv_C's over it only where
     their kernels are split (the groups divide: ``param_specs``), so that
-    every cache shard is what the rank's mixer writes."""
-    if seq_shard_kv:
-        raise ValueError("seq_shard_kv shards the KV cache's sequence over "
-                         "'model'; the port splits the kv heads or keeps "
-                         "them whole (ROADMAP A14, the seq_shard_kv variant)")
+    every cache shard is what the rank's mixer writes.  ``seq_shard_kv``:
+    a k / v cache whose rows split, whose kv heads do not divide over
+    'model' and whose slots do, split on its sequence over 'model'
+    instead (the reference's variant)."""
     b, dp, tp = _bspec(mesh), _dp(mesh), _tp(mesh)
     rows = b if batch >= dp and batch % dp == 0 else None
     groups = "model" if cfg.ssm_groups % tp == 0 else None
@@ -238,6 +241,8 @@ def cache_specs(cfg: ArchConfig, mesh, tree, batch: int,
         shp = x.shape
         if path.endswith("/k") or path.endswith("/v"):
             lead = [None] * (len(shp) - 4)       # (n_sb?, B, S, K, dh)
+            if seq_shard_kv and rows and shp[-2] % tp and shp[-3] % tp == 0:
+                return tuple(lead + [rows, "model", None, None])
             return tuple(lead + [rows, None, split(shp[-2]), None])
         if path.endswith("/state"):
             lead = [None] * (len(shp) - 4)       # (n_sb?, B, H, P, N)

@@ -60,7 +60,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels._wrap import resolve_impl
-from repro_torch.utils.collectives import (all_to_all, copy_to, mean_over,
+from repro_torch.utils.collectives import (all_to_all, copy_to,
+                                           gather_from, mean_over,
                                            model_group, reduce_from,
                                            scale_grad)
 
@@ -371,6 +372,87 @@ def kv_split(cfg, tp) -> bool:
     return tp is not None and cfg.n_kv_heads % tp.size == 0
 
 
+def seq_split(cfg, n: int, Sc: int) -> bool:
+    """Whether a layer's whole kv cache of ``Sc`` slots splits on its
+    sequence over ``n`` model ranks under the ``seq_shard_kv`` layout:
+    the reference's rule (``launch/specs.cache_specs``), its kv heads do
+    not divide over the ranks and its slots do."""
+    return n > 1 and cfg.n_kv_heads % n != 0 and Sc % n == 0
+
+
+def _decode_split(cfg, n: int, Sc: int, window, kv_len: int) -> bool:
+    """Whether a decode cache of ``Sc`` slots on a rank is its share of a
+    sequence-split one (else it is whole), under the ``seq_shard_kv``
+    layout of a cache of ``kv_len`` positions: a global layer's whole
+    cache holds kv_len slots, a local layer's ``window`` (a prefill's
+    ring) or min(kv_len, window) (``init_cache``'s)."""
+    if n == 1 or cfg.n_kv_heads % n == 0:
+        return False
+    if kv_len <= 0:
+        raise ValueError("a decode step on the seq_shard_kv layout needs the "
+                         "whole cache's length: grid.replace(kv_len=...)")
+    wholes = {kv_len} if window is None else {window, min(kv_len, window)}
+    split = any(w % n == 0 and w // n == Sc for w in wholes)
+    whole = any(w % n and w == Sc for w in wholes)
+    if split == whole:
+        raise ValueError(
+            f"a kv cache of {Sc} slots is not one of a {kv_len}-position "
+            f"cache's layouts on {n} model ranks (whole slots {sorted(wholes)})")
+    return split
+
+
+def _seq_split_decode(q, k, v, ck, cv, cache_index, window, scale, tp):
+    """The decode step's attention over a cache split on its sequence
+    over the model row (``seq_shard_kv``): rank m holds slots [m·Sl,
+    (m + 1)·Sl) of every kv head of the whole cache's n·Sl (a ring of
+    ``window`` when n·Sl is the window).  The owner of the written slot
+    writes the new k / v (per row with (B,) positions).  q's heads are
+    gathered over the row, each rank scores all of them against its
+    slots, masked by the whole cache's slot validity, and the softmax is
+    combined as XLA partitions the reference's: the row maxima's max,
+    the f32 sums all-reduced, the weights normalised and cast to v's
+    dtype where ``_sdpa`` casts them, the partial P·V, one all-reduce of
+    the f32 outputs.  Returns the rank's q heads' output (B, 1, H/n,
+    dh)."""
+    B, _, Hl, dh = q.shape
+    n, m = tp.size, tp.rank
+    Sl = ck.shape[1]
+    Sc, lo = n * Sl, m * Sl
+    ring = window is not None and Sc == window
+    ar = lo + torch.arange(Sl, device=q.device)            # whole-cache slots
+    if torch.is_tensor(cache_index) and cache_index.dim() == 1:
+        pos = cache_index.to(torch.int64)
+        rows = torch.arange(B, device=q.device)
+        slot = pos % window if ring else pos.clamp(max=Sc - 1)
+        mine = (slot >= lo) & (slot < lo + Sl)
+        if not ring:
+            mine = mine & (pos < Sc)
+        loc = (slot - lo).clamp(0, Sl - 1)
+        mine = mine[:, None, None]
+        ck[rows, loc] = torch.where(mine, k[:, 0], ck[rows, loc])
+        cv[rows, loc] = torch.where(mine, v[:, 0], cv[rows, loc])
+        mask = (ar[None, :] < (pos + 1).clamp(max=Sc)[:, None])[:, None,
+                                                                 None, None]
+    else:
+        idx = int(cache_index)
+        start = min(max(idx % window if ring else idx, 0), Sc - 1)
+        if lo <= start < lo + Sl:
+            ck[:, start - lo] = k[:, 0]
+            cv[:, start - lo] = v[:, 0]
+        mask = (ar < min(idx + 1, Sc))[None, None, None, None]
+    qa = gather_from(q, tp, 2)                              # (B, 1, H, dh)
+    H, K = qa.shape[2], ck.shape[2]
+    qg = qa.reshape(B, 1, K, H // K, dh)
+    s = torch.einsum("bqkrd,bskd->bkrqs", qg.float(), ck.float()) * scale
+    s = torch.where(mask, s, -1e30)
+    mx = tp.reduce_max(s.amax(dim=-1, keepdim=True))
+    e = torch.exp(s - mx)
+    tot = tp.all_reduce([e.sum(dim=-1, keepdim=True)])[0]
+    w = (e / tot).to(cv.dtype).float()
+    o = tp.all_reduce([torch.einsum("bkrqs,bskd->bqkrd", w, cv.float())])[0]
+    return o.reshape(B, 1, H, dh)[:, :, m * Hl:(m + 1) * Hl].to(q.dtype)
+
+
 def _kv_for_heads(k, v, h0: int, H: int, rep: int):
     """The kv heads that q heads h0 … h0 + H − 1 of the whole model read
     (head h reads kv head h // rep), from whole (B, S, K, dh) k / v, as
@@ -390,7 +472,7 @@ def attention(p: Params, x, positions, cfg, *, kind: str = "global",
               causal: bool = True, cache=None, cache_index=None,
               kv_source=None, lora_scale: float = 0.0, dropout_gen=None,
               return_cache: bool = False, cache_len: int = 0,
-              adapter_idx=None, kernel_impl=None, tp=None):
+              adapter_idx=None, kernel_impl=None, tp=None, seq_kv=None):
     """Attention sublayer (pre-norm outside).  Returns (y, new_cache).
     ``kind="local"`` attends the last ``cfg.sliding_window`` positions
     only; ``q_norm`` / ``k_norm`` in ``p`` normalize q and k over the
@@ -435,6 +517,13 @@ def attention(p: Params, x, positions, cfg, *, kind: str = "global",
     whole on every rank of the group and enters through ``copy_to``, so
     that the partial gradients the ranks' heads send back to it are
     summed.
+
+    seq_kv: None, or the ``seq_shard_kv`` layout on: the whole decode
+    cache's positions (the grid's ``kv_len``; 0 when not known, enough
+    for a prefill).  Where ``seq_split`` splits a layer's cache (kv heads
+    whole on every rank, its slots dividing over the model group), a
+    prefill's cache is cut to the rank's slots and a decode step runs
+    ``_seq_split_decode`` over them.
     """
     B, S, D = x.shape
     dh = cfg.head_dim
@@ -480,7 +569,16 @@ def attention(p: Params, x, positions, cfg, *, kind: str = "global",
         causal, cache, return_cache = False, None, False
 
     new_cache = None
-    if cache is not None:
+    if cache is not None and seq_kv is not None and tp is not None \
+            and _decode_split(cfg, tp.size, cache["k"].shape[1], window,
+                              seq_kv):
+        if S != 1:
+            raise ValueError(f"a sequence-split cache takes one token a "
+                             f"step, not {S}")
+        new_cache = cache
+        out = _seq_split_decode(q, k, v, cache["k"], cache["v"], cache_index,
+                                window, scale, tp)
+    elif cache is not None:
         ck, cv = cache["k"], cache["v"]
         Sc = ck.shape[1]
         ring = window is not None and Sc == window
@@ -532,6 +630,14 @@ def attention(p: Params, x, positions, cfg, *, kind: str = "global",
                        else max(cache_len, S)) - S
                 new_cache = {"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
                              "v": F.pad(v, (0, 0, 0, 0, 0, pad))}
+            Sw = new_cache["k"].shape[1]
+            if seq_kv is not None and tp is not None \
+                    and seq_split(cfg, tp.size, Sw):
+                # the rank's slots of the whole (padded or rolled) cache
+                Sl = Sw // tp.size
+                new_cache = {n_: c.narrow(1, tp.rank * Sl, Sl).clone(
+                    memory_format=torch.contiguous_format)
+                    for n_, c in new_cache.items()}
 
     y = linear(p["o_proj"], out.reshape(B, S, H * dh),
                lora_scale=_target_scale(cfg, "o_proj", lora_scale), **kw,
@@ -540,15 +646,19 @@ def attention(p: Params, x, positions, cfg, *, kind: str = "global",
 
 
 def init_attn_cache(cfg, batch, seq_len: int, kind: str, dtype, device,
-                    n_model: int = 1):
+                    n_model: int = 1, seq_shard: bool = False):
     """Zero k/v buffers of shape (*batch, Sc, K, dh); ``batch`` is an int
     or a tuple of leading dims (the stacked superblock axis first).  A
     local layer's buffer is a ring of Sc = min(seq_len, window) slots, a
     global layer's a linear buffer of seq_len.  ``n_model``: a rank's
     share of a model group of that many ranks, K / n_model kv heads where
-    they divide (``kv_split``), else all of them."""
+    they divide (``kv_split``), else all of them; with ``seq_shard`` (the
+    ``seq_shard_kv`` layout) the rank's Sc / n_model slots where
+    ``seq_split`` splits the cache."""
     window = cfg.sliding_window if kind == "local" else None
     Sc = min(seq_len, window) if window is not None else seq_len
+    if seq_shard and seq_split(cfg, n_model, Sc):
+        Sc //= n_model
     lead = (batch,) if isinstance(batch, int) else tuple(batch)
     K = cfg.n_kv_heads
     shape = (*lead, Sc, K // n_model if K % n_model == 0 else K,

@@ -210,6 +210,17 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, *,
 # sublayers and the block loop
 # ---------------------------------------------------------------------------
 
+def _seq_kv(mesh):
+    """The grid's ``seq_shard_kv`` layout for ``layers.attention``: None
+    where it is off or the served rows do not split over the data ranks
+    (the reference's rule keeps such a cache's sequence whole), else the
+    whole decode cache's positions (``kv_len``)."""
+    if getattr(mesh, "seq_shard_kv", False) and getattr(mesh, "rows_split",
+                                                        True):
+        return mesh.kv_len
+    return None
+
+
 def _apply_sublayer(p, x, sub: SubLayer, cfg, *, positions, cache=None,
                     cache_index=None, enc_out=None, causal=True,
                     lora_scale=0.0, dropout_gen=None, return_cache=False,
@@ -239,7 +250,8 @@ def _apply_sublayer(p, x, sub: SubLayer, cfg, *, positions, cache=None,
                             lora_scale=lora_scale, dropout_gen=dropout_gen,
                             return_cache=return_cache,
                             cache_len=cache_len, adapter_idx=adapter_idx,
-                            kernel_impl=kernel_impl, tp=tp)
+                            kernel_impl=kernel_impl, tp=tp,
+                            seq_kv=_seq_kv(mesh))
     if nc is not None:
         new_cache[key] = nc
     x = x + y
@@ -617,22 +629,26 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *, device="cuda",
     as the reference leaves it out.  On ``device="meta"`` the tree has
     the shapes and dtypes only.  ``mesh``: a grid (abstract or not);
     the caches are a rank's of ``batch`` rows: its kv heads where they
-    divide over 'model', its SSM heads and conv_x channels, and conv_B /
-    conv_C split only where the groups divide (``launch/specs
-    .cache_specs``)."""
+    divide over 'model' (else all of them, and with the grid's
+    ``seq_shard_kv`` layout its share of their slots where
+    ``layers.seq_split`` splits them), its SSM heads and conv_x channels,
+    and conv_B / conv_C split only where the groups divide
+    (``launch/specs.cache_specs``)."""
     dev = (torch.device("meta") if str(device) == "meta"
            else resolve_device(device))
     n_sb, tail, pattern = _layout(cfg)
     dtype = _dtype(cfg)
     shape = getattr(mesh, "shape", None)
     n = shape.get("model", 1) if isinstance(shape, dict) else 1
+    seq = _seq_kv(mesh)
 
     def one(sub, lead):
         if sub.mixer == "ssm":
             return {"ssm": S.init_ssm_cache(cfg, lead, dtype, dev,
                                             n_model=n)}
         return {"attn": L.init_attn_cache(cfg, lead, seq_len, sub.attn_kind,
-                                          dtype, dev, n_model=n)}
+                                          dtype, dev, n_model=n,
+                                          seq_shard=seq is not None)}
     blocks = ({f"sub{i}": one(sub, (n_sb, batch))
                for i, sub in enumerate(pattern) if sub.mixer != "cross_attn"}
               if n_sb else {})
@@ -649,7 +665,9 @@ def decode_step(params, new_token, cache, cache_index, cfg: ArchConfig, *,
     (``_encode``), which each cross-attention sublayer reads.  Writes the
     cache in place.  Returns (logits (B,V) f32, cache).  ``mesh``: the
     grid; new_token and the cache are this rank's rows, the cache its kv
-    heads; the logits cover the whole vocabulary; ``enc_out`` is whole
+    heads, or with the grid's ``seq_shard_kv`` layout its slots of the
+    sequence where they split (its ``kv_len`` the whole cache's
+    positions); the logits cover the whole vocabulary; ``enc_out`` is whole
     on every rank of the model group (``_encode`` on the grid)."""
     _refuse_prompt(params, "decode_step")
     tp = model_group(mesh)
@@ -691,7 +709,9 @@ def prefill(params, batch, cfg: ArchConfig, *, cache_len=0, enc_out=None,
     with headroom for subsequent decode steps; a frontend's F rows sit
     in front of the tokens', so a decode step continues at F + S.  An
     encoder-decoder encodes ``frontend_emb`` here unless ``enc_out`` is
-    given.  ``mesh``: the grid (as ``decode_step``'s)."""
+    given.  ``mesh``: the grid (as ``decode_step``'s); with its
+    ``seq_shard_kv`` layout each split cache is cut to the rank's slots
+    (the padded or rolled cache narrowed, then cloned)."""
     _refuse_prompt(params, "prefill")
     hidden, cache, _ = forward(params, batch, cfg, return_cache=True,
                                cache_len=cache_len, enc_out=enc_out,

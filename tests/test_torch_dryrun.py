@@ -21,6 +21,12 @@ on the CPU.
   seamless-m4t-large-v2 decode_32k) through the CLI; the report renders
   its records, and its ``telemetry_section`` renders the reference's
   text for a file each package wrote.
+- On a grid: the analytic fields at n_dev = 4 with a collective term
+  (the reference's formulas at the card's NVLink rate) for every pair;
+  two ranks' records of a 2 x 2 meta grid equal; ``--grid 1x4`` at full
+  width, granite-34b's decode_32k on both cache layouts, and the report
+  of grid records.  (Each rank's meta account against the same step on
+  a CPU rank is in ``tests/test_torch_tp.py``.)
 All comparisons are exact.
 """
 import json
@@ -383,38 +389,155 @@ def test_resolve_device_takes_meta():
 
 
 def test_variants():
+    """The reference's variants; ``seqshard_kv`` changes neither the
+    config nor remat (it is the grid's cache layout), so on one card its
+    record is the baseline's."""
     cfg = t_configs.get_config("qwen3-moe-30b-a3b")
     assert D.apply_variant(cfg, "cf1")[0].capacity_factor == 1.0
     assert D.apply_variant(cfg, "remat_dots") == (cfg, "dots")
     assert D.apply_variant(cfg, "swa_global")[0].sliding_window == 4096
-    with pytest.raises(ValueError, match="no mesh"):
-        D.apply_variant(cfg, "seqshard_kv")
+    assert D.apply_variant(cfg, "seqshard_kv") == (cfg, True)
     with pytest.raises(ValueError, match="unknown variant"):
         D.apply_variant(cfg, "nope")
+    small = t_configs.get_smoke_config("granite-34b")
+    shape = InputShape("smoke_decode", 64, 2, "decode")
+    recs = [D.run_config(small, shape, arch="granite-34b", variant=v)
+            for v in ("baseline", "seqshard_kv")]
+    for r in recs:
+        r.pop("trace_s")
+        r.pop("variant")
+    assert recs[0] == recs[1]
+    assert "collectives" not in recs[0] and recs[0]["mesh"] == "1"
 
 
 def test_report_renders_the_records(records, monkeypatch):
+    """One card's records: a mesh column reading "1", no collective
+    bytes, and the roofline of the one-card records (the most cards
+    there are), its collective term 0."""
     out, recs = records
     monkeypatch.setattr(t_report, "DRYRUN_DIR", str(out))
     assert t_report.load() == recs
     dry = t_report.dryrun_section(recs)
     roof = t_report.roofline_section(recs)
-    assert "fits 80G" in dry and "collective" not in dry
-    assert "collective s" not in roof and "9.89e+14" in roof
+    assert "fits 80G" in dry and "| mesh |" in dry
+    assert "collective s" in roof and "9.89e+14" in roof
+    assert "(1 H100," in roof
     for r in recs:
         row = [ln for ln in dry.splitlines()
-               if ln.startswith(f"| {r['arch']} | {r['shape']} | ok")]
+               if ln.startswith(f"| {r['arch']} | {r['shape']} | 1 | ok")]
         assert len(row) == 1
         assert t_report.fmt_bytes(r["memory"]["temp_bytes"]) in row[0]
         assert ("yes" if r["fits_80g"] else "**NO**") in row[0]
+        assert "| 0.00 GB |  |" in row[0]
         row = [ln for ln in roof.splitlines()
-               if ln.startswith(f"| {r['arch']} | {r['shape']} |")]
+               if ln.startswith(f"| {r['arch']} | {r['shape']} | 1 |")]
         assert len(row) == 1
         assert f"**{r['roofline']['dominant']}**" in row[0]
+        assert "| 0.000e+00 |" in row[0]
     assert t_report.summarize(recs + [{"status": "error"}]).startswith(
-        "2 ok / 1 failed")
+        "2 ok / 1 failed; 1-card")
     bad = {"arch": "x", "shape": "y", "status": "error", "error": "E: z"}
     assert "ERROR: E: z" in t_report.dryrun_section([bad])
+
+
+# ---------------------------------------------------------------------------
+# the dry run on a grid
+# ---------------------------------------------------------------------------
+
+def test_analytic_fields_on_four_cards_equal_the_reference():
+    """n_dev = 4 and a rank's collective bytes: the reference's formulas,
+    its collective term the bytes over the card's NVLink rate (450 GB/s a
+    direction), for every supported pair."""
+    assert t_an.NVLINK_BW == 450e9
+    coll = 3.0e9
+    for arch, name in PAIRS:
+        jc, tc = j_configs.get_config(arch), t_configs.get_config(arch)
+        js, ts = j_configs.SHAPES[name], t_configs.SHAPES[name]
+        got = D.analytic_record(tc, ts, 4, coll)
+        pc = j_an.param_counts(jc, to_structs(t_specs.abstract_params(tc)))
+        fl = j_an.analytic_step_flops(jc, js)
+        cache_bytes = 0
+        if js.kind == "decode":
+            cache_bytes = jpt.tree_bytes(j_specs.abstract_cache(
+                jc, js.global_batch,
+                js.seq_len // 2 if jc.n_enc_layers else js.seq_len))
+        by = j_an.analytic_step_bytes(jc, js, pc["n_params"], 4, cache_bytes)
+        assert got["params"] == pc, (arch, name)
+        assert got["analytic"] == {**fl, **by,
+                                   "cache_bytes_global": cache_bytes}
+        terms = {"compute": fl["flops_global"] / 4 / t_an.PEAK_FLOPS,
+                 "memory": by["hbm_bytes_dev"] / t_an.HBM_BW,
+                 "collective": coll / 450e9}
+        ro = got["roofline"]
+        assert (ro["compute_s"], ro["memory_s"], ro["collective_s"]) == (
+            terms["compute"], terms["memory"], terms["collective"])
+        assert ro["dominant"] == max(terms, key=terms.get), (arch, name)
+
+
+GRID_CASES = [
+    ("llama2-7b", InputShape("smoke_prefill", 256, 2, "prefill"), "baseline"),
+    ("gemma3-1b", InputShape("smoke_decode", 64, 2, "decode"), "seqshard_kv"),
+    ("qwen3-moe-30b-a3b", InputShape("smoke_train", 32, 4, "train"),
+     "baseline"),
+]
+
+
+@pytest.mark.parametrize("arch,shape,variant", GRID_CASES,
+                         ids=[f"{a}-{s.kind}" for a, s, _ in GRID_CASES])
+def test_grid_records_of_two_ranks_agree(arch, shape, variant):
+    """Rank 0's and rank 3's records on a 2 x 2 meta grid are the same
+    (but the rank and the trace time): the account is one rank's for
+    all.  The record carries the grid, the rank's collectives and the
+    collective term from them."""
+    cfg = t_configs.get_smoke_config(arch)
+    recs = [D.run_config(cfg, shape, arch=arch, variant=variant, grid=(2, 2),
+                         rank=r) for r in (0, 3)]
+    for r in recs:
+        assert (r["mesh"], r["n_devices"]) == ("2x2", 4)
+        assert r.pop("trace_s") >= 0
+    assert (recs[0].pop("rank"), recs[1].pop("rank")) == (0, 3)
+    assert recs[0] == recs[1]
+    colls = recs[0]["collectives"]
+    assert colls["total"] == sum(v["bytes"] for g in ("data", "model")
+                                 for v in colls[g].values()) > 0
+    assert recs[0]["roofline"]["collective_s"] == \
+        colls["total"] / t_an.NVLINK_BW
+
+
+def test_grid_cli_and_report(tmp_path):
+    """``--grid 1x4`` at full width: granite-34b's decode_32k (MQA, 88
+    layers, a 189 GB cache) does not fit a rank with the kv head whole on
+    every rank, and does on the sequence-split layout (a quarter of the
+    cache a rank); the report renders the grid records with their mesh
+    and reads the 4-card records in its roofline."""
+    for variant in ("baseline", "seqshard_kv"):
+        D.main(["--arch", "granite-34b", "--shape", "decode_32k", "--grid",
+                "1x4", "--variant", variant, "--out", str(tmp_path)])
+    base, seq = [json.loads((tmp_path / f"granite-34b__decode_32k__1x4"
+                             f"{tag}.json").read_text())
+                 for tag in ("", "__seqshard_kv")]
+    for r in (base, seq):
+        assert r["status"] == "ok", r.get("error")
+        assert (r["mesh"], r["n_devices"], r["rank"]) == ("1x4", 4, 0)
+    cache = base["analytic"]["cache_bytes_global"]
+    assert cache > 180e9
+    assert not base["fits_80g"] and seq["fits_80g"]
+    assert base["memory"]["argument_bytes"] - seq["memory"][
+        "argument_bytes"] == cache - cache // 4
+    assert seq["collectives"]["total"] > base["collectives"]["total"] > 0
+    recs = [base, seq]
+    dry = t_report.dryrun_section(recs)
+    assert "| granite-34b | decode_32k | 1x4 | ok" in dry
+    assert "| granite-34b +seqshard_kv | decode_32k | 1x4 | ok" in dry
+    roof = t_report.roofline_section(recs + [dict(base, mesh="1",
+                                                  n_devices=1)])
+    assert "(4 H100s," in roof and "| 1 |" not in roof
+    grids = t_report.grid_section(recs).splitlines()
+    assert grids[4] == "| arch | shape | 1x4 |"
+    assert grids[6].startswith("| granite-34b | decode_32k | 215.6 **no**; ")
+    assert grids[7].startswith("| granite-34b +seqshard_kv | decode_32k | "
+                               "72.2 fits; ")
+    assert t_report.summarize(recs).startswith("2 ok / 0 failed; 4-card")
 
 
 def write_events(pkg, path):

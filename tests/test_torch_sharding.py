@@ -8,7 +8,8 @@ leaf on ('data', 'model') and ('pod', 'data', 'model') meshes;
 ``param_specs`` and ``cache_specs`` give the reference's but where the
 port lays a tensor out otherwise (``launch/specs.py``: kv heads that do
 not divide over 'model' stay whole; a batch that does not divide over the
-data axes is not split); ``shard_tree`` over every rank's coordinates and
+data axes is not split), ``cache_specs(seq_shard_kv=True)`` the
+reference's sequence split; ``shard_tree`` over every rank's coordinates and
 a concatenation give back the whole tree.
 """
 from __future__ import annotations
@@ -179,7 +180,9 @@ def test_cache_specs_match_the_reference_where_the_layouts_agree(arch,
     """Rows over 'data' when the batch divides, kv heads over 'model'
     when they divide: the reference's.  Where they do not, the port's
     layout (rows on every data rank, kv heads whole) stands beside the
-    reference's sequence split and dh split."""
+    reference's sequence split and dh split.  With ``seq_shard_kv``, a
+    cache whose rows divide and kv heads do not is split on its sequence
+    over 'model', as the reference's variant splits it."""
     cfg, jcfg = get_smoke_config(arch), j_smoke(arch)
     tp = 1 if any(s.mixer == "ssm" for s in cfg.pattern()) else 2
     size = (2, tp)
@@ -202,9 +205,20 @@ def test_cache_specs_match_the_reference_where_the_layouts_agree(arch,
                 assert g == w, (arch, p)
         else:
             assert g == w, (arch, p)
-    with pytest.raises(ValueError, match="seq_shard_kv"):
-        SP.cache_specs(cfg, grid, SP.abstract_cache(cfg, batch, 64), batch,
-                       seq_shard_kv=True)
+    # the seq_shard_kv variant: the reference's sequence split where the
+    # rows divide and the kv heads do not; elsewhere the layout above
+    seq = port_flat(SP.cache_specs(cfg, grid, SP.abstract_cache(cfg, batch,
+                                                                64),
+                                   batch, seq_shard_kv=True))
+    jseq = flat_specs(JSP.cache_specs(jcfg, mesh,
+                                      JSP.abstract_cache(jcfg, batch, 64),
+                                      batch, seq_shard_kv=True))
+    for p, w in jseq.items():
+        if (p.endswith(("/k", "/v")) and batch % 2 == 0
+                and cfg.n_kv_heads % tp):
+            assert seq[p] == w and w[-3] == "model", (arch, p)
+        else:
+            assert seq[p] == got[p], (arch, p)
 
 
 def reassemble(shards, specs, grid_shape, axes):

@@ -573,8 +573,14 @@ def test_roofline_terms_at_the_h100_constants():
     assert tr.compute_s == jr.compute_s * j_an.PEAK_FLOPS / t_an.PEAK_FLOPS
     assert tr.memory_s == pytest.approx(jr.memory_s * j_an.HBM_BW
                                         / t_an.HBM_BW, rel=1e-15)
-    with pytest.raises(ValueError, match="one card"):
-        t_an.roofline_terms(1.0, 1.0, 1.0, 1)
+    # the collective term: the bytes a device sends over the card's NVLink
+    # rate where the reference's divides them by its ICI link's
+    assert t_an.NVLINK_BW == 450e9
+    jr = j_an.roofline_terms(3e15, 7e11, 9e9, 4)
+    tr = t_an.roofline_terms(3e15, 7e11, 9e9, 4)
+    assert tr.collective_s == 9e9 / 450e9 == pytest.approx(
+        jr.collective_s * j_an.ICI_BW / t_an.NVLINK_BW, rel=1e-15)
+    assert t_an.roofline_terms(1.0, 1.0, 1e12, 1).dominant == "collective"
 
 
 # ---------------------------------------------------------------------------

@@ -16,11 +16,22 @@ Against the port's own unsharded or data-only runs, on the same inputs:
   * the fedlora_opt pipeline (a round, stage 2 sharded over the data
     ranks, stage 3) at llama2-7b and qwen3-moe SMOKE, with remat, against
     the port's 2-rank data-only engine without it in f64: every client
-    and server leaf within 1e-9 of its max (measured: 0).
+    and server leaf within 1e-9 of its max (measured: 0);
+  * decoding on the grid's ``seq_shard_kv`` layout (the cache split on
+    its sequence over the model ranks) at gemma3-1b and granite-34b
+    SMOKE: logits within 1e-5 of max, tokens equal, each rank's slots
+    the unsharded cache's (a ring that wraps across the ranks, writes
+    that cross a rank boundary, a length that does not divide, per-row
+    positions);
+  * the dry run on a grid: each rank's step on a meta grid against the
+    same step on that CPU rank, its storage tally and its collectives'
+    calls and bytes exactly.
 
 Against the reference (``repro``, in subprocesses on 4 host devices):
 serving logits within 1e-4 of max (``tests/test_torch_model.py``'s
-whole-model f32 tolerance), ``moe_ffn_ep`` on ``make_debug_mesh(2, 2)``
+whole-model f32 tolerance), the sequence-split decode against the
+reference's decode step jitted on ``make_debug_mesh(2, 2)`` with
+``cache_specs(seq_shard_kv=True)`` at the same tolerance, ``moe_ffn_ep`` on ``make_debug_mesh(2, 2)``
 at qwen3-moe and mixtral (ep_fsplit 2) SMOKE, capacity 8.0 and 1.0 (the
 shards drop tokens), on the batch-divisible and the small-batch path
 (outputs within 1e-5 of max, aux within 1e-6), and the pipeline on
@@ -45,7 +56,9 @@ from repro_torch.core import peft
 from repro_torch.core.methods import get_method
 from repro_torch.fed.simulate import stage_loss, value_and_grad
 from repro_torch.kernels import fused_dora
-from repro_torch.launch.mesh import ClientPool
+from repro_torch.configs import InputShape
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import ClientPool, make_meta_grid
 from repro_torch.launch.serve import (greedy_generate, make_decode_step,
                                       make_prefill_step)
 from repro_torch.models import layers as L
@@ -54,6 +67,7 @@ from repro_torch.utils import pytree as pt
 
 N_DATA, N_MODEL = 2, 2
 SERVE = ("llama2-7b", "granite-34b", "gemma3-1b", "qwen2-vl-2b")
+SEQ = ("gemma3-1b", "granite-34b")     # one kv head: the sequence split
 S, N_NEW, F = 48, 24, 8         # gemma3's 64-slot ring wraps at step 16
 MOE = (("qwen3-moe-30b-a3b", 1), ("mixtral-8x22b", 2))
 PIPE = ("llama2-7b", "qwen3-moe-30b-a3b")
@@ -128,6 +142,32 @@ for arch, fs in MOE:
                     p, jnp.asarray(x))
             out[f"moe/{arch}/{cf}/{Bx}/y"] = np.asarray(y)
             out[f"moe/{arch}/{cf}/{Bx}/aux"] = np.asarray(aux)
+# the decode step jitted on the mesh with the cache split on its sequence
+# over 'model' (cache_specs(seq_shard_kv=True)), from serve's prefill
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.launch import specs as JSP
+from repro.launch.serve import make_decode_step
+rep = NamedSharding(mesh, P())
+for arch in SEQ:
+    cfg = dataclasses.replace(get_smoke_config(arch), lora_dropout=0.0)
+    params = M.init_params(jax.random.PRNGKey(1), cfg)
+    batch = {"tokens": jnp.asarray(out[f"serve/{arch}/tokens"])}
+    logits, cache = prefill(params, batch, cfg=cfg, cache_len=S + N_NEW)
+    with jax.set_mesh(mesh):
+        psh = JSP.param_specs(cfg, mesh, params)
+        csh = JSP.cache_specs(cfg, mesh, cache, 2, seq_shard_kv=True)
+        step = jax.jit(make_decode_step(cfg, mesh), in_shardings=(
+            psh, NamedSharding(mesh, P("data")), csh, rep),
+            out_shardings=(rep, csh))
+        ps, cache = jax.device_put(params, psh), jax.device_put(cache, csh)
+        steps = [np.asarray(logits)]
+        for i in range(N_NEW - 1):
+            t = jax.device_put(jnp.argmax(logits, -1).astype(jnp.int32),
+                               NamedSharding(mesh, P("data")))
+            logits, cache = step(ps, t, cache, jnp.int32(S + i))
+            steps.append(np.asarray(logits))
+    out[f"seq/{arch}/steps"] = np.stack(steps)
+    out[f"seq/{arch}/spec"] = np.array(str(jax.tree.leaves(csh)[0].spec))
 np.savez(sys.argv[1], **out)
 """
 
@@ -185,7 +225,7 @@ def jax_refs(tmp_path_factory):
         return
     tmp = tmp_path_factory.mktemp("jax")
     head = "\n".join([
-        f"SERVE, MOE = {SERVE!r}, {MOE!r}",
+        f"SERVE, MOE, SEQ = {SERVE!r}, {MOE!r}, {SEQ!r}",
         f"S, N_NEW, F = {S}, {N_NEW}, {F}", f"HP, ST = {HP!r}, {ST!r}",
         f"C, T, B, SP_LEN, TG, TP = {C}, {T}, {B}, {SP_LEN}, {TG}, {TP}"])
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
@@ -442,6 +482,107 @@ def test_kv_heads_a_rank_reads_where_they_stay_whole():
 
 
 # ---------------------------------------------------------------------------
+# the sequence-split KV cache (the grid's seq_shard_kv layout)
+# ---------------------------------------------------------------------------
+
+# (S, n_new, cache_len, per-row position step): 8 decode steps each
+SEQ_CASES = {
+    # gemma3's 64-slot rings split 32 / 32 and wrap from rank 1 to rank 0
+    # at position 64; 68 positions: the global caches split 34 / 34
+    "ring-wraps": (60, 9, 68, 0),
+    # the global caches' 16 slots split 8 / 8, the writes cross to rank 1
+    "crosses-ranks": (7, 9, 16, 0),
+    # 17 positions do not divide: the global caches stay whole
+    "odd-length": (7, 9, 17, 0),
+    # row r at position 7 + i + 3r: each row's write crosses on its own
+    "per-row": (7, 9, 22, 3),
+}
+
+
+def seq_model(arch):
+    """gemma3-1b at 7 layers (5 local + 1 global + a local tail) or
+    granite-34b at its SMOKE config: one kv head, 4 q heads."""
+    kw = {"n_layers": 7} if arch == "gemma3-1b" else {}
+    return random_model(arch, seed=5, **kw)
+
+
+def seq_unsharded(cfg, params, batch, n_new, cache_len, rowpos):
+    B, S = batch["tokens"].shape
+    with torch.no_grad():
+        logits, cache = M.prefill(params, batch, cfg, cache_len=cache_len)
+        steps, tok = [logits.numpy()], logits.argmax(-1)
+        for i in range(n_new - 1):
+            idx = (torch.arange(B) * rowpos + S + i) if rowpos else S + i
+            logits, cache = M.decode_step(params, tok, cache, idx, cfg)
+            steps.append(logits.numpy())
+            tok = logits.argmax(-1)
+    return np.stack(steps), R.host(cache)
+
+
+@pytest.mark.parametrize("case", SEQ_CASES)
+@pytest.mark.parametrize("arch", SEQ)
+def test_seq_split_decode_matches_the_unsharded_port(pool, arch, case):
+    """On the grid's ``seq_shard_kv`` layout: every step's logits within
+    1e-5 of max of the unsharded port, tokens equal; each rank's prefill
+    cache is the default layout's cut to its slots, exactly (the global
+    caches whole where their length does not divide); after the steps
+    each rank's slots hold the unsharded cache's, within 1e-5 of max,
+    and the same slots are unwritten (zero)."""
+    S, n_new, L, rowpos = SEQ_CASES[case]
+    cfg, params = seq_model(arch)
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, size=(2, S)))}
+    want, final = seq_unsharded(cfg, params, batch, n_new, L, rowpos)
+    res = pool.run(R.seq_serve, cfg, params, batch, n_new, L, rowpos)
+    split = False
+    for r, got in enumerate(res):
+        assert rel(got["steps"], want) <= 1e-5, (arch, case, r)
+        np.testing.assert_array_equal(got["steps"].argmax(-1),
+                                      want.argmax(-1))
+        assert got["prefill_off"] == 0.0, (arch, case, r)
+        d, m = divmod(r, 2)
+        for p, w in final.items():
+            w = w[..., d:d + 1, :, :, :]
+            n = got["final"][p].shape[-3]
+            if n != w.shape[-3]:
+                split = True
+                assert n * 2 == w.shape[-3], (arch, case, p)
+                w = w[..., m * n:(m + 1) * n, :, :]
+            np.testing.assert_array_equal(got["final"][p] == 0, w == 0)
+            assert rel(got["final"][p], w) <= 1e-5, (arch, case, r, p)
+    # gemma3's rings always split; a global cache where its length divides
+    assert split == (arch == "gemma3-1b" or L % 2 == 0)
+
+
+ACCOUNT_CASES = (
+    ("llama2-7b", InputShape("smoke_prefill", 64, 2, "prefill"), False),
+    ("gemma3-1b", InputShape("smoke_decode", 64, 2, "decode"), True),
+    ("qwen3-moe-30b-a3b", InputShape("smoke_train", 32, 4, "train"), False))
+
+
+@pytest.mark.parametrize("arch,shape,seq", ACCOUNT_CASES,
+                         ids=[f"{a}-{s.kind}" for a, s, _ in ACCOUNT_CASES])
+def test_meta_grid_account_equals_a_cpu_rank(pool, arch, shape, seq):
+    """The dry run on a grid: each rank's step on a meta grid at its place
+    (``launch/mesh.make_meta_grid``) against the same step on that rank
+    of the CPU grid: the storage tally byte for byte, the FLOPs, and the
+    collectives' calls and bytes exactly (a prefill; a decode step on the
+    sequence-split layout; a train step of the production engine on the
+    grid, its MoE all-to-all included).  Every rank's account is the
+    same."""
+    cfg = smoke(arch)
+    res = pool.run(R.account, cfg, shape, seq)
+    for r, got in enumerate(res):
+        grid = make_meta_grid(N_DATA, N_MODEL, rank=r)
+        step, make_args = D.step_and_inputs(cfg, shape, grid=grid,
+                                            seq_shard_kv=seq)
+        assert D.measure(step, make_args(), grid) == got, (arch, r)
+        assert got == res[0]
+    assert got["collectives"]["total"] > 0
+    assert got["memory"]["temp_bytes"] > 0
+
+
+# ---------------------------------------------------------------------------
 # fused_dora on a slice
 # ---------------------------------------------------------------------------
 
@@ -520,6 +661,28 @@ def test_sharded_serving_matches_unsharded_and_reference(pool, jax_refs,
             assert rel(got["cache"][p], want) <= 1e-5, (arch, r, p)
     assert rel(steps, run[f"serve/{arch}/steps"]) <= 1e-4
     assert rel(res[0]["steps"], run[f"serve/{arch}/steps"]) <= 1e-4
+
+
+@pytest.mark.parametrize("arch", SEQ)
+def test_seq_split_decode_matches_the_reference(pool, jax_refs, arch):
+    """The grid's ``seq_shard_kv`` layout against the reference's decode
+    step jitted on ``make_debug_mesh(2, 2)`` with ``cache_specs(
+    seq_shard_kv=True)`` (the cache split on its sequence over 'model'),
+    from the same parameters and prompt: every step's logits within 1e-4
+    of max, the greedy tokens equal."""
+    run = jax_out(jax_refs, "serve_moe")
+    assert str(run[f"seq/{arch}/spec"]) == \
+        "PartitionSpec(None, 'data', 'model', None, None)"
+    cfg = smoke(arch)
+    params = sub(run, f"serve/{arch}/params")
+    batch = {"tokens": torch.as_tensor(run[f"serve/{arch}/tokens"].astype(
+        np.int64))}
+    want = run[f"seq/{arch}/steps"]
+    for got in pool.run(R.seq_serve, cfg, params, batch, N_NEW, S + N_NEW):
+        assert rel(got["steps"], want) <= 1e-4, arch
+        np.testing.assert_array_equal(got["steps"].argmax(-1),
+                                      want.argmax(-1))
+        assert rel(got["steps"], run[f"serve/{arch}/steps"]) <= 1e-4
 
 
 @pytest.mark.parametrize("rows", (4, 1), ids=("batch-divisible",

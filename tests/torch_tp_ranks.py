@@ -173,3 +173,48 @@ def collectives(grid, x):
         (y * w).sum().backward()
         out[name] = (y.detach().numpy(), t.grad.numpy())
     return out
+
+
+def seq_serve(grid, cfg, params, batch, n_new, cache_len, rowpos=0):
+    """On the grid's ``seq_shard_kv`` layout, from this rank's shard of
+    ``params`` and the whole ``batch``: the prefill step with a cache of
+    ``cache_len`` positions and ``n_new`` - 1 decode steps fed the greedy
+    tokens (row r at position S + i + r · ``rowpos`` when ``rowpos``,
+    per-row positions), every row's logits; the rank's cache after the
+    prefill, the largest difference of its slots from the default
+    layout's prefill cache cut to them (the kv heads whole on every
+    rank), and the rank's cache after the steps."""
+    mine = shard(grid, cfg, params)
+    B, S = batch["tokens"].shape
+    g = grid.replace(seq_shard_kv=True, kv_len=cache_len)
+    with torch.no_grad():
+        logits, cache = make_prefill_step(cfg, g)(mine, batch,
+                                                  cache_len=cache_len)
+        _, whole = make_prefill_step(cfg, grid)(mine, batch,
+                                                cache_len=cache_len)
+        first = host(cache)
+        off = 0.0
+        for p, x in host(whole).items():
+            n = first[p].shape[-3]
+            m = grid.model.rank if n != x.shape[-3] else 0
+            off = max(off, float(np.abs(x[..., m * n:(m + 1) * n, :, :]
+                                        - first[p]).max()))
+        decode = make_decode_step(cfg, g)
+        steps, tok = [logits.numpy()], logits.argmax(-1)
+        for i in range(n_new - 1):
+            idx = (torch.arange(B) * rowpos + S + i) if rowpos else S + i
+            logits, cache = decode(mine, tok, cache, idx)
+            steps.append(logits.numpy())
+            tok = logits.argmax(-1)
+    return {"steps": np.stack(steps), "cache": first, "prefill_off": off,
+            "final": host(cache)}
+
+
+def account(grid, cfg, shape, seq_shard_kv=False):
+    """``launch.dryrun.measure`` of the step ``dryrun.step_and_inputs``
+    builds on this rank of a CPU grid (its shard of the backbone and the
+    cache): the storage tally, the FLOPs and the collectives."""
+    from repro_torch.launch import dryrun
+    step, make_args = dryrun.step_and_inputs(
+        cfg, shape, device="cpu", grid=grid, seq_shard_kv=seq_shard_kv)
+    return dryrun.measure(step, make_args(), grid)
